@@ -6,31 +6,57 @@ Phases (any failure raises and exits non-zero):
 
   1. the card's name and power limit (``nvidia-smi``); TF32 off for matmul
      and cuDNN, so fp32 means fp32;
-  2. build the port's CUDA source with ``nvcc`` and report the build
-     seconds;
+  2. build the port's two CUDA sources (``gather_score.cu``,
+     ``masked_topk.cu``), one ``nvcc`` each, started together, and report
+     the build seconds; then build the per-column proximity graphs of the
+     200,000-row ``part`` table (BoomHQ's default ``graph_degree=16``) and
+     report the seconds per column;
   3. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes on the 200,000-row ``part`` table — qualifying counts
-     equal, scores within atol=1e-3, rtol=1e-4, ids equal except between
-     rows whose scores tie within that tolerance — with the kernel's
-     time, the plain version's time and the bound (bytes the call must move
-     over 3.35 TB/s vs. its flops over 67 TFLOP/s fp32, the larger);
-  4. the main path: fit BoomHQ (graph tier off, the quickstart's encoder and
-     rewriter step budgets, labels without the per-column trim as in the
-     tests' fitted fixture) on a mixed conjunctive + DNF workload, then serve 256
-     unseen queries through ``ServingEngine(batch_size=32)`` twice — the
-     default cost model and ``CostModel(force="candidate_local")`` — with
-     mean recall@10 against ``flat.ground_truth``. Launch counts are zeroed
-     just before the fit and read after the second pass: every kernel must
-     have launched and the forced pass must launch the fp32 kernel. The two
-     passes run the same plans through two scoring paths, so their mean
-     recalls must lie within 0.02; each must also be no worse (by more than
-     0.02) than the robust ``default_plan`` on the same queries. Whether
-     each pass meets the queries' recall target (0.9) is reported, not
-     enforced: at 200,000 rows the JAX package's own ``default_plan`` and
-     the best plan of the labelling grid fall short of it or barely clear
-     it (``crosscheck/recall_witness.py``), so a miss is printed as an
-     unmet target and kept in ``chip_smoke.json``;
-  5. a profile of one candidate-local batch (device time by kernel).
+     paths' shapes on that table — qualifying counts (``valid``) equal,
+     scores within atol=1e-3, rtol=1e-4, ids equal except between rows
+     whose plain scores tie within that tolerance (each differing id is
+     rescored by the plain formula; no row twice; every row clear of ties
+     present), and the check must refuse the result once two of its
+     untied ids are swapped — with the entry point's time,
+     the kernel's alone, the plain version's and the bound (bytes the call
+     must move over 3.35 TB/s vs. its flops over 67 TFLOP/s fp32, the
+     larger). Gather-score: IVF-probed candidates (fp32 and the int8
+     stage), the rerank union, and the candidate pool of a real graph walk
+     at the largest knobs (beam 16, 8 hops: 8 + 4·16 + 8·16·16 = 2,120
+     slots). Full-table scans of column 0: ``ops.masked_topk`` (dot, l2)
+     and ``ops.int8_masked_topk`` on ``table.quantized(0)``, k ∈ {10, 128},
+     conjunctive predicates at ≈1%, ≈10% and 100% selectivity;
+  4. the main path: fit BoomHQ (default graph tier, the quickstart's
+     encoder and rewriter step budgets, labels without the per-column trim
+     as in the tests' fitted fixture) on a mixed conjunctive + DNF
+     workload, then serve 256 unseen queries through
+     ``ServingEngine(batch_size=32)`` twice — the default cost model and
+     ``CostModel(force="candidate_local")`` — and a third time through the
+     batched executor under one fixed graph plan (beam 8, 4 hops), so the
+     walk runs whatever plans the rewriter learned (and once more at the
+     grid's largest graph knobs: beam 16, 8 hops, k_i = 8k, for the recall
+     the walk can reach); mean recall@10 against
+     ``flat.ground_truth``. Launch counts are zeroed just before the fit
+     and read after the graph passes: every gather kernel must have
+     launched, the forced pass must launch the fp32 kernel, graph groups
+     must have run in the third pass and their extraction must have
+     launched the fp32 kernel (more launches than the pass's reranks).
+     The two learned passes run the same plans through two scoring paths,
+     so their mean recalls must lie within 0.02; each must also be no
+     worse (by more than 0.02) than the robust ``default_plan`` on the same
+     queries. Whether each pass meets the queries' recall target (0.9) is
+     reported, not enforced: at 200,000 rows the JAX package's own
+     ``default_plan`` and the best plan of the labelling grid fall short of
+     it or barely clear it (``crosscheck/recall_witness.py``), so a miss is
+     printed as an unmet target and kept in ``chip_smoke.json``;
+  5. the full-table scan path: with the scan counts zeroed, every
+     conjunctive serving query runs ``ops.masked_topk`` and
+     ``ops.int8_masked_topk`` on column 0 under its own predicate; the fp32
+     scan must match ``flat.ground_truth`` on that column (scores within
+     the phase-3 tolerance, ids equal except between ties) and the int8
+     scan must return as many valid rows; both kernels must have launched;
+  6. a profile of one candidate-local batch and of one graph batch (device
+     time by kernel).
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -38,6 +64,7 @@ The line before the last is the JSON kernel report; the last line is
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import pathlib
@@ -52,6 +79,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 ROWS = 200_000  # the paper's row count for part
+SOURCES = ("gather_score", "masked_topk")
+GRAPH_DEGREE = 16  # BoomHQConfig's default
 N_SERVE = 256  # unseen serving queries
 BATCH = 32
 ATOL, RTOL = 1e-3, 1e-4
@@ -81,19 +110,42 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # phase 2: build
 # ---------------------------------------------------------------------------
 
-def build_kernels() -> float:
-    """Build the port's one CUDA source; a second source would build in
-    parallel with it (one ``nvcc`` each, all started together)."""
+def build_kernels() -> dict:
+    """Build the port's CUDA sources in parallel (one ``nvcc`` each, all
+    started together). -> {source: seconds to its build's end}."""
     from repro_torch.kernels import build
 
-    t = time.perf_counter()
-    path = build.build("gather_score")
-    secs = time.perf_counter() - t
-    log(f"built {path.name}")
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("    " + line.strip())
+    def one(name):
+        build.build(name)
+        return name, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        secs = dict(pool.map(one, SOURCES))
+    for name in SOURCES:
+        path = build.library_path(name)
+        log(f"built {path.name} in {secs[name]:.2f} s")
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print("    " + line.strip())
     return secs
+
+
+def build_graphs(table) -> tuple:
+    """The per-column graphs BoomHQ builds at its default degree, timed
+    one column at a time. -> (graphs, seconds per column)."""
+    from repro_torch.vectordb import graph
+
+    graphs, secs = [], []
+    for v in table.vectors:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        graphs.append(graph.build(v, GRAPH_DEGREE,
+                                  metric=table.schema.metric))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        log(f"graph of a {v.shape[1]}-d column: {secs[-1]:.1f} s")
+    return tuple(graphs), secs
 
 
 # ---------------------------------------------------------------------------
@@ -137,13 +189,90 @@ def _bound_ms(cand, dims, elem_bytes, m, k, *, int8, l2, masked):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernels(table, index, queries, device) -> list:
-    """Kernel vs plain version at the main path's shapes. Returns one row
-    per (shape, variant)."""
-    from repro_torch.core.executor import rrf_union_total
+def _held_to_plain(label, got_s, got_i, plain_s, plain_i, rescore) -> tuple:
+    """Scores within atol/rtol, ids equal except where the plain version
+    itself ties (the kernel and cuBLAS sum the dots in other orders, so
+    near-ties may come out in either order): a slot whose id differs must
+    name a row whose plain score (``rescore(ids)``: the plain formula and
+    mask recomputed for those ids, NEG for -1 or an excluded row) lies
+    within the tolerance of the plain score at that slot, no row may come
+    twice, and every row the plain version scores above its last live
+    slot by more than the tolerance must be among the kernel's. -> (max
+    |score error| over live slots, id swaps)."""
+    if not torch.allclose(got_s, plain_s, atol=ATOL, rtol=RTOL):
+        raise AssertionError(f"{label}: scores differ beyond atol={ATOL}, "
+                             f"rtol={RTOL}")
+    got_i, plain_i = got_i.long(), plain_i.long()
+    tol = ATOL + RTOL * plain_s.abs()
+    swapped = got_i != plain_i
+    if bool(swapped.any()):
+        redo = rescore(got_i)
+        if bool((swapped & ((redo - plain_s).abs() > tol)).any()):
+            raise AssertionError(f"{label}: a kernel id names a row whose "
+                                 f"plain score does not tie the plain "
+                                 f"version's at its slot")
+    g, p, ps, t = (x.reshape(-1, x.shape[-1])
+                   for x in (got_i, plain_i, plain_s, tol))
+    srt = g.sort(dim=1).values
+    if bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()):
+        raise AssertionError(f"{label}: the kernel returns a row twice")
+    last = torch.where(p >= 0, ps, torch.full_like(ps, float("inf"))).min(
+        dim=1, keepdim=True).values
+    clear = (p >= 0) & (ps > last + t)
+    if bool((clear & ~(p[:, :, None] == g[:, None, :]).any(-1)).any()):
+        raise AssertionError(f"{label}: the kernel misses a row the plain "
+                             f"version ranks clear of ties")
+    live = plain_s > -1e29
+    err = float((got_s - plain_s).abs()[live].max()) if live.any() else 0.0
+    return err, int(swapped.sum())
+
+
+def _refuses_planted_ids(label, got_s, got_i, plain_s, plain_i,
+                         rescore) -> None:
+    """Swap the ids of two live slots whose plain scores differ beyond the
+    tolerance — scores and id set untouched — and require
+    ``_held_to_plain`` to refuse the result."""
+    g = got_i.reshape(-1, got_i.shape[-1]).long().clone()
+    ps = plain_s.reshape(-1, plain_s.shape[-1])
+    for r in range(g.shape[0]):
+        live = torch.nonzero(g[r] >= 0).flatten()
+        if live.numel() < 2:
+            continue
+        i, j = int(live[0]), int(live[-1])
+        if float((ps[r, i] - ps[r, j]).abs()) > ATOL + RTOL * float(
+                ps[r, i].abs()):
+            g[r, i], g[r, j] = g[r, j].clone(), g[r, i].clone()
+            break
+    else:
+        raise AssertionError(f"{label}: no two live slots to swap")
+    try:
+        _held_to_plain(label, got_s, g.reshape(got_i.shape), plain_s,
+                       plain_i, rescore)
+    except AssertionError as e:
+        if "does not tie" in str(e):
+            return
+        raise
+    raise AssertionError(f"{label}: the id check accepted swapped ids")
+
+
+def _table_rescore(scores):
+    """``rescore`` over a full-table score vector: each id's entry, NEG
+    for -1."""
+    from repro_torch.kernels.shapes import NEG
+
+    return lambda ids: torch.where(ids >= 0, scores[ids.clamp(min=0)],
+                                   torch.full(ids.shape, NEG,
+                                              device=scores.device))
+
+
+def check_kernels(table, index, graph_, queries, device) -> list:
+    """Gather-score kernel vs plain version at the main path's shapes.
+    Returns one row per (shape, variant)."""
+    from repro_torch.core.executor import rrf_union_total, subquery_width
     from repro_torch.kernels import gather_score as gs
-    from repro_torch.kernels.ref import gather_score_ref
-    from repro_torch.vectordb import ivf
+    from repro_torch.kernels.beam_search import seeded_candidates
+    from repro_torch.kernels.ref import gather_score_ref, gather_scores_ref
+    from repro_torch.vectordb import ivf, predicates
 
     rng = np.random.default_rng(0)
     scal_np = table.scalars.cpu().numpy()
@@ -176,6 +305,19 @@ def check_kernels(table, index, queries, device) -> list:
     cases.append((f"rerank S={s_rr} 2 cols", "fp32",
                   dict(cand=rr, vectors=tuple(table.vectors), qs=(q0, q1),
                        w=w2, pred=None, k=10, metric="dot", scales=None)))
+    # the extraction of a graph walk at the largest knobs: every row the
+    # walk visited, under the queries' own predicates, at the subquery
+    # width of k_mult=8
+    pred_w = predicates.stack([q.predicates for q in queries[:b]])
+    walk, _ = seeded_candidates(
+        graph_.neighbors, graph_.entry_points, table.vectors[0],
+        table.scalars, pred_w, q0, beam_width=16, n_hops=8,
+        metric=table.schema.metric)
+    cases.append((f"graph walk S={walk.shape[1]}", "fp32",
+                  dict(cand=walk, vectors=(table.vectors[0],), qs=(q0,),
+                       w=ones, pred=pred_w,
+                       k=subquery_width(8 * 10, table.n_rows),
+                       metric=table.schema.metric, scales=None)))
 
     out = []
     for label, variant, a in cases:
@@ -200,28 +342,25 @@ def check_kernels(table, index, queries, device) -> list:
         if not torch.equal(q_k.long(), q_p.long()):
             raise AssertionError(f"{label} {variant}: qualifying counts "
                                  f"differ from the plain version")
-        if not torch.allclose(s_k, s_p, atol=ATOL, rtol=RTOL):
-            raise AssertionError(f"{label} {variant}: scores differ beyond "
-                                 f"atol={ATOL}, rtol={RTOL}")
-        # ids are equal except where two rows' scores tie within the score
-        # tolerance: the kernel and cuBLAS sum the dots in other orders, so
-        # such near-ties may come out in either order
-        swapped = ids_k != ids_p
-        tie = (s_k - s_p).abs() <= ATOL + RTOL * s_p.abs()
-        if bool((swapped & ~tie).any()):
-            raise AssertionError(f"{label} {variant}: kernel ids differ from "
-                                 f"the plain version beyond score ties")
-        n_swaps = int(swapped.sum())
-        live = (s_p > gs.NEG / 2)
-        err = float((s_k - s_p).abs()[live].max()) if live.any() else 0.0
+        def rescore(ids, a=a, fields=fields):
+            return gather_scores_ref(
+                ids.to(torch.int32), a["vectors"], a["qs"], a["w"],
+                table.scalars, *fields, metric=a["metric"],
+                apply_pred=a["pred"] is not None, scales=a["scales"])[0]
+
+        err, n_swaps = _held_to_plain(f"{label} {variant}", s_k, ids_k, s_p,
+                                      ids_p, rescore)
+        _refuses_planted_ids(f"{label} {variant}", s_k, ids_k, s_p, ids_p,
+                             rescore)
         ms = cuda_time_ms(kern)
         s_len = a["cand"].shape[1]
         bs = min(256, gs._next_pow2(max(s_len, a["k"], 8)))
-        if s_len % bs:
-            raise AssertionError(f"{label}: S={s_len} needs padding")
-        kernel_only_ms = cuda_time_ms(lambda a=a, fields=fields, bs=bs:
-                                      gs.gather_score_blocks(
-            a["cand"], a["vectors"], a["qs"], a["w"], table.scalars,
+        # the kernel alone takes S in whole blocks: pad as the entry does
+        cand_k = torch.cat([a["cand"], torch.full(
+            (b, (-s_len) % bs), -1, dtype=torch.int32, device=device)], 1)
+        kernel_only_ms = cuda_time_ms(lambda a=a, fields=fields, bs=bs,
+                                      cand_k=cand_k: gs.gather_score_blocks(
+            cand_k, a["vectors"], a["qs"], a["w"], table.scalars,
             *(f.contiguous() for f in fields), a["scales"], k=a["k"],
             block_s=bs, metric=a["metric"],
             apply_pred=a["pred"] is not None))
@@ -244,6 +383,119 @@ def check_kernels(table, index, queries, device) -> list:
     return out
 
 
+def _scan_bound_ms(n, d, m, k, nb, *, int8, l2):
+    """Least time for one full-table scan: every row's vector (int8 + its
+    f32 scale, or f32) and scalars read once, the query and predicate read
+    and the block pools written once, against the dots (and l2 norms)."""
+    bytes_ = n * (d * (1 if int8 else 4) + (4 if int8 else 0) + 4 * m) \
+        + 4 * (d + 3 * m) + nb * k * 8
+    flops = n * d * (4 if l2 else 2)
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _range_pred(scal_np, frac, device):
+    """A conjunctive (M,) range on the uniform price column holding about
+    ``frac`` of the rows; ``frac`` 1 activates no column."""
+    from repro_torch.vectordb.predicates import Predicates
+
+    m = scal_np.shape[1]
+    if frac >= 1.0:
+        return Predicates.none(m, device=device)
+    lo, hi = np.quantile(scal_np[:, 3], [0.5 - frac / 2, 0.5 + frac / 2])
+    return Predicates.from_conditions(m, {3: (float(lo), float(hi))},
+                                      device=device)
+
+
+def check_scans(table, queries, device) -> list:
+    """Full-table scan kernels vs their plain versions on column 0: fp32
+    (dot, l2) and int8, k ∈ {10, 128}, ≈1%, ≈10% and 100% selectivity.
+    Returns one row per (variant, k, selectivity)."""
+    from repro_torch.kernels import masked_topk as mt
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.shapes import SCAN_BLOCK_ROWS
+
+    scal_np = table.scalars.cpu().numpy()
+    v0 = table.vectors[0]
+    n, d = v0.shape
+    m = table.schema.n_scalar
+    vq, sc = table.quantized(0)
+    q = queries[0].query_vectors[0]
+    nb = -(-n // SCAN_BLOCK_ROWS)
+    out = []
+    for frac in (0.01, 0.10, 1.0):
+        p = _range_pred(scal_np, frac, device)
+        lo, hi, act = (x.to(torch.float32) for x in (p.lo, p.hi, p.active))
+        n_qual = int(torch.all(((table.scalars >= lo) & (table.scalars <= hi))
+                               | (act < 0.5), dim=1).sum())
+        for k in (10, 128):
+            for variant in ("dot", "l2", "int8"):
+                int8 = variant == "int8"
+                if int8:
+                    def kern(k=k, lo=lo, hi=hi, act=act):
+                        return ops.int8_masked_topk(q, vq, sc, table.scalars,
+                                                    lo, hi, act, k=k)
+
+                    def plain(k=k, lo=lo, hi=hi, act=act):
+                        return ref.int8_topk_ref(q, vq, sc, table.scalars,
+                                                 lo, hi, act, n, k=k)
+
+                    def blocks(k=k, lo=lo, hi=hi, act=act):
+                        return mt.launch_blocks(
+                            q, vq, sc, table.scalars, lo, hi, act, n, k=k,
+                            block_rows=SCAN_BLOCK_ROWS, metric="dot")
+                else:
+                    def kern(k=k, lo=lo, hi=hi, act=act, metric=variant):
+                        return ops.masked_topk(q, v0, table.scalars, lo, hi,
+                                               act, k=k, metric=metric)
+
+                    def plain(k=k, lo=lo, hi=hi, act=act, metric=variant):
+                        return ref.masked_topk_ref(q, v0, table.scalars, lo,
+                                                   hi, act, n, k=k,
+                                                   metric=metric)
+
+                    def blocks(k=k, lo=lo, hi=hi, act=act, metric=variant):
+                        return mt.masked_topk_blocks(
+                            q, v0, table.scalars, lo, hi, act, n, k=k,
+                            metric=metric)
+                label = f"{variant} k={k} sel={n_qual / n:.4f}"
+                s_k, i_k, valid = kern()
+                s_p, i_p = plain()
+                torch.cuda.synchronize()
+                if not torch.equal(valid, i_p >= 0):
+                    raise AssertionError(f"scan {label}: valid slots differ "
+                                         f"from the plain version")
+                deq = vq.to(torch.float32) * sc[:, None] if int8 else v0
+
+                def rescore(ids, lo=lo, hi=hi, act=act, deq=deq,
+                            metric="dot" if int8 else variant):
+                    return _table_rescore(ref.scan_scores_ref(
+                        q, deq, table.scalars, lo, hi, act, n,
+                        metric=metric))(ids)
+
+                err, n_swaps = _held_to_plain(f"scan {label}", s_k, i_k, s_p,
+                                              i_p, rescore)
+                _refuses_planted_ids(f"scan {label}", s_k, i_k, s_p, i_p,
+                                     rescore)
+                ms = cuda_time_ms(kern)
+                kernel_only_ms = cuda_time_ms(blocks)
+                plain_ms = cuda_time_ms(plain, iters=5, warmup=1)
+                bound, by = _scan_bound_ms(n, d, m, k, nb, int8=int8,
+                                           l2=variant == "l2")
+                out.append(dict(shape=label, variant=variant, k=k,
+                                selectivity=n_qual / n, ms=ms,
+                                kernel_only_ms=kernel_only_ms,
+                                plain_ms=plain_ms, bound_ms=bound,
+                                bound_by=by, max_abs_err=err,
+                                tie_swaps=n_swaps))
+                log(f"  scan {label:26s} entry {ms:7.4f} ms (kernel "
+                    f"{kernel_only_ms:7.4f})  plain {plain_ms:8.4f} ms  "
+                    f"bound {bound:7.4f} ms ({by})  max|err| {err:.3g}  "
+                    f"tie swaps {n_swaps}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -257,23 +509,124 @@ def serve_pass(bq, queries, gt, label):
     engine.warmup(queries)
     results, report = engine.serve(queries, gt_ids=gt)
     launches = {k: gs.LAUNCHES[k] - before[k] for k in gs.LAUNCHES}
-    for ids, scores in results:
-        if ids.shape != (10,) or not np.isfinite(scores[ids >= 0]).all():
-            raise AssertionError(f"{label}: malformed result {ids} {scores}")
+    _check_results(results, label)
     log(f"  serve[{label}]: {report.describe()}; kernel launches {launches}")
     return report, launches
 
 
-def profile_batch(bq, queries) -> dict:
-    """Device time by kernel (and copy) over one candidate-local batch;
-    their sum over the batch's wall time is the device's busy share."""
+def _check_results(results, label) -> None:
+    for ids, scores in results:
+        if ids.shape != (10,) or not np.isfinite(scores[ids >= 0]).all():
+            raise AssertionError(f"{label}: malformed result {ids} {scores}")
+
+
+def graph_plan(n_vec: int, beam_width: int = 8, n_hops: int = 4,
+               k_mult: int = 2):
+    """A fixed graph plan; the defaults are the third pass's (beam 8, 4
+    hops, k_i = 2k)."""
+    from repro_torch.core.query import ExecutionPlan, SubqueryParams
+
+    return ExecutionPlan("graph", tuple(
+        SubqueryParams(k_mult=k_mult, iterative=False) for _ in range(n_vec)),
+        beam_width=beam_width, n_hops=n_hops)
+
+
+def graph_pass(bq, queries, gt, plan, label) -> dict:
+    """The serving queries through the batched executor under one fixed
+    graph plan, batch by batch after one warm-up batch."""
+    from repro_torch.core.executor import recall_at_k
+    from repro_torch.kernels import gather_score as gs
+
+    bx = bq._batched_executor()
+    bx.execute_batch(queries[:BATCH], [plan] * BATCH)
+    bx.dispatcher.take()
+    before = dict(gs.LAUNCHES)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    results = []
+    for s in range(0, len(queries), BATCH):
+        part = queries[s: s + BATCH]
+        results.extend(bx.execute_batch(part, [plan] * len(part)))
+    seconds = time.perf_counter() - t
+    counts, decisions = bx.dispatcher.take()
+    launches = {k: gs.LAUNCHES[k] - before[k] for k in gs.LAUNCHES}
+    _check_results(results, "graph plan")
+    recall = float(np.mean([recall_at_k(ids, g)
+                            for (ids, _), g in zip(results, gt)]))
+    out = dict(qps=len(queries) / seconds, seconds=seconds,
+               mean_recall=recall, path_counts=counts, launches=launches,
+               groups=len(decisions),
+               graph_groups=sum(d["group"][0] == "gr" for d in decisions))
+    log(f"  serve[{label}]: {len(queries)} queries in "
+        f"{seconds:.2f}s ({out['qps']:.1f} QPS, mean recall {recall:.4f}), "
+        f"{out['graph_groups']} graph groups of {out['groups']}, kernel "
+        f"launches {launches}")
+    return out
+
+
+def scan_pass(table, queries) -> dict:
+    """The full-table scan path: each conjunctive query's column-0 vector
+    under its own predicate through ``ops.masked_topk`` and
+    ``ops.int8_masked_topk``, held to ``flat.ground_truth`` on column 0."""
+    from repro_torch.core.executor import recall_at_k
+    from repro_torch.kernels import masked_topk as mt
+    from repro_torch.kernels import ops, ref
+    from repro_torch.vectordb import flat
+    from repro_torch.vectordb.predicates import Predicates
+
+    conj = [q for q in queries if isinstance(q.predicates, Predicates)]
+    vq, sc = table.quantized(0)
+    zero = torch.zeros_like(conj[0].query_vectors[1])
+    mt.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = []
+    for q in conj:
+        p = q.predicates
+        got.append((ops.masked_topk(q.query_vectors[0], table.vectors[0],
+                                    table.scalars, p.lo, p.hi, p.active,
+                                    k=q.k, metric=table.schema.metric),
+                    ops.int8_masked_topk(q.query_vectors[0], vq, sc,
+                                         table.scalars, p.lo, p.hi, p.active,
+                                         k=q.k)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = dict(mt.LAUNCHES)
+    errs, swaps, recalls = [], 0, []
+    for q, ((s, i, v), (s8, i8, v8)) in zip(conj, got):
+        p = q.predicates
+        gt_i, gt_s = flat.ground_truth(table, [q.query_vectors[0], zero],
+                                       [1.0, 0.0], q.predicates, q.k)
+        if not torch.equal(v, gt_i >= 0) or not torch.equal(v8, v):
+            raise AssertionError("scan path: valid slots differ from the "
+                                 "ground truth")
+        rescore = _table_rescore(ref.scan_scores_ref(
+            q.query_vectors[0], table.vectors[0], table.scalars, p.lo, p.hi,
+            p.active, table.n_rows, metric=table.schema.metric))
+        err, n_sw = _held_to_plain("scan path", s, i, gt_s, gt_i, rescore)
+        errs.append(err)
+        swaps += n_sw
+        recalls.append(recall_at_k(i8, gt_i))
+    out = dict(queries=len(conj), seconds=seconds, launches=launches,
+               max_abs_err=max(errs), tie_swaps=swaps,
+               int8_mean_recall=float(np.mean(recalls)))
+    log(f"  scan path: {len(conj)} queries x (fp32 + int8 scan) in "
+        f"{seconds:.3f} s; launches {launches}; fp32 vs ground truth max|err| "
+        f"{out['max_abs_err']:.3g}, {swaps} tie swaps; int8 recall@10 "
+        f"{out['int8_mean_recall']:.4f}")
+    return out
+
+
+def profile_batch(run) -> dict:
+    """Device time by kernel (and copy) over one batch; their sum over the
+    batch's wall time is the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        bq.execute_batch(queries[:BATCH])
+        run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
     rows = []
@@ -292,6 +645,15 @@ def profile_batch(bq, queries) -> dict:
         print(f"    {ms:9.3f} ms  x{cnt:<5d} {key[:90]}")
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 top=[dict(kernel=k, ms=ms, count=c) for k, ms, c in rows[:12]])
+
+
+def _kernel_entry(name, source, replaces, rows, main, launches) -> dict:
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches,
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=None)
 
 
 def main() -> int:
@@ -324,10 +686,8 @@ def main() -> int:
 
     # phase 2
     build_s = build_kernels()
-    log(f"kernel build {build_s:.2f} s")
-
-    # data, traffic and the IVF indexes (BoomHQ's constructor builds them)
     table = datasets.make("part", rows=ROWS, seed=0, device=dev)
+    graphs, graph_s = build_graphs(table)
     # 40 training queries: 24 conjunctive + 16 DNF
     fit_wl = qgen.gen_workload(table, 24, n_vec_used=2, seed=1) + \
         qgen.gen_dnf_workload(table, 16, n_vec_used=2, seed=2)
@@ -337,15 +697,18 @@ def main() -> int:
         f"+ {table.schema.n_scalar} scalars; {len(fit_wl)} fit / "
         f"{len(serve_wl)} serve queries")
     cfg = BoomHQConfig(
-        n_clusters=32, graph_degree=0,
+        n_clusters=32,
         encoder=DataEncoderConfig(frozen_steps=40, ae_steps=80, sample=1024),
         rewriter=RewriterConfig(steps=200, refine_columns=False))
-    bq = BoomHQ(table, cfg)
+    if cfg.graph_degree != GRAPH_DEGREE:
+        raise AssertionError("the graphs are not at BoomHQ's default degree")
+    bq = BoomHQ(table, cfg, graphs=graphs)
     torch.cuda.synchronize()
-    log("IVF indexes and histograms built")
+    log("IVF indexes and histograms built; graphs bound")
 
     # phase 3
-    rows = check_kernels(table, bq.indexes[0], serve_wl, dev)
+    rows = check_kernels(table, bq.indexes[0], graphs[0], serve_wl, dev)
+    scan_rows = check_scans(table, serve_wl, dev)
 
     # phase 4 — launch counts cover exactly this run
     gs.reset_launches()
@@ -356,13 +719,35 @@ def main() -> int:
     gt = [flat.ground_truth(table, list(q.query_vectors), list(q.weights),
                             q.predicates, q.k)[0].cpu().numpy()
           for q in serve_wl]
+    plan_mix: dict = {}
+    for s in range(0, len(serve_wl), BATCH):
+        for p in bq.optimize_batch(serve_wl[s: s + BATCH]):
+            st = bq.executor.legalize(p).strategy
+            plan_mix[st] = plan_mix.get(st, 0) + 1
+    log(f"  learned plans on the serving queries: {plan_mix}")
     passes = {}
     rep_d, l_d = serve_pass(bq, serve_wl, gt, "default")
     bq.bind_cost_model(CostModel(force=CANDIDATE_LOCAL))
     rep_c, l_c = serve_pass(bq, serve_wl, gt, "candidate_local")
-    launches = dict(gs.LAUNCHES)
-    prof = profile_batch(bq, serve_wl)
     bq.bind_cost_model()
+    gpass = graph_pass(bq, serve_wl, gt, graph_plan(table.schema.n_vec),
+                       "graph plan beam 8, 4 hops")
+    # the grid's largest graph knobs, for the recall the walk can reach
+    gpass_max = graph_pass(bq, serve_wl, gt,
+                           graph_plan(table.schema.n_vec, 16, 8, 8),
+                           "graph plan beam 16, 8 hops, k_i = 8k")
+    launches = dict(gs.LAUNCHES)
+
+    # phase 5 — the scan path, its own counts
+    spass = scan_pass(table, serve_wl)
+
+    # phase 6
+    bq.bind_cost_model(CostModel(force=CANDIDATE_LOCAL))
+    prof = profile_batch(lambda: bq.execute_batch(serve_wl[:BATCH]))
+    bq.bind_cost_model()
+    gplan = graph_plan(table.schema.n_vec)
+    prof_graph = profile_batch(lambda: bq._batched_executor().execute_batch(
+        serve_wl[:BATCH], [gplan] * BATCH))
     # reference: the robust one-size-fits-all plan on the same queries
     robust = bq._batched_executor().execute_batch(
         serve_wl, [default_plan(q.n_vec, bq.engine) for q in serve_wl])
@@ -375,6 +760,8 @@ def main() -> int:
         passes[name] = dict(qps=rep.qps, mean_recall=rep.mean_recall,
                             seconds=rep.seconds, path_counts=rep.path_counts,
                             launches=lc)
+    passes["graph_plan"] = gpass
+    passes["graph_plan_max"] = gpass_max
     target = serve_wl[0].recall_target
     for name, p in passes.items():
         p["meets_recall_target"] = bool(p["mean_recall"] >= target)
@@ -389,33 +776,51 @@ def main() -> int:
         if cnt <= 0:
             raise AssertionError(f"kernel {name} never launched on the main "
                                  f"path")
-    for name, p in passes.items():
-        if p["mean_recall"] < robust_recall - RECALL_SPREAD:
+    if gpass["graph_groups"] <= 0 or gpass["graph_groups"] != gpass["groups"]:
+        raise AssertionError(f"the graph plan ran {gpass['graph_groups']} "
+                             f"graph groups of {gpass['groups']}")
+    # each chunk reranks with one fp32 launch; the rest are extractions
+    if gpass["launches"]["fp32"] <= gpass["groups"]:
+        raise AssertionError("the graph extraction never launched the fp32 "
+                             "kernel")
+    for name, cnt in spass["launches"].items():
+        if cnt <= 0:
+            raise AssertionError(f"scan kernel {name} never launched on the "
+                                 f"scan path")
+    for name in ("default", "candidate_local"):
+        if passes[name]["mean_recall"] < robust_recall - RECALL_SPREAD:
             raise AssertionError(
-                f"{name} pass mean recall {p['mean_recall']:.4f} falls "
-                f"below the robust default plan's {robust_recall:.4f}")
+                f"{name} pass mean recall {passes[name]['mean_recall']:.4f} "
+                f"falls below the robust default plan's {robust_recall:.4f}")
     if abs(rep_d.mean_recall - rep_c.mean_recall) > RECALL_SPREAD:
         raise AssertionError(f"scoring paths disagree: {rep_d.mean_recall} "
                              f"vs {rep_c.mean_recall}")
 
     kernels = []
     for variant in ("fp32", "int8"):
-        main = next(r for r in rows if r["variant"] == variant)
-        kernels.append(dict(
-            name=f"gather_score_{variant}", route="cuda",
-            source="src/repro_torch/csrc/gather_score.cu",
-            replaces="src/repro/kernels/gather_score.py:88",
-            launches=launches[variant],
-            max_abs_err=max(r["max_abs_err"] for r in rows
-                            if r["variant"] == variant),
-            ms=main["ms"], plain_ms=main["plain_ms"],
-            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=None))
+        vrows = [r for r in rows if r["variant"] == variant]
+        kernels.append(_kernel_entry(
+            f"gather_score_{variant}", "src/repro_torch/csrc/gather_score.cu",
+            "src/repro/kernels/gather_score.py:88", vrows, vrows[0],
+            launches[variant]))
+    for name, variant, replaces in (
+            ("masked_topk_fp32", "dot", "src/repro/kernels/masked_topk.py:28"),
+            ("int8_scan", "int8", "src/repro/kernels/int8_scan.py:28")):
+        vrows = [r for r in scan_rows if r["variant"] in
+                 ((variant,) if variant == "int8" else ("dot", "l2"))]
+        main_row = next(r for r in vrows if r["variant"] == variant
+                        and r["k"] == 10 and 0.05 < r["selectivity"] < 0.5)
+        kernels.append(_kernel_entry(
+            name, "src/repro_torch/csrc/masked_topk.cu", replaces, vrows,
+            main_row, spass["launches"]["int8" if variant == "int8"
+                                        else "fp32"]))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        device=smi, build_s=build_s, kernel_shapes=rows, passes=passes,
-        fit=metrics, profile=prof, launches=launches,
+        device=smi, build_s=build_s, graph_build_s=graph_s,
+        kernel_shapes=rows, scan_shapes=scan_rows, passes=passes,
+        plan_mix=plan_mix, scan_pass=spass, fit=metrics, profile=prof,
+        profile_graph=prof_graph, launches=launches,
         default_plan_recall=robust_recall, recall_target=target,
         seconds=time.perf_counter() - T0), indent=1))
     log(f"done in {time.perf_counter() - T0:.1f} s")

@@ -21,7 +21,13 @@ It reports, as mean recall@10 against each package's ``flat.ground_truth``:
   4. the plan ceiling: per query, the best recall of any plan in
      ``rewriter.candidate_plans`` (the grid the learned planner's labels are
      drawn from) on the port's own indexes — no plan the planner can learn
-     does better on that query.
+     does better on that query;
+  5. fixed graph plans (``chip_smoke.py``'s third pass: beam 8, 4 hops,
+     k_i = 2k; and the grid's largest knobs: beam 16, 8 hops, k_i = 8k),
+     each through the JAX package on its own degree-16 graphs, the port on
+     those graphs carried across (``convert.graph_index``) and the port on
+     its own graphs (``graph.build`` on the card), with the share of the
+     port's graph edges that the JAX graph also holds.
 
 Everything goes to ``chiprun_out/recall_witness.json``.
 """
@@ -49,9 +55,12 @@ from repro.bench import datasets as jds  # noqa: E402
 from repro.bench import queries as jq  # noqa: E402
 from repro.core.executor import PGVECTOR as J_PGVECTOR  # noqa: E402
 from repro.core.executor import recall_at_k as j_recall  # noqa: E402
+from repro.core.query import ExecutionPlan as JPlan  # noqa: E402
+from repro.core.query import SubqueryParams as JSub  # noqa: E402
 from repro.core.query import default_plan as j_default_plan  # noqa: E402
 from repro.serve.batch import BatchedHybridExecutor as JBX  # noqa: E402
 from repro.vectordb import flat as jflat  # noqa: E402
+from repro.vectordb import graph as jgraph  # noqa: E402
 from repro.vectordb import ivf as jivf  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
@@ -59,14 +68,18 @@ from repro_torch.bench import datasets as tds  # noqa: E402
 from repro_torch.bench import queries as tq  # noqa: E402
 from repro_torch.core.executor import PGVECTOR, HybridExecutor  # noqa: E402
 from repro_torch.core.executor import recall_at_k  # noqa: E402
+from repro_torch.core.query import ExecutionPlan, SubqueryParams  # noqa: E402
 from repro_torch.core.query import default_plan  # noqa: E402
 from repro_torch.core.rewriter import candidate_plans  # noqa: E402
 from repro_torch.serve.batch import BatchedHybridExecutor  # noqa: E402
 from repro_torch.vectordb import flat as tflat  # noqa: E402
+from repro_torch.vectordb import graph as tgraph  # noqa: E402
 from repro_torch.vectordb import ivf as tivf  # noqa: E402
 from repro_torch.vectordb.predicates import eval_mask  # noqa: E402
 
 N_CLUSTERS = 32
+GRAPH_DEGREE = 16  # BoomHQConfig's default
+GRAPH_KNOBS = ((8, 4, 2), (16, 8, 8))  # (beam, hops, k_mult)
 BATCH = 32
 T0 = time.perf_counter()
 
@@ -192,6 +205,63 @@ def main() -> int:
             f"ceiling {strata[f'{lo}-{min(hi, 1.0)}']['ceiling']}, JAX "
             f"default_plan {strata[f'{lo}-{min(hi, 1.0)}']['jax_default']}")
 
+    # 5. fixed graph plans: JAX graphs, JAX graphs carried across, port graphs
+    t = time.perf_counter()
+    with jax.default_matmul_precision("highest"):  # fp32, as the port
+        jgr = [jgraph.build(v, GRAPH_DEGREE, metric=jt.schema.metric)
+               for v in jt.vectors]
+    j_build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    tgr = [tgraph.build(v, GRAPH_DEGREE, metric=tt.schema.metric)
+           for v in tt.vectors]
+    t_build_s = time.perf_counter() - t
+    overlap = []
+    for jg, tg in zip(jgr, tgr):
+        a, b = np.asarray(jg.neighbors), tg.neighbors.cpu().numpy()
+        hit = ((b[:, :, None] == a[:, None, :]) & (b[:, :, None] >= 0)).any(-1)
+        overlap.append(float(hit.sum() / max((b >= 0).sum(), 1)))
+    log(f"5. graphs of degree {GRAPH_DEGREE}: JAX build {j_build_s:.1f} s, "
+        f"port build {t_build_s:.1f} s; share of the port's edges the JAX "
+        f"graph holds, by column: {[round(x, 4) for x in overlap]}")
+    cgr = [convert.graph_index(np.asarray(g.neighbors),
+                               np.asarray(g.entry_points), g.metric,
+                               device=dev) for g in jgr]
+    jgbx = JBX(jt, jidx, J_PGVECTOR, graphs=jgr)
+    cgbx = BatchedHybridExecutor(tt, cidx, PGVECTOR, graphs=cgr)
+    ogbx = BatchedHybridExecutor(tt, oidx, PGVECTOR, graphs=tgr)
+    graph_rows = []
+    for bw, nh, km in GRAPH_KNOBS:
+        def plans(plan_cls, sub_cls, qs, bw=bw, nh=nh, km=km):
+            return [plan_cls("graph", tuple(sub_cls(k_mult=km, iterative=False)
+                                            for _ in range(q.n_vec)),
+                             beam_width=bw, n_hops=nh) for q in qs]
+
+        jg_res = batched(lambda qs: jgbx.execute_batch(
+            qs, plans(JPlan, JSub, qs)), jwl)
+        cg_res = batched(lambda qs: cgbx.execute_batch(
+            qs, plans(ExecutionPlan, SubqueryParams, qs)), twl)
+        og_res = batched(lambda qs: ogbx.execute_batch(
+            qs, plans(ExecutionPlan, SubqueryParams, qs)), twl)
+        row = dict(
+            beam_width=bw, n_hops=nh, k_mult=km,
+            jax_graphs_jax=float(np.mean([j_recall(np.asarray(ids), g)
+                                          for (ids, _), g in zip(jg_res,
+                                                                 j_gt)])),
+            jax_graphs_port=float(np.mean([recall_at_k(ids, g) for (ids, _), g
+                                           in zip(cg_res, t_gt)])),
+            port_graphs_port=float(np.mean([recall_at_k(ids, g)
+                                            for (ids, _), g in zip(og_res,
+                                                                   t_gt)])),
+            port_ids_differ_from_jax=sum(
+                set(np.asarray(a).tolist()) != set(np.asarray(b).tolist())
+                for (a, _), (b, _) in zip(cg_res, jg_res)))
+        graph_rows.append(row)
+        log(f"   graph plan beam {bw}, {nh} hops, k_i = {km}k: mean recall "
+            f"JAX on JAX graphs {row['jax_graphs_jax']:.4f}, port on JAX "
+            f"graphs {row['jax_graphs_port']:.4f} "
+            f"({row['port_ids_differ_from_jax']} queries' ids differ), port "
+            f"on port graphs {row['port_graphs_port']:.4f}")
+
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "recall_witness.json").write_text(json.dumps(dict(
@@ -205,6 +275,8 @@ def main() -> int:
         ceiling_reaches_0_9=int((ceil >= 0.9).sum()),
         ceiling_reaches_0_95=int((ceil >= 0.95).sum()),
         strata=strata,
+        graph_build_s=dict(jax=j_build_s, port=t_build_s),
+        graph_edge_overlap=overlap, graph_plans=graph_rows,
         per_query=[dict(selectivity=s, jax_default=float(a),
                         port_default_jax_idx=float(b),
                         port_default_own_idx=float(c), ceiling=float(d),

@@ -5,9 +5,10 @@ in the JAX package's own parameter layout) and returns the port's objects
 on ``device``. Nothing here imports JAX: the caller exports with
 ``np.asarray`` (e.g. ``jax.tree_util.tree_map(np.asarray, params)``).
 
-Covered: ``IVFIndex``, ``Histograms``, ``DataEncoder`` parameters and bin
-edges, ``MHQRewriter`` parameters and the query encoder's S_enc edges —
-and ``boomhq``, which assembles a fitted ``BoomHQ`` from all of them.
+Covered: ``IVFIndex``, ``GraphIndex``, ``Histograms``, ``DataEncoder``
+parameters and bin edges, ``MHQRewriter`` parameters and the query
+encoder's S_enc edges — and ``boomhq``, which assembles a fitted ``BoomHQ``
+from all of them.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from repro_torch.core.data_encoder import DataEncoder
 from repro_torch.core.executor import PGVECTOR
 from repro_torch.core.query_encoder import QueryEncoder
 from repro_torch.core.rewriter import MHQRewriter
+from repro_torch.vectordb.graph import GraphIndex
 from repro_torch.vectordb.histogram import Histograms
 from repro_torch.vectordb.ivf import IVFIndex
 
@@ -35,6 +37,15 @@ def ivf_index(centroids, sorted_rows, offsets, metric: str, *,
     return IVFIndex(centroids=_t(centroids, dev),
                     sorted_rows=_t(sorted_rows, dev, torch.int32),
                     offsets=_t(offsets, dev, torch.int32), metric=metric)
+
+
+def graph_index(neighbors, entry_points, metric: str, *,
+                device=None) -> GraphIndex:
+    """(n, R) adjacency (-1 = free slot) and (E,) entry points."""
+    dev = resolve_device(device)
+    return GraphIndex(neighbors=_t(neighbors, dev, torch.int32),
+                      entry_points=_t(entry_points, dev, torch.int32),
+                      metric=metric)
 
 
 def histograms(edges, prefix, n_rows, *, device=None) -> Histograms:

@@ -2,17 +2,19 @@
 
 Port of ``repro.core.boomhq`` for an unsharded, untiered table:
 
-  fit():            build per-column IVF indexes + histograms, train the
-                    data encoder, label the training workload by grid
-                    execution, train the rewriter heads.
+  fit():            train the data encoder, label the training workload
+                    by grid execution, train the rewriter heads (the
+                    constructor builds the per-column IVF indexes,
+                    histograms and, with ``graph_degree > 0``, proximity
+                    graphs).
   optimize():       query encoder -> X_in -> predicted ExecutionPlan.
   optimize_batch(): the same for a whole batch in one batched pass and one
                     host sync.
   execute() / execute_batch(): optimize + run, with one underfill
                     escalation to the robust default plan.
 
-The graph tier, shards, tiers, tenants, ``insert`` and the semantic cache
-are not ported yet; ``BoomHQConfig(graph_degree=0)`` is required.
+Shards, tiers, tenants, ``insert`` and the semantic cache are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from repro_torch.core.executor import EngineCaps, HybridExecutor, PGVECTOR
 from repro_torch.core.query import ExecutionPlan, MHQ, default_plan
 from repro_torch.core.query_encoder import QueryEncoder
 from repro_torch.core.rewriter import MHQRewriter, RewriterConfig, generate_label
-from repro_torch.vectordb import flat, histogram, ivf, predicates
+from repro_torch.vectordb import flat, graph, histogram, ivf, predicates
 from repro_torch.vectordb.table import Table
 
 
@@ -42,8 +44,9 @@ def _n_valid(ids) -> int:
 class BoomHQConfig:
     n_clusters: int = 64
     hist_bins: int = 64
-    # out-degree of the per-column proximity graphs; the graph tier is not
-    # ported yet, so BoomHQ requires 0 (plans legalize graph -> index_scan)
+    # out-degree of the per-column proximity graphs (the "graph" strategy,
+    # vectordb.graph); 0 disables the tier (plans legalize graph ->
+    # index_scan)
     graph_degree: int = 16
     encoder: DataEncoderConfig = dataclasses.field(
         default_factory=DataEncoderConfig)
@@ -59,16 +62,13 @@ class BoomHQ:
     """Runs on the device of ``table`` (``Table.from_numpy`` and
     ``datasets.make`` put it on the CUDA device by default).
 
-    ``indexes`` / ``hists``: already-built IVF indexes and histograms to
-    bind instead of building them (``convert`` carries the JAX package's
-    across this way)."""
+    ``indexes`` / ``hists`` / ``graphs``: already-built IVF indexes,
+    histograms and per-column graphs to bind instead of building them
+    (``convert`` carries the JAX package's across this way)."""
 
     def __init__(self, table: Table, cfg: BoomHQConfig = BoomHQConfig(),
-                 engine: EngineCaps = PGVECTOR, *, indexes=None, hists=None):
-        if cfg.graph_degree:
-            raise NotImplementedError(
-                "the graph tier is not ported yet: use "
-                "BoomHQConfig(graph_degree=0)")
+                 engine: EngineCaps = PGVECTOR, *, indexes=None, hists=None,
+                 graphs=None):
         self.table = table
         self.cfg = cfg
         self.engine = engine
@@ -79,7 +79,14 @@ class BoomHQ:
         self.hists = hists if hists is not None else histogram.build(
             table.scalars, cfg.hist_bins)
         self.graphs = None
-        self.executor = HybridExecutor(table, self.indexes, engine)
+        if graphs is not None:
+            self.graphs = tuple(graphs)
+        elif cfg.graph_degree:
+            self.graphs = tuple(
+                graph.build(v, cfg.graph_degree, metric=table.schema.metric)
+                for v in table.vectors)
+        self.executor = HybridExecutor(table, self.indexes, engine,
+                                       graphs=self.graphs)
         self.data_encoder: Optional[DataEncoder] = None
         if cfg.use_de:
             self.data_encoder = DataEncoder(
@@ -278,5 +285,6 @@ class BoomHQ:
         if self._batched is None:
             self._batched = BatchedHybridExecutor(
                 self.table, self.indexes, self.engine,
-                cost_model=self.cost_model, hists=self.hists)
+                cost_model=self.cost_model, hists=self.hists,
+                graphs=self.graphs)
         return self._batched

@@ -6,10 +6,12 @@ Port of ``repro.core.executor``:
   * index_scan    — one single-vector filtered IVF subquery per column
                     (k_i, nprobe, max_scan, iterative), union the
                     candidates, re-rank by the full weighted score;
-  * single_index  — skewed weights: search only the dominant column.
+  * single_index  — skewed weights: search only the dominant column;
+  * graph         — one predicate-aware beam walk per column over its
+                    proximity graph (``vectordb.graph``), then the same
+                    union and re-rank as index_scan.
 
-The graph tier is not ported yet, so ``legalize`` rewrites graph plans to
-``index_scan`` exactly as the JAX executor does without a bound graph.
+Without bound graphs ``legalize`` rewrites graph plans to ``index_scan``.
 ``iterative`` is pgvector's iterative_scan: nprobe doubling while the
 filtered result underfills k (one host sync per round).
 """
@@ -26,7 +28,7 @@ from repro_torch.core.query import (
     BEAM_GRID, ExecutionPlan, HOP_GRID, MHQ, PRECISION_GRID, SubqueryParams,
 )
 from repro_torch.kernels.shapes import NEG
-from repro_torch.vectordb import flat, ivf, predicates
+from repro_torch.vectordb import flat, graph, ivf, predicates
 from repro_torch.vectordb.flat import topk_stable
 from repro_torch.vectordb.table import Table, similarity
 
@@ -198,17 +200,16 @@ def legal_knob(grid: tuple, value: int) -> int:
 class HybridExecutor:
     """Binds a table + per-column IVF indexes + an engine personality.
 
-    The graph tier is not ported yet: ``graphs`` must be None and graph
-    plans legalize to ``index_scan``."""
+    ``graphs``: optional per-column ``vectordb.graph.GraphIndex`` tuple —
+    when bound, plans may pick the "graph" strategy; when absent,
+    legalization rewrites graph plans to index_scan."""
 
     def __init__(self, table: Table, indexes: list,
                  engine: EngineCaps = PGVECTOR, *, graphs=None):
-        if graphs is not None:
-            raise NotImplementedError("the graph tier is not ported yet")
         self.table = table
         self.indexes = indexes
         self.engine = engine
-        self.graphs = None
+        self.graphs = tuple(graphs) if graphs is not None else None
 
     # -- plan legalization ---------------------------------------------------
 
@@ -237,6 +238,8 @@ class HybridExecutor:
             if self.graphs is None:
                 strategy = "index_scan"
             else:
+                # graph candidates come from the fp32 walk and one fused
+                # extraction: there is no int8 candidate tier
                 prec = "fp32"
                 beam = legal_knob(BEAM_GRID, beam)
                 hops = legal_knob(HOP_GRID, hops)
@@ -266,8 +269,16 @@ class HybridExecutor:
             k_i = min(sp.k_mult * q.k, t.n_rows)
             ks = subquery_width(k_i, min(sp.max_scan, t.n_rows)) \
                 if len(cols) > 1 else k_i
-            ids_i = self._subquery(i, q, k_i, sp, precision=plan.precision,
-                                   width=ks)
+            if plan.strategy == "graph":
+                # the walk's list is already filtered and ranked, so it
+                # joins the same union and re-rank as an IVF subquery
+                ids_i, _, _, _ = graph.search(
+                    self.graphs[i], t.vectors[i], t.scalars, q.predicates,
+                    q.query_vectors[i], beam_width=plan.beam_width,
+                    n_hops=plan.n_hops, k=ks)
+            else:
+                ids_i = self._subquery(i, q, k_i, sp,
+                                       precision=plan.precision, width=ks)
             wide.append(ids_i)
             cand.append(ids_i[:k_i])
         rows = torch.cat(cand)

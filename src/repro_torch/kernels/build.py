@@ -1,7 +1,8 @@
 """Build and load the port's CUDA sources.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded through ``ctypes``. The build goes
+library with a plain C interface, loaded through ``ctypes``; the sources
+share the ``csrc/*.cuh`` headers. The build goes
 to ``build/repro_torch/`` at the repository root (listed in ``.gitignore``)
 under a name carrying the hash of the source and flags, so a changed source
 rebuilds and an unchanged one loads from the cache. Nothing is built when a
@@ -37,8 +38,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where the built library of ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where the built library of ``csrc/<name>.cu`` lives. The hash covers
+    the source, every shared header of ``csrc/`` and the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

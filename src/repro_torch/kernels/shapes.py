@@ -28,3 +28,5 @@ MAX_TOPK = 128  # largest k a kernel is launched with
 MAX_BEAM_WIDTH = 16
 MAX_BEAM_HOPS = 8
 MAX_GRAPH_DEGREE = 32
+GRAPH_ENTRY_POINTS = 8  # static entry-point count (medoid + strided)
+GRAPH_SEED_FACTOR = 4  # qualifying seed rows per beam slot

@@ -4,7 +4,8 @@ Port of the unsharded part of ``repro.serve.batch``:
 
   * queries group by (strategy, legalized per-column subquery params, k,
     clause bucket, precision) — every query in a group runs the same
-    batched tensor program over the query axis;
+    batched tensor program over the query axis; graph groups key on the
+    legalized (beam_width, n_hops) pair and always run candidate-local;
   * a per-group ``ScoringDispatcher`` picks DENSE scoring (one GEMM per
     vector column scores every row for the whole chunk; search,
     filter-first and rerank then gather f32 scores) or CANDIDATE-LOCAL
@@ -16,8 +17,8 @@ Port of the unsharded part of ``repro.serve.batch``:
     subset re-probes at a doubled nprobe.
 
 ``ServingEngine`` chops a request stream into batches and drives
-``BoomHQ.execute_batch``. The sharded, graph and shard-escalation paths of
-the JAX module are not ported yet.
+``BoomHQ.execute_batch``. The sharded and shard-escalation paths of the JAX
+module are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ from repro_torch.core.executor import (
 )
 from repro_torch.core.query import ExecutionPlan, MHQ
 from repro_torch.kernels.gather_score import gather_score_topk
-from repro_torch.vectordb import flat, ivf, predicates
+from repro_torch.kernels.shapes import GRAPH_ENTRY_POINTS, GRAPH_SEED_FACTOR
+from repro_torch.vectordb import flat, graph, ivf, predicates
 from repro_torch.vectordb.table import Table, similarity_batch
 
 # Dense-score budget: chunks are sized so batch · n_rows stays under this
@@ -63,12 +65,30 @@ class CostModel:
     overhead: float = 2048.0  # per-batch fixed cost, in gathered-row units
     crossover_int8: float = 0.545
     overhead_int8: float = 3350.0
+    # graph tier: a visited graph row in gathered-row units, and the
+    # per-batch fixed cost of the walk's n_hops sequential hop steps
+    graph_row_cost: float = 0.216
+    overhead_graph: float = 328.3
     force: Optional[str] = None
 
     def constants(self, precision: str = "fp32") -> tuple:
         if precision == "int8":
             return self.crossover_int8, self.overhead_int8
         return self.crossover, self.overhead
+
+    def choose_strategy(self, *, batch: int, graph_scan: int,
+                        probe_scan: int, n_rows: int) -> str:
+        """The cheapest of {"exact", "index_scan", "graph"} in gathered-row
+        units: exact ≈ crossover · n_rows (one dense GEMM per column),
+        probe ≈ batch · probe_scan + overhead, graph ≈ batch · graph_scan ·
+        graph_row_cost + overhead_graph."""
+        costs = {
+            "exact": self.crossover * n_rows,
+            "index_scan": batch * probe_scan + self.overhead,
+            "graph": batch * graph_scan * self.graph_row_cost
+            + self.overhead_graph,
+        }
+        return min(costs, key=costs.get)
 
     def choose(self, *, batch: int, scan: int, n_rows: int,
                precision: str = "fp32") -> str:
@@ -99,8 +119,13 @@ class ScoringDispatcher:
         return prefer_dense and self.cost_model.force is None
 
     def choose(self, *, batch: int, scan: int, group=None,
-               prefer_dense: bool = False, precision: str = "fp32") -> str:
-        if self.pins_dense(prefer_dense):
+               force: Optional[str] = None, prefer_dense: bool = False,
+               precision: str = "fp32") -> str:
+        """``force`` pins this decision to one path (graph groups have no
+        dense variant); it is still logged."""
+        if force is not None:
+            path = force
+        elif self.pins_dense(prefer_dense):
             path = DENSE
         else:
             path = self.cost_model.choose(batch=batch, scan=scan,
@@ -172,14 +197,15 @@ class BatchedHybridExecutor:
 
     def __init__(self, table: Table, indexes: list,
                  engine: EngineCaps = PGVECTOR, *,
-                 cost_model: Optional[CostModel] = None, hists=None):
+                 cost_model: Optional[CostModel] = None, hists=None,
+                 graphs=None):
         self.table = table
         self.indexes = indexes
         self.engine = engine
         self.hists = hists
-        self.graphs = None
+        self.graphs = tuple(graphs) if graphs is not None else None
         self.dispatcher = ScoringDispatcher(table.n_rows, cost_model)
-        self._seq = HybridExecutor(table, indexes, engine)
+        self._seq = HybridExecutor(table, indexes, engine, graphs=graphs)
 
     def legalize(self, plan: ExecutionPlan) -> ExecutionPlan:
         return self._seq.legalize(plan)
@@ -190,11 +216,18 @@ class BatchedHybridExecutor:
         """Everything that fixes the shapes of the group's program:
         filter_first groups on (clause bucket, k, max_candidates); index
         groups on the clause bucket, k, each active column's effective
-        (k_i, nprobe, max_scan, iterative) and the plan precision."""
+        (k_i, nprobe, max_scan, iterative) and the plan precision; graph
+        groups on each active column's (k_i, beam_width, n_hops), with the
+        legalized fp32 precision in the same slot."""
         cb = predicates.clause_bucket(q.predicates)
         if plan.strategy == "filter_first":
             return ("ff", cb, q.k, plan.max_candidates)
         n = self.table.n_rows
+        if plan.strategy == "graph":
+            subs = tuple((i, min(plan.subqueries[i].k_mult * q.k, n),
+                          plan.beam_width, plan.n_hops)
+                         for i in plan_columns(q, plan))
+            return ("gr", cb, q.k, subs, "fp32")
         subs = []
         for i in plan_columns(q, plan):
             sp = plan.subqueries[i]
@@ -210,6 +243,13 @@ class BatchedHybridExecutor:
         if key[0] == "ff":
             return int(key[3])
         subs = key[3]
+        if key[0] == "gr":
+            # the rows a walk can visit: entry points + qualifying seeds +
+            # hops · beam · degree
+            tot = sum(GRAPH_ENTRY_POINTS + GRAPH_SEED_FACTOR * bw
+                      + nh * bw * self.graphs[col].degree
+                      for (col, _, bw, nh) in subs)
+            return max(1, tot // max(1, len(subs)))
         return max(1, sum(s[3] for s in subs) // max(1, len(subs)))
 
     # -- execution ---------------------------------------------------------
@@ -281,11 +321,13 @@ class BatchedHybridExecutor:
                    bucket_cap: int, scores_b: Optional[tuple] = None):
         t = self.table
         bb = min(next_bucket(len(qs)), bucket_cap)
-        precision = key[4] if key[0] == "ix" else "fp32"
-        path = self.dispatcher.choose(batch=bb, scan=self._group_scan(key),
-                                      group=key[:3],
-                                      prefer_dense=scores_b is not None,
-                                      precision=precision)
+        precision = key[4] if key[0] in ("ix", "gr") else "fp32"
+        # graph groups have no dense variant: the walk touches
+        # O(hops·beam·degree) rows, a (B, n) score matrix buys nothing
+        path = self.dispatcher.choose(
+            batch=bb, scan=self._group_scan(key), group=key[:3],
+            force=CANDIDATE_LOCAL if key[0] == "gr" else None,
+            prefer_dense=scores_b is not None, precision=precision)
         pred_b, qv_b, w_b = self._stack_inputs(qs, bb)
 
         if path == CANDIDATE_LOCAL:
@@ -325,10 +367,14 @@ class BatchedHybridExecutor:
                 metric=t.schema.metric)
             return out_ids, out_scores
         k, subs, precision = key[2], key[3], key[4]
-        cand = [self._batched_subquery(col, None, pred_b, qv_b[col], k_i,
-                                       np0, ms, it, local=True,
-                                       precision=precision)
-                for (col, k_i, np0, ms, it) in subs]
+        if key[0] == "gr":
+            cand = [self._graph_subquery(col, pred_b, qv_b[col], k_i, bw, nh)
+                    for (col, k_i, bw, nh) in subs]
+        else:
+            cand = [self._batched_subquery(col, None, pred_b, qv_b[col], k_i,
+                                           np0, ms, it, local=True,
+                                           precision=precision)
+                    for (col, k_i, np0, ms, it) in subs]
         rows_b = self._union_candidates(cand, subs)
         vecs, qsb, wsub, _ = self._active_columns(qs, qv_b, w_b)
         out_ids, out_scores, _ = _gather_rerank_batch(
@@ -372,6 +418,19 @@ class BatchedHybridExecutor:
         extras = rrf_extras(tuple(cand_wide), kis=kis,
                             n_extra=rrf_union_total(sum_ki) - sum_ki)
         return torch.cat([base, extras.to(base.dtype)], dim=1)
+
+    def _graph_subquery(self, col: int, pred_b, q_b, k_i: int,
+                        beam_width: int, n_hops: int):
+        """One column's graph walk for the whole chunk: ranked candidate ids
+        at the padded probe width (bb, ks), ks ≥ k_i, the contract of
+        ``_batched_subquery``. No re-expansion: the walk's budget is fixed
+        by (beam_width, n_hops)."""
+        t = self.table
+        ks = subquery_width(k_i, t.n_rows)
+        ids, _, _, _ = graph.search_local_batch(
+            self.graphs[col], t.vectors[col], t.scalars, pred_b, q_b,
+            beam_width=beam_width, n_hops=n_hops, k=ks)
+        return ids
 
     def _batched_subquery(self, col: int, rs_b, pred_b, q_b, k_i: int,
                           nprobe: int, max_scan: int, iterative: bool, *,

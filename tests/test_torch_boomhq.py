@@ -6,9 +6,12 @@ and carried across with ``repro_torch.convert``. On the same table and the
 same unseen queries the port must produce the same fused features
 (``atol=1e-4``), the same plans from ``optimize_batch``, and the same
 ``execute_batch`` results under both scoring paths (scores to ``atol=1e-4``,
-ids equal except on float ties). The port's OWN fit must then clear the
-``tests/test_oracle.py`` floors: mean oracle recall ≥ 0.95 on both scoring
-paths, the two means within 0.02, and the default-plan batched floor.
+ids equal except on float ties). With JAX-built graphs of the same table
+carried across, fixed graph plans give the same results through both
+executors. The port's OWN fit must then clear the ``tests/test_oracle.py``
+floors: mean oracle recall ≥ 0.95 on both scoring paths, the two means
+within 0.02, and the default-plan batched floor; at the default graph
+degree the port builds its own graph tier and keeps graph plans.
 """
 import dataclasses
 
@@ -26,16 +29,24 @@ from repro.bench import queries as jq  # noqa: E402
 from repro.core.boomhq import BoomHQ as JBoomHQ  # noqa: E402
 from repro.core.boomhq import BoomHQConfig as JConfig  # noqa: E402
 from repro.core.data_encoder import DataEncoderConfig as JDEC  # noqa: E402
+from repro.core.executor import HybridExecutor as JHybridExecutor  # noqa: E402
+from repro.core.query import ExecutionPlan as JPlan  # noqa: E402
+from repro.core.query import SubqueryParams as JSub  # noqa: E402
 from repro.core.query import default_plan as j_default_plan  # noqa: E402
 from repro.core.rewriter import RewriterConfig as JRC  # noqa: E402
+from repro.serve.batch import BatchedHybridExecutor as JBX  # noqa: E402
 from repro.serve.batch import CostModel as JCostModel  # noqa: E402
+from repro.vectordb import graph as jgraph  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.bench import datasets as tds  # noqa: E402
 from repro_torch.bench import queries as tq  # noqa: E402
 from repro_torch.core.boomhq import BoomHQ, BoomHQConfig  # noqa: E402
 from repro_torch.core.data_encoder import DataEncoderConfig  # noqa: E402
-from repro_torch.core.query import default_plan  # noqa: E402
+from repro_torch.core.executor import HybridExecutor  # noqa: E402
+from repro_torch.core.query import (  # noqa: E402
+    ExecutionPlan, SubqueryParams, default_plan,
+)
 from repro_torch.core.rewriter import RewriterConfig  # noqa: E402
 from repro_torch.serve.batch import (  # noqa: E402
     CANDIDATE_LOCAL, DENSE, BatchedHybridExecutor, CostModel, ServingEngine,
@@ -149,13 +160,58 @@ def test_single_query_execute_matches_jax(pair):
 def test_default_plan_batched_path_matches_jax(pair):
     """Robust default plans through the batched executor, no planner."""
     jbq, tbq, jtest, ttest, _ = pair
-    from repro.serve.batch import BatchedHybridExecutor as JBX
-
     want = JBX(jbq.table, jbq.indexes, jbq.engine).execute_batch(
         jtest, [j_default_plan(2, jbq.engine) for _ in jtest])
     got = BatchedHybridExecutor(tbq.table, tbq.indexes, tbq.engine
                                 ).execute_batch(
         ttest, [default_plan(2, tbq.engine) for _ in ttest])
+    _assert_results_match(got, want)
+
+
+@pytest.fixture(scope="module")
+def graphs(pair):
+    """JAX graphs (degree 16) of the fixture's table, and the same graphs
+    carried across to the port."""
+    jbq = pair[0]
+    jg = tuple(jgraph.build(v, 16, metric=jbq.table.schema.metric)
+               for v in jbq.table.vectors)
+    tg = tuple(convert.graph_index(np.asarray(g.neighbors),
+                                   np.asarray(g.entry_points), g.metric,
+                                   device="cpu") for g in jg)
+    return jg, tg
+
+
+@pytest.mark.parametrize("knobs", [(16, 8, 8), (4, 2, 2), (8, 4, 1)],
+                         ids=lambda kb: "beam{}-hops{}-kmult{}".format(*kb))
+def test_graph_plans_match_jax(pair, graphs, knobs):
+    """Fixed graph plans through both executors, the graphs carried
+    across: ``HybridExecutor.execute`` query by query, then
+    ``BatchedHybridExecutor.execute_batch`` (graph groups, pinned
+    candidate-local)."""
+    jbq, tbq, jtest, ttest, _ = pair
+    jg, tg = graphs
+    bw, nh, km = knobs
+
+    def plans(plan_cls, sub_cls, qs):
+        return [plan_cls("graph", tuple(sub_cls(k_mult=km, iterative=False)
+                                        for _ in range(q.n_vec)),
+                         beam_width=bw, n_hops=nh) for q in qs]
+
+    jx = JHybridExecutor(jbq.table, jbq.indexes, jbq.engine, graphs=jg)
+    tx = HybridExecutor(tbq.table, tbq.indexes, tbq.engine, graphs=tg)
+    want = [jx.execute(q, p) for q, p in zip(jtest, plans(JPlan, JSub,
+                                                           jtest))]
+    got = [tuple(x.numpy() for x in tx.execute(q, p))
+           for q, p in zip(ttest, plans(ExecutionPlan, SubqueryParams,
+                                        ttest))]
+    _assert_results_match(got, want)
+    want = JBX(jbq.table, jbq.indexes, jbq.engine, graphs=jg).execute_batch(
+        jtest, plans(JPlan, JSub, jtest))
+    bx = BatchedHybridExecutor(tbq.table, tbq.indexes, tbq.engine,
+                               graphs=tg)
+    got = bx.execute_batch(ttest, plans(ExecutionPlan, SubqueryParams,
+                                        ttest))
+    assert set(bx.dispatcher.take()[0]) == {CANDIDATE_LOCAL}
     _assert_results_match(got, want)
 
 
@@ -197,6 +253,13 @@ def test_own_fit_clears_oracle_floors(pair):
     recs = [_oracle_recall(tt, q, ids) for q, (ids, _) in zip(test, results)]
     assert float(np.mean(recs)) >= FLOOR, recs
     assert min(recs) >= 0.5, recs
-    assert dataclasses.replace(_port_config(), graph_degree=16).graph_degree
-    with pytest.raises(NotImplementedError):
-        BoomHQ(tt, dataclasses.replace(_port_config(), graph_degree=16))
+    # the default graph degree builds the port's own graph tier, and
+    # graph plans then stay graph plans
+    gbq = BoomHQ(tt, dataclasses.replace(_port_config(), graph_degree=16),
+                 indexes=bq.indexes, hists=bq.hists)
+    assert [g.degree for g in gbq.graphs] == [16, 16]
+    assert all(g.n_rows == tt.n_rows for g in gbq.graphs)
+    plan = gbq.executor.legalize(ExecutionPlan(
+        "graph", tuple(SubqueryParams(k_mult=8, iterative=False)
+                       for _ in range(2)), beam_width=5, n_hops=3))
+    assert (plan.strategy, plan.beam_width, plan.n_hops) == ("graph", 8, 4)

@@ -45,7 +45,9 @@ def test_port_covers_the_slice_layout():
                 "kernels/ref.py", "kernels/int8_scan.py",
                 "vectordb/predicates.py", "vectordb/algebra.py",
                 "vectordb/table.py", "vectordb/histogram.py",
-                "vectordb/flat.py", "vectordb/ivf.py", "core/query.py",
+                "vectordb/flat.py", "vectordb/ivf.py", "vectordb/graph.py",
+                "kernels/masked_topk.py", "kernels/ops.py",
+                "kernels/beam_search.py", "core/query.py",
                 "core/executor.py", "core/data_encoder.py",
                 "core/query_encoder.py", "core/rewriter.py",
                 "core/boomhq.py", "serve/batch.py", "common/nn.py",
@@ -61,16 +63,38 @@ def no_cuda(monkeypatch):
 
 
 def _entry_points():
+    """Each entry point as a call taking ``device=``; functions of tensors
+    (``graph.build``, ``ops.masked_topk``) take the tensors of a table
+    built on that device and must run where those tensors lie."""
     from repro_torch import convert
     from repro_torch.bench import datasets
-    from repro_torch.vectordb import algebra, predicates
+    from repro_torch.kernels import ops
+    from repro_torch.vectordb import algebra, graph, predicates
     from repro_torch.vectordb.table import (
         ScalarCol, Table, TableSchema, VectorCol,
     )
 
     schema = TableSchema((VectorCol("v", 4),), (ScalarCol("s", "num"),))
-    vec = [np.zeros((3, 4), np.float32)]
+    vec = [np.arange(12, dtype=np.float32).reshape(3, 4)]
     scal = np.zeros((3, 1), np.float32)
+
+    def table(**kw):
+        return Table.from_numpy(schema, vec, scal, **kw)
+
+    def scan(**kw):
+        t, p = table(**kw), predicates.Predicates.none(1, **kw)
+        out = ops.masked_topk(t.vectors[0][0], t.vectors[0], t.scalars, p.lo,
+                              p.hi, p.active, k=2)
+        assert out[1].device == t.device
+        assert out[1].tolist() == [2, 1]
+        return out
+
+    def build(**kw):
+        t = table(**kw)
+        g = graph.build(t.vectors[0], 8)
+        assert g.neighbors.device == t.device
+        return g
+
     return {
         "Table.from_numpy": lambda **kw: Table.from_numpy(schema, vec, scal,
                                                           **kw),
@@ -84,6 +108,11 @@ def _entry_points():
         "convert.ivf_index": lambda **kw: convert.ivf_index(
             np.zeros((2, 4)), np.arange(3), np.asarray([0, 1, 3]), "dot",
             **kw),
+        "convert.graph_index": lambda **kw: convert.graph_index(
+            np.asarray([[1, -1], [0, 2], [1, -1]]), np.asarray([0, 2]), "l2",
+            **kw),
+        "graph.build": build,
+        "ops.masked_topk": scan,
     }
 
 
@@ -95,16 +124,25 @@ def test_entry_points_default_to_cuda(no_cuda, name):
     fn(device="cpu")  # the explicit CPU request is honoured
 
 
-def test_boomhq_follows_its_table_and_refuses_the_graph_tier():
+def test_boomhq_follows_its_table_and_builds_the_graph_tier():
+    """BoomHQ builds every structure on its table's device — with the
+    default config, the graph tier included (the port no longer refuses
+    it) — and ``graph_degree=0`` leaves the tier unbound."""
     from repro_torch.bench import datasets
     from repro_torch.core.boomhq import BoomHQ, BoomHQConfig
 
     table = datasets.make("part", rows=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="graph"):
-        BoomHQ(table, BoomHQConfig())
-    bq = BoomHQ(table, BoomHQConfig(n_clusters=4, graph_degree=0))
+    bq = BoomHQ(table, BoomHQConfig())
     assert all(ix.centroids.device.type == "cpu" for ix in bq.indexes)
     assert next(bq.data_encoder.parameters()).device.type == "cpu"
+    assert len(bq.graphs) == table.schema.n_vec
+    for g in bq.graphs:
+        assert g.neighbors.shape == (64, 16)
+        assert g.neighbors.device.type == "cpu"
+    assert bq.executor.graphs is bq.graphs
+    assert bq._batched_executor().graphs == bq.graphs
+    bq0 = BoomHQ(table, BoomHQConfig(n_clusters=4, graph_degree=0))
+    assert bq0.graphs is None and bq0.executor.graphs is None
 
 
 def test_cpu_tensors_take_the_plain_version_without_building():
