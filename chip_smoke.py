@@ -18,12 +18,18 @@ Phases (any failure raises and exits non-zero):
      rescored by the plain formula; no row twice; every row clear of ties
      present), and the check must refuse the result once two of its
      untied ids are swapped — with the entry point's time,
-     the kernel's alone, the plain version's and the bound (bytes the call
-     must move over 3.35 TB/s vs. its flops over 67 TFLOP/s fp32, the
-     larger). Gather-score: IVF-probed candidates (fp32 and the int8
-     stage), the rerank union, and the candidate pool of a real graph walk
-     at the largest knobs (beam 16, 8 hops: 8 + 4·16 + 8·16·16 = 2,120
-     slots). Full-table scans of column 0: ``ops.masked_topk`` (dot, l2)
+     the kernel's alone (CUDA events around 20 launches, which time the
+     host's enqueue where it is the slower, and the same 20 launches
+     replayed from a CUDA graph: the device time), the plain version's and
+     the bound (bytes the call must move over 3.35 TB/s vs. its flops over
+     67 TFLOP/s fp32, the larger; a gather under a predicate must read
+     every named row's scalars but only the qualifying rows' vectors).
+     Gather-score: IVF-probed candidates (fp32 and the int8 stage) under
+     random DNFs, the int8 stage also under ≈1%, ≈10% and 100% price
+     ranges, the ±1.4e-45 bounds of ``~(col == 0)`` on a column holding
+     zeros, and one conjunction over all M columns; the rerank union, and
+     the candidate pool of a real graph walk at the largest knobs (beam
+     16, 8 hops: 8 + 4·16 + 8·16·16 = 2,120 slots). Full-table scans of column 0: ``ops.masked_topk`` (dot, l2)
      and ``ops.int8_masked_topk`` on ``table.quantized(0)``, k ∈ {10, 128},
      conjunctive predicates at ≈1%, ≈10% and 100% selectivity;
   4. the main path: fit BoomHQ (default graph tier, the quickstart's
@@ -106,6 +112,19 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_time_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in a CUDA
+    graph, whose replay is timed with CUDA events, so the host's enqueue
+    (a wrapper's checks and allocations) is out of the reading."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return cuda_time_ms(graph.replay, iters=5, warmup=1) / iters
+
+
 # ---------------------------------------------------------------------------
 # phase 2: build
 # ---------------------------------------------------------------------------
@@ -167,23 +186,35 @@ def _random_dnf(m: int, c: int, b: int, scal_np: np.ndarray, rng, device):
     return stack(preds)
 
 
-def _bound_ms(cand, dims, elem_bytes, m, k, *, int8, l2, masked):
-    """Least time for one call: the bytes of every distinct row the call's
-    valid slots name (vectors, int8 scales, and scalars when a predicate
-    masks) read once — a row that several queries' slots repeat need not
-    leave HBM twice — plus the candidate matrix and the queries read and
-    the block outputs written once, against the flops of every valid
-    slot's dots (and norms)."""
-    live = cand[cand >= 0]
-    valid = int(live.numel())
-    unique = int(torch.unique(live).numel())
+def _gather_traffic(cand, dims, elem_bytes, m, k, *, int8, l2, qual=None):
+    """The least work of one gather-score call. -> (bytes, flops).
+
+    Bytes: the candidate matrix and the queries read and the block outputs
+    written once; each distinct row read once (a row that several queries'
+    slots repeat need not leave HBM twice) — with a predicate (``qual``:
+    the (B, S) qualifying slots), the scalars of every distinct row a valid
+    slot names and the vectors (and int8 scales) of the distinct rows that
+    qualify for some slot, since a row that qualifies nowhere scores NEG
+    whatever its vector holds; without one, every named row's vectors.
+    Flops: the dots (and norms) of every slot that must be scored."""
     b, s = cand.shape
-    nb = -(-s // 256)
-    row = sum(d * elem_bytes for d in dims) + (4 * m if masked else 0) \
-        + (4 * len(dims) if int8 else 0)
-    bytes_ = unique * row + b * s * 4 + b * nb * (8 * k + 4) \
-        + b * sum(dims) * 4
-    flops = valid * sum(dims) * (4 if l2 else 2)
+    named = cand[cand >= 0]
+    scored = named if qual is None else cand[qual]
+    vec_row = sum(d * elem_bytes for d in dims) + (4 * len(dims) if int8
+                                                   else 0)
+    bytes_ = int(torch.unique(scored).numel()) * vec_row \
+        + b * s * 4 + b * -(-s // 256) * (8 * k + 4) + b * sum(dims) * 4
+    if qual is not None:
+        bytes_ += int(torch.unique(named).numel()) * 4 * m
+    flops = int(scored.numel()) * sum(dims) * (4 if l2 else 2)
+    return bytes_, flops
+
+
+def _bound_ms(cand, dims, elem_bytes, m, k, *, int8, l2, qual=None):
+    """Least time for one call: ``_gather_traffic``'s bytes over 3.35 TB/s
+    against its flops over 67 TFLOP/s, the larger. -> (ms, what binds)."""
+    bytes_, flops = _gather_traffic(cand, dims, elem_bytes, m, k, int8=int8,
+                                    l2=l2, qual=qual)
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -273,6 +304,8 @@ def check_kernels(table, index, graph_, queries, device) -> list:
     from repro_torch.kernels.beam_search import seeded_candidates
     from repro_torch.kernels.ref import gather_score_ref, gather_scores_ref
     from repro_torch.vectordb import ivf, predicates
+    from repro_torch.vectordb.algebra import col
+    from repro_torch.vectordb.predicates import Predicates
 
     rng = np.random.default_rng(0)
     scal_np = table.scalars.cpu().numpy()
@@ -318,6 +351,30 @@ def check_kernels(table, index, graph_, queries, device) -> list:
                        w=ones, pred=pred_w,
                        k=subquery_width(8 * 10, table.n_rows),
                        metric=table.schema.metric, scales=None)))
+    # the int8 stage's branches: ≈1%, ≈10% and 100% price ranges, the
+    # denormal strict bounds of ~(col == 0) on a column holding zeros, and
+    # one conjunction over all M columns
+    int8_preds = [(f"range {frac:.0%}", predicates.stack(
+        [_range_pred(scal_np, frac, device)] * b)) for frac in (0.01, 0.10,
+                                                                1.0)]
+    zero_cols = [c for c in range(m) if (scal_np[:, c] == 0).any()]
+    if not zero_cols:
+        raise AssertionError("no scalar column holds a zero")
+    zc = zero_cols[0]
+    not_zero = (~(col(zc) == 0.0)).compile(m=m, device=device)
+    tiny = float(np.nextafter(np.float32(0), np.float32(1)))
+    if not (bool((not_zero.lo == tiny).any())
+            and bool((not_zero.hi == -tiny).any())):
+        raise AssertionError("~(col == 0) did not compile to ±1.4e-45")
+    int8_preds.append((f"~(col{zc} == 0)", predicates.stack([not_zero] * b)))
+    int8_preds.append((f"all {m} cols", predicates.stack([
+        Predicates.from_conditions(m, {c: tuple(float(x) for x in np.quantile(
+            scal_np[:, c], [0.02, 0.9])) for c in range(m)}, device=device)]
+        * b)))
+    for label, pred in int8_preds:
+        cases.append((f"S=8192 {label} kq=128", "int8",
+                      dict(cand=cand, vectors=(vq,), qs=(q0,), w=ones,
+                           pred=pred, k=128, metric="dot", scales=(sc,))))
 
     out = []
     for label, variant, a in cases:
@@ -358,28 +415,38 @@ def check_kernels(table, index, graph_, queries, device) -> list:
         # the kernel alone takes S in whole blocks: pad as the entry does
         cand_k = torch.cat([a["cand"], torch.full(
             (b, (-s_len) % bs), -1, dtype=torch.int32, device=device)], 1)
-        kernel_only_ms = cuda_time_ms(lambda a=a, fields=fields, bs=bs,
-                                      cand_k=cand_k: gs.gather_score_blocks(
-            cand_k, a["vectors"], a["qs"], a["w"], table.scalars,
-            *(f.contiguous() for f in fields), a["scales"], k=a["k"],
-            block_s=bs, metric=a["metric"],
-            apply_pred=a["pred"] is not None))
+
+        def blocks(a=a, fields=fields, cand_k=cand_k, bs=bs):
+            return gs.gather_score_blocks(
+                cand_k, a["vectors"], a["qs"], a["w"], table.scalars,
+                *(f.contiguous() for f in fields), a["scales"], k=a["k"],
+                block_s=bs, metric=a["metric"],
+                apply_pred=a["pred"] is not None)
+
+        kernel_only_ms = cuda_time_ms(blocks)
+        device_ms = graph_time_ms(blocks)
         plain_ms = cuda_time_ms(plain, iters=5, warmup=1)
         elem = 1 if variant == "int8" else 4
         dims = [v.shape[1] for v in a["vectors"]]
+        qual = None if a["pred"] is None else (
+            predicates.eval_mask(a["pred"], table.scalars[
+                a["cand"].clamp(min=0).long()]) & (a["cand"] >= 0))
         bound, by = _bound_ms(a["cand"], dims, elem, m, a["k"],
                               int8=variant == "int8",
-                              l2=a["metric"] == "l2",
-                              masked=a["pred"] is not None)
+                              l2=a["metric"] == "l2", qual=qual)
+        n_valid = int((a["cand"] >= 0).sum())
+        sel = 1.0 if qual is None else int(qual.sum()) / max(n_valid, 1)
         row = dict(shape=label, variant=variant, ms=ms,
-                   kernel_only_ms=kernel_only_ms, plain_ms=plain_ms,
-                   bound_ms=bound, bound_by=by, max_abs_err=err,
-                   tie_swaps=n_swaps)
+                   kernel_only_ms=kernel_only_ms, device_ms=device_ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   max_abs_err=err, tie_swaps=n_swaps,
+                   qualifying_share=sel)
         out.append(row)
         log(f"  {variant} {label:28s} entry {ms:7.4f} ms (kernel "
-            f"{kernel_only_ms:7.4f})  plain "
+            f"{kernel_only_ms:7.4f}, device {device_ms:7.4f})  plain "
             f"{plain_ms:8.4f} ms  bound {bound:8.4f} ms ({by})  "
-            f"max|err| {err:.3g}  tie swaps {n_swaps}")
+            f"qualifying {sel:.4f}  max|err| {err:.3g}  tie swaps "
+            f"{n_swaps}")
     return out
 
 
@@ -480,17 +547,20 @@ def check_scans(table, queries, device) -> list:
                                      rescore)
                 ms = cuda_time_ms(kern)
                 kernel_only_ms = cuda_time_ms(blocks)
+                device_ms = graph_time_ms(blocks)
                 plain_ms = cuda_time_ms(plain, iters=5, warmup=1)
                 bound, by = _scan_bound_ms(n, d, m, k, nb, int8=int8,
                                            l2=variant == "l2")
                 out.append(dict(shape=label, variant=variant, k=k,
                                 selectivity=n_qual / n, ms=ms,
                                 kernel_only_ms=kernel_only_ms,
+                                device_ms=device_ms,
                                 plain_ms=plain_ms, bound_ms=bound,
                                 bound_by=by, max_abs_err=err,
                                 tie_swaps=n_swaps))
                 log(f"  scan {label:26s} entry {ms:7.4f} ms (kernel "
-                    f"{kernel_only_ms:7.4f})  plain {plain_ms:8.4f} ms  "
+                    f"{kernel_only_ms:7.4f}, device {device_ms:7.4f})  "
+                    f"plain {plain_ms:8.4f} ms  "
                     f"bound {bound:7.4f} ms ({by})  max|err| {err:.3g}  "
                     f"tie swaps {n_swaps}")
     return out

@@ -227,16 +227,54 @@ def test_merge_topk_unique_underfill_and_ties():
     assert out_scores.numpy()[0, 3] <= tgs.NEG / 2
 
 
+# (seed, n, dims, m, b, s, c, k, metric, kind): the shapes the int8
+# kernel branches on — 16-byte loads at d=16 and 48 (under one step of
+# three loads a lane), byte loads at the unaligned d=770, one group of 32
+# lanes per slot at M=16 with its scale, four clauses, a predicate every
+# slot fails, no predicate, one row in most slots of a block, the
+# denormal strict bounds that ~(col == 0) compiles to, on zeros, and
+# queries past 32 KB of shared memory (the int8 launch raises its limit)
+BRANCH_CASES = [
+    (50, 400, (16,), 16, 3, 300, 4, 10, "dot", "dnf"),
+    (51, 400, (48,), 16, 2, 300, 4, 32, "l2", "dnf"),
+    (52, 400, (770,), 4, 2, 300, 2, 16, "dot", "dnf"),
+    (53, 400, (770, 48), 16, 2, 300, 4, 128, "l2", "dnf"),
+    (54, 400, (16, 768, 48, 770), 16, 2, 256, 4, 64, "l2", "dnf"),
+    (55, 400, (768,), 16, 2, 500, 4, 32, "dot", "all_fail"),
+    (56, 400, (768,), 4, 2, 500, 1, 32, "l2", "no_pred"),
+    (57, 400, (768,), 4, 3, 500, 2, 32, "dot", "same_row"),
+    (58, 400, (768,), 4, 2, 500, 2, 32, "dot", "not_zero"),
+    (59, 300, (3072, 3072, 3072), 4, 2, 256, 1, 16, "dot", "dnf"),
+]
+
+
+def branch_case(seed, n, dims, m, b, s, c, kind):
+    case = make_case(seed, n, dims, m, b, s, c)
+    if kind == "all_fail":
+        case["clauses"] = [[{0: (100.0, 200.0)}] * c] * b
+    elif kind == "no_pred":
+        case["clauses"] = None
+    elif kind == "same_row":
+        first = case["cand"][0][case["cand"][0] >= 0][0]
+        case["cand"][:, 3:200] = first
+    elif kind == "not_zero":
+        case["scalars"][::3, 0] = 0.0
+        tiny = float(np.nextafter(np.float32(0), np.float32(1)))
+        case["clauses"] = [[{0: (-np.inf, -tiny)}, {0: (tiny, np.inf)}]] * b
+    return case
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True])
 def test_cuda_kernel_matches_plain_version(cuda_device, int8):
     """The CUDA kernel (both element types) against the port's plain
-    version on the same card tensors, over the corpus plus main-path
-    widths (768-d columns, k up to 128)."""
-    cases = list(CORPUS) + [(8, 5000, (768,), 4, 8, 1000, 2, 32, "dot"),
-                            (9, 5000, (768, 768), 4, 4, 700, 4, 128, "l2")]
-    for seed, n, dims, m, b, s, c, k, metric in cases:
-        case = make_case(seed, n, dims, m, b, s, c)
+    version on the same card tensors, over the corpus, main-path widths
+    (768-d columns, k up to 128) and the int8 kernel's branch shapes."""
+    cases = [(*x, "dnf") for x in CORPUS] + [
+        (8, 5000, (768,), 4, 8, 1000, 2, 32, "dot", "dnf"),
+        (9, 5000, (768, 768), 4, 4, 700, 4, 128, "l2", "dnf")] + BRANCH_CASES
+    for seed, n, dims, m, b, s, c, k, metric, kind in cases:
+        case = branch_case(seed, n, dims, m, b, s, c, kind)
         vecs, scales = (int8_replica(case) if int8 else (None, None))
         kern = run_torch(case, k=k, metric=metric, vectors=vecs,
                          scales=scales, device=cuda_device)
@@ -252,6 +290,7 @@ def test_cuda_kernel_matches_plain_version(cuda_device, int8):
             torch.as_tensor(case["w"], device=cuda_device),
             torch.as_tensor(case["scalars"], device=cuda_device),
             lo, hi, act, cv, k=k, metric=metric,
+            apply_pred=case["clauses"] is not None,
             scales=None if scales is None else tuple(
                 torch.as_tensor(x, device=cuda_device) for x in scales))
         torch.cuda.synchronize()

@@ -216,3 +216,28 @@ def test_histogram_build_and_selectivity_match_jax(scal4):
     np.testing.assert_allclose(
         float(th.estimate_selectivity(hc, ps_t)),
         float(jh.estimate_selectivity(hj, ps_j)), atol=TOL)
+
+
+@pytest.mark.parametrize("build,want", [
+    (lambda c: c(0) != 0.0, lambda x: x != 0.0),
+    # the tree the JAX package's property test draws at seed 667
+    (lambda c: ~c(0).isin([1.0, 0.0, 5.0]),
+     lambda x: ~np.isin(x, [1.0, 0.0, 5.0])),
+])
+def test_negated_zero_equality_keeps_its_denormal_bounds(build, want):
+    """A negated equality at 0 compiles to the strict bounds
+    ``nextafter(0, ±inf)`` = ±1.4e-45, float32 denormals. The JAX
+    package's ``eval_mask`` on the CPU flushes them to zero and admits the
+    rows holding 0 (ROADMAP Queue 3); the port keeps them and excludes
+    those rows, as the NumPy oracle does, on the seed-667 data."""
+    rng = np.random.default_rng(667)
+    scal = np.stack([
+        rng.integers(0, 8, 400).astype(np.float32),
+        rng.uniform(-5.0, 5.0, 400).astype(np.float32),
+        rng.lognormal(0.5, 1.0, 400).astype(np.float32)], axis=1)
+    assert (scal[:, 0] == 0).sum() == 43
+    ps = build(tal.col).compile(m=3, device="cpu")
+    tiny = np.nextafter(np.float32(0), np.float32(1))
+    assert (ps.lo.numpy() == tiny).any() and (ps.hi.numpy() == -tiny).any()
+    got = tp.eval_mask(ps, torch.as_tensor(scal)).numpy()
+    np.testing.assert_array_equal(got, want(scal[:, 0]))

@@ -97,3 +97,44 @@ def test_empty_slots_rescore_to_neg(smoke):
     rescore = smoke._table_rescore(torch.tensor([1.0, 2.0]))
     assert torch.equal(rescore(torch.tensor([1, -1])),
                        torch.tensor([2.0, NEG]))
+
+
+# two queries' slots over rows 3, 5, 7, 8, 9: row 5 twice in query 0, row
+# 7 in both queries, row 3 twice in query 1, and padding
+CAND = torch.tensor([[5, 7, 5, -1, 9, 7], [7, 3, 3, 8, -1, -1]],
+                    dtype=torch.int32)
+# qualifying slots name rows 5, 7 and 3 (row 7 fails in query 0's slot
+# but qualifies in query 1's, row 5 qualifies in one of its two slots)
+QUAL = torch.tensor([[1, 0, 0, 0, 0, 0], [1, 0, 1, 0, 0, 0]], dtype=torch.bool)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_gather_bound_counts_vectors_of_qualifying_rows_only(smoke, int8):
+    """With a predicate: every named row's 4M scalar bytes (5 distinct
+    rows) but only the qualifying rows' vector (and int8 scale) bytes (3
+    distinct rows); the ids, queries and block outputs as ever; flops for
+    the 3 qualifying slots."""
+    dims, m, k = (16, 8), 4, 10
+    elem = 1 if int8 else 4
+    row = 24 * elem + (8 if int8 else 0)
+    fixed = 2 * 6 * 4 + 2 * 1 * (8 * k + 4) + 2 * 24 * 4
+    got = smoke._gather_traffic(CAND, dims, elem, m, k, int8=int8, l2=True,
+                                qual=QUAL)
+    assert got == (3 * row + 5 * 4 * m + fixed, 3 * 24 * 4)
+    ms, by = smoke._bound_ms(CAND, dims, elem, m, k, int8=int8, l2=True,
+                             qual=QUAL)
+    assert by == "bytes" and ms == pytest.approx(
+        got[0] / smoke.HBM_BYTES_PER_S * 1e3)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_gather_bound_without_predicate_is_unchanged(smoke, int8):
+    """No predicate: every distinct named row's vectors (5 rows), no
+    scalars, and flops for the 9 valid slots — the count before the
+    qualifying rows were told apart."""
+    dims, m, k = (16, 8), 4, 10
+    elem = 1 if int8 else 4
+    row = 24 * elem + (8 if int8 else 0)
+    fixed = 2 * 6 * 4 + 2 * 1 * (8 * k + 4) + 2 * 24 * 4
+    assert smoke._gather_traffic(CAND, dims, elem, m, k, int8=int8,
+                                 l2=False) == (5 * row + fixed, 9 * 24 * 2)
