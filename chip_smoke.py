@@ -25,9 +25,10 @@ Phases (any failure raises and exits non-zero):
      67 TFLOP/s fp32, the larger; a gather under a predicate must read
      every named row's scalars but only the qualifying rows' vectors).
      Gather-score: IVF-probed candidates (fp32 and the int8 stage) under
-     random DNFs, the int8 stage also under ≈1%, ≈10% and 100% price
-     ranges, the ±1.4e-45 bounds of ``~(col == 0)`` on a column holding
-     zeros, and one conjunction over all M columns; the rerank union, and
+     random DNFs, and both also under ≈1%, ≈10% and 100% price ranges
+     (fp32 at k=32, the int8 stage at kq=128), the ±1.4e-45 bounds of
+     ``~(col == 0)`` on a column holding zeros, and one conjunction over
+     all M columns; the rerank union, and
      the candidate pool of a real graph walk at the largest knobs (beam
      16, 8 hops: 8 + 4·16 + 8·16·16 = 2,120 slots). Full-table scans of column 0: ``ops.masked_topk`` (dot, l2)
      and ``ops.int8_masked_topk`` on ``table.quantized(0)``, k ∈ {10, 128},
@@ -296,13 +297,11 @@ def _table_rescore(scores):
                                               device=scores.device))
 
 
-def check_kernels(table, index, graph_, queries, device) -> list:
-    """Gather-score kernel vs plain version at the main path's shapes.
-    Returns one row per (shape, variant)."""
+def gather_cases(table, index, graph_, queries, device) -> list:
+    """Phase 3's gather-score shapes on the table. -> [(label, variant,
+    arguments of ``gather_score_topk``)]."""
     from repro_torch.core.executor import rrf_union_total, subquery_width
-    from repro_torch.kernels import gather_score as gs
     from repro_torch.kernels.beam_search import seeded_candidates
-    from repro_torch.kernels.ref import gather_score_ref, gather_scores_ref
     from repro_torch.vectordb import ivf, predicates
     from repro_torch.vectordb.algebra import col
     from repro_torch.vectordb.predicates import Predicates
@@ -351,10 +350,10 @@ def check_kernels(table, index, graph_, queries, device) -> list:
                        w=ones, pred=pred_w,
                        k=subquery_width(8 * 10, table.n_rows),
                        metric=table.schema.metric, scales=None)))
-    # the int8 stage's branches: ≈1%, ≈10% and 100% price ranges, the
-    # denormal strict bounds of ~(col == 0) on a column holding zeros, and
-    # one conjunction over all M columns
-    int8_preds = [(f"range {frac:.0%}", predicates.stack(
+    # both gather kernels' selectivity branches: ≈1%, ≈10% and 100% price
+    # ranges, the denormal strict bounds of ~(col == 0) on a column holding
+    # zeros, and one conjunction over all M columns
+    sel_preds = [(f"range {frac:.0%}", predicates.stack(
         [_range_pred(scal_np, frac, device)] * b)) for frac in (0.01, 0.10,
                                                                 1.0)]
     zero_cols = [c for c in range(m) if (scal_np[:, c] == 0).any()]
@@ -366,18 +365,35 @@ def check_kernels(table, index, graph_, queries, device) -> list:
     if not (bool((not_zero.lo == tiny).any())
             and bool((not_zero.hi == -tiny).any())):
         raise AssertionError("~(col == 0) did not compile to ±1.4e-45")
-    int8_preds.append((f"~(col{zc} == 0)", predicates.stack([not_zero] * b)))
-    int8_preds.append((f"all {m} cols", predicates.stack([
+    sel_preds.append((f"~(col{zc} == 0)", predicates.stack([not_zero] * b)))
+    sel_preds.append((f"all {m} cols", predicates.stack([
         Predicates.from_conditions(m, {c: tuple(float(x) for x in np.quantile(
             scal_np[:, c], [0.02, 0.9])) for c in range(m)}, device=device)]
         * b)))
-    for label, pred in int8_preds:
+    for label, pred in sel_preds:
         cases.append((f"S=8192 {label} kq=128", "int8",
                       dict(cand=cand, vectors=(vq,), qs=(q0,), w=ones,
                            pred=pred, k=128, metric="dot", scales=(sc,))))
+    for label, pred in sel_preds:
+        cases.append((f"S=8192 {label} k=32", "fp32",
+                      dict(cand=cand, vectors=(table.vectors[0],), qs=(q0,),
+                           w=ones, pred=pred, k=32, metric="dot",
+                           scales=None)))
+    return cases
 
+
+def check_kernels(table, index, graph_, queries, device) -> list:
+    """Gather-score kernel vs plain version at the main path's shapes.
+    Returns one row per (shape, variant)."""
+    from repro_torch.kernels import gather_score as gs
+    from repro_torch.kernels.ref import gather_score_ref, gather_scores_ref
+    from repro_torch.vectordb import predicates
+
+    m = table.schema.n_scalar
+    b = BATCH
     out = []
-    for label, variant, a in cases:
+    for label, variant, a in gather_cases(table, index, graph_, queries,
+                                          device):
         def kern(a=a):
             return gs.gather_score_topk(a["cand"], a["vectors"], a["qs"],
                                         a["w"], table.scalars, a["pred"],

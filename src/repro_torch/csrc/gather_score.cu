@@ -36,12 +36,23 @@
 // 256 (score, id) pairs in shared memory. Duplicates of a row score
 // bit-identically, so they sit side by side and the emit step skips them.
 //
-// fp32 (kernel 1): one warp per candidate row, whose lanes read the row
-// with 16-byte loads (a 768-float row is six coalesced 512-byte passes), so
-// every gathered byte is read once and in full sectors; the warp reduces
-// with shuffles, and lane 0 then reads the row's scalars for the mask. Not
-// done yet: several rows per warp in flight and the predicate read first
-// (the int8 kernel's design).
+// fp32 (kernel 1) moves enough bytes a row (3,072 at d=768) to be bound by
+// the qualifying rows' vector bytes, once latency is hidden. It runs the
+// int8 kernel's first three steps (ids; the predicate first, next_pow2(M)
+// lanes a slot, one field a lane, one ballot a clause; the qualifying slots
+// compacted into a list), so a padded or failing slot costs no vector byte
+// and no lane, and no lane waits on a chain of another's scalar loads. The
+// list is then scored by whole warps, two rows in flight a warp: a
+// 768-float row is six 16-byte loads a lane, so twelve are issued before
+// any is used, 16 rows a CTA. Every row is scored by the same code,
+// lane mapping and reduction order with explicitly rounded arithmetic, so
+// duplicates score bit-identically; widths or addresses that rule out
+// 16-byte loads read a float a lane. Its grid is query-major, so the CTAs
+// resident at one time hold the same blocks of every query, and a row that
+// several queries' IVF probes share is read again while still in L2. What
+// is left between it and its bound: one round trip a pass of 16 rows, the
+// fixed work of each CTA (ids, fields, the 256-slot sort, the one-thread
+// emit), and shared rows that leave L2 before their last reader comes.
 //
 // int8 (kernel 2) is bound by latency and instruction issue, not bytes: a
 // 768-byte row is too little to hide a round trip behind. Its design, in
@@ -89,166 +100,6 @@ struct Cols {
   int qoff[kMaxCols];            // column i's query offset in shared memory
   int vec_ok[kMaxCols];          // 16-byte loads allowed for column i
 };
-
-template <typename T, bool kL2>
-__global__ void __launch_bounds__(kThreads)
-gather_score_kernel(const int* __restrict__ cand, int S, int n_rows, int n_vec,
-                    Cols cols, const float* __restrict__ weights,
-                    const float* __restrict__ scalars, int M,
-                    const float* __restrict__ lo, const float* __restrict__ hi,
-                    const float* __restrict__ act, const float* __restrict__ cval,
-                    int C, int apply_pred, int bs, int k,
-                    float* __restrict__ out_s, int* __restrict__ out_i,
-                    int* __restrict__ out_q) {
-  extern __shared__ __align__(16) float s_query[];
-  __shared__ float s_score[kBlockSlots];
-  __shared__ int s_id[kBlockSlots];
-  __shared__ float s_lo[kMaxPredFields], s_hi[kMaxPredFields], s_act[kMaxPredFields];
-  __shared__ float s_cval[kMaxCols];
-  __shared__ float s_w[kMaxCols], s_qn[kMaxCols];
-  __shared__ int s_qual;
-
-  const int j = blockIdx.x;
-  const int b = blockIdx.y;
-  const int nb = gridDim.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  for (int i = 0; i < n_vec; ++i) {
-    const float* src = cols.q[i] + (size_t)b * cols.dim[i];
-    float* dst = s_query + cols.qoff[i];
-    for (int e = tid; e < cols.dim[i]; e += kThreads) dst[e] = src[e];
-  }
-  if (apply_pred) {
-    for (int e = tid; e < C * M; e += kThreads) {
-      s_lo[e] = lo[(size_t)b * C * M + e];
-      s_hi[e] = hi[(size_t)b * C * M + e];
-      s_act[e] = act[(size_t)b * C * M + e];
-    }
-    if (tid < C) s_cval[tid] = cval[(size_t)b * C + tid];
-  }
-  if (tid < n_vec) s_w[tid] = weights[(size_t)b * n_vec + tid];
-  if (tid == 0) s_qual = 0;
-  __syncthreads();
-  if (kL2 && warp < n_vec) {
-    const float* qv = s_query + cols.qoff[warp];
-    float acc = 0.f;
-    for (int e = lane; e < cols.dim[warp]; e += 32) acc += qv[e] * qv[e];
-    acc = warp_sum(acc);
-    if (lane == 0) s_qn[warp] = acc;
-  }
-  __syncthreads();
-
-  const int* cand_b = cand + (size_t)b * S + (size_t)j * bs;
-  for (int t = warp; t < kBlockSlots; t += kWarps) {
-    const int id = t < bs ? cand_b[t] : -1;
-    const int idc = min(max(id, 0), n_rows - 1);
-    float total = 0.f;
-    for (int i = 0; i < n_vec; ++i) {
-      const int d = cols.dim[i];
-      const T* row = static_cast<const T*>(cols.vec[i]) + (size_t)idc * d;
-      float dot = 0.f, vv = 0.f;
-      RowDot<T>::run(row, s_query + cols.qoff[i], d, lane, cols.vec_ok[i] != 0,
-                     dot, vv);
-      dot = warp_sum(dot);
-      if (kL2) vv = warp_sum(vv);
-      float s;
-      if (cols.scale[i] != nullptr) {
-        const float sc = __ldg(cols.scale[i] + idc);
-        s = dot * sc;
-        if (kL2) s = 2.f * s - vv * sc * sc - s_qn[i];
-      } else {
-        s = dot;
-        if (kL2) s = 2.f * s - vv - s_qn[i];
-      }
-      total += s_w[i] * s;
-    }
-    if (lane == 0) {
-      bool ok = true;
-      if (apply_pred) {
-        const float* srow = scalars + (size_t)idc * M;
-        ok = false;
-        for (int c = 0; c < C; ++c) {
-          bool clause = s_cval[c] > 0.5f;
-          for (int m = 0; m < M && clause; ++m) {
-            const float x = __ldg(srow + m);
-            const int f = c * M + m;
-            clause = (x >= s_lo[f] && x <= s_hi[f]) || s_act[f] < 0.5f;
-          }
-          ok = ok || clause;
-        }
-      }
-      const bool qual = ok && id >= 0;
-      if (qual) atomicAdd(&s_qual, 1);
-      s_score[t] = qual ? total : kNeg;
-      s_id[t] = id >= 0 ? id : kIdSentinel;
-    }
-  }
-  __syncthreads();
-
-  // bitonic sort of the 256 slots: best (score desc, id asc) first
-  for (int size = 2; size <= kBlockSlots; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      const int p = tid ^ stride;
-      if (p > tid) {
-        const float si = s_score[tid], sp = s_score[p];
-        const int ii = s_id[tid], ip = s_id[p];
-        const bool i_first = si > sp || (si == sp && ii < ip);
-        const bool want_i_first = (tid & size) == 0;
-        if (i_first != want_i_first) {
-          s_score[tid] = sp;
-          s_score[p] = si;
-          s_id[tid] = ip;
-          s_id[p] = ii;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  if (tid == 0) {
-    float* os = out_s + ((size_t)b * nb + j) * k;
-    int* oi = out_i + ((size_t)b * nb + j) * k;
-    int cnt = 0;
-    int last = -1;
-    for (int p = 0; p < kBlockSlots && cnt < k; ++p) {
-      const float sc = s_score[p];
-      if (!(sc > 0.5f * kNeg)) break;  // sorted: only masked slots remain
-      const int id = s_id[p];
-      if (id == last) continue;  // duplicate of the row just emitted
-      os[cnt] = sc;
-      oi[cnt] = id;
-      last = id;
-      ++cnt;
-    }
-    for (; cnt < k; ++cnt) {
-      os[cnt] = kNeg;
-      oi[cnt] = -1;
-    }
-    out_q[(size_t)b * nb + j] = s_qual;
-  }
-}
-
-template <typename T>
-cudaError_t launch_typed(bool l2, dim3 grid, size_t smem, cudaStream_t stream,
-                         const int* cand, int S, int n_rows, int n_vec,
-                         const Cols& cols, const float* weights,
-                         const float* scalars, int M, const float* lo,
-                         const float* hi, const float* act, const float* cval,
-                         int C, int apply_pred, int bs, int k, float* out_s,
-                         int* out_i, int* out_q) {
-  if (l2) {
-    gather_score_kernel<T, true><<<grid, kThreads, smem, stream>>>(
-        cand, S, n_rows, n_vec, cols, weights, scalars, M, lo, hi, act, cval,
-        C, apply_pred, bs, k, out_s, out_i, out_q);
-  } else {
-    gather_score_kernel<T, false><<<grid, kThreads, smem, stream>>>(
-        cand, S, n_rows, n_vec, cols, weights, scalars, M, lo, hi, act, cval,
-        C, apply_pred, bs, k, out_s, out_i, out_q);
-  }
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // int8 (kernel 2)
@@ -599,6 +450,314 @@ cudaError_t launch_int8(bool l2, dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fp32 (kernel 1)
+// ---------------------------------------------------------------------------
+
+constexpr int kF32RowsInFlight = 2;  // rows a warp loads at once
+constexpr int kF32ChunkLoads = 6;    // loads a lane issues per row and step
+
+// Lane `lane`'s partial q.v (and v.v) of kF32RowsInFlight rows of an
+// aligned column: float4 e of each row goes to lane e % 32, all of a step's
+// loads issued before any is used (a 768-float row is one step).
+template <bool kL2>
+__device__ __forceinline__ void f32_row_dots_aligned(
+    const float* const (&row)[kF32RowsInFlight],
+    const bool (&has)[kF32RowsInFlight], const float4* q4, int n4, int lane,
+    float (&dot)[kF32RowsInFlight], float (&vv)[kF32RowsInFlight]) {
+  for (int e0 = 0; e0 < n4; e0 += 32 * kF32ChunkLoads) {
+    float4 raw[kF32RowsInFlight][kF32ChunkLoads];
+#pragma unroll
+    for (int r = 0; r < kF32RowsInFlight; ++r) {
+#pragma unroll
+      for (int u = 0; u < kF32ChunkLoads; ++u) {
+        const int e = e0 + u * 32 + lane;
+        raw[r][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (has[r] && e < n4)
+          raw[r][u] = __ldg(reinterpret_cast<const float4*>(row[r]) + e);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kF32ChunkLoads; ++u) {
+      const int e = e0 + u * 32 + lane;
+      if (e >= n4) break;
+      const float4 q = q4[e];
+#pragma unroll
+      for (int r = 0; r < kF32RowsInFlight; ++r) {
+        const float4 v = raw[r][u];
+        dot[r] = __fmaf_rn(v.x, q.x, dot[r]);
+        dot[r] = __fmaf_rn(v.y, q.y, dot[r]);
+        dot[r] = __fmaf_rn(v.z, q.z, dot[r]);
+        dot[r] = __fmaf_rn(v.w, q.w, dot[r]);
+        if (kL2) {
+          vv[r] = __fmaf_rn(v.x, v.x, vv[r]);
+          vv[r] = __fmaf_rn(v.y, v.y, vv[r]);
+          vv[r] = __fmaf_rn(v.z, v.z, vv[r]);
+          vv[r] = __fmaf_rn(v.w, v.w, vv[r]);
+        }
+      }
+    }
+  }
+}
+
+// The same for a column whose width or address rules out 16-byte loads:
+// element e goes to lane e % 32, one float a load.
+template <bool kL2>
+__device__ __forceinline__ void f32_row_dots_elems(
+    const float* const (&row)[kF32RowsInFlight],
+    const bool (&has)[kF32RowsInFlight], const float* q, int d, int lane,
+    float (&dot)[kF32RowsInFlight], float (&vv)[kF32RowsInFlight]) {
+  for (int e0 = 0; e0 < d; e0 += 32 * kF32ChunkLoads) {
+    float raw[kF32RowsInFlight][kF32ChunkLoads];
+#pragma unroll
+    for (int r = 0; r < kF32RowsInFlight; ++r) {
+#pragma unroll
+      for (int u = 0; u < kF32ChunkLoads; ++u) {
+        const int e = e0 + u * 32 + lane;
+        raw[r][u] = has[r] && e < d ? __ldg(row[r] + e) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kF32ChunkLoads; ++u) {
+      const int e = e0 + u * 32 + lane;
+      if (e >= d) break;
+      const float qe = q[e];
+#pragma unroll
+      for (int r = 0; r < kF32RowsInFlight; ++r) {
+        dot[r] = __fmaf_rn(raw[r][u], qe, dot[r]);
+        if (kL2) vv[r] = __fmaf_rn(raw[r][u], raw[r][u], vv[r]);
+      }
+    }
+  }
+}
+
+template <bool kL2>
+__global__ void __launch_bounds__(kThreads)
+gather_score_kernel(const int* __restrict__ cand, int S, int n_rows, int n_vec,
+                    Cols cols, const float* __restrict__ weights,
+                    const float* __restrict__ scalars, int M,
+                    const float* __restrict__ lo, const float* __restrict__ hi,
+                    const float* __restrict__ act, const float* __restrict__ cval,
+                    int C, int apply_pred, int bs, int k,
+                    float* __restrict__ out_s, int* __restrict__ out_i,
+                    int* __restrict__ out_q) {
+  extern __shared__ __align__(16) float s_query[];
+  __shared__ float s_score[kBlockSlots];
+  __shared__ int s_id[kBlockSlots];
+  __shared__ int s_live[kBlockSlots];  // the qualifying slots, in slot order
+  __shared__ bool s_ok[kBlockSlots];
+  __shared__ float s_lo[kMaxPredFields], s_hi[kMaxPredFields], s_act[kMaxPredFields];
+  __shared__ float s_cval[kMaxCols];
+  __shared__ float s_w[kMaxCols], s_qn[kMaxCols];
+  __shared__ int s_warp_live[kWarps];
+
+  const int b = blockIdx.x;  // query-major: see gather_score_launch
+  const int j = blockIdx.y;
+  const int nb = gridDim.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // 1. the block's ids, the queries and the predicate fields
+  s_id[tid] = tid < bs ? cand[(size_t)b * S + (size_t)j * bs + tid] : -1;
+  for (int i = 0; i < n_vec; ++i) {
+    const float* src = cols.q[i] + (size_t)b * cols.dim[i];
+    float* dst = s_query + cols.qoff[i];
+    for (int x = tid; x < cols.dim[i]; x += kThreads) dst[x] = src[x];
+  }
+  if (apply_pred) {
+    for (int e = tid; e < C * M; e += kThreads) {
+      s_lo[e] = lo[(size_t)b * C * M + e];
+      s_hi[e] = hi[(size_t)b * C * M + e];
+      s_act[e] = act[(size_t)b * C * M + e];
+    }
+    if (tid < C) s_cval[tid] = cval[(size_t)b * C + tid];
+  }
+  if (tid < n_vec) s_w[tid] = weights[(size_t)b * n_vec + tid];
+  __syncthreads();
+  if (kL2 && warp < n_vec) {
+    const float* qv = s_query + cols.qoff[warp];
+    float acc = 0.f;
+    for (int e = lane; e < cols.dim[warp]; e += 32) acc += qv[e] * qv[e];
+    acc = warp_sum(acc);
+    if (lane == 0) s_qn[warp] = acc;
+  }
+
+  // 2. the predicate first: each slot's M scalars by a group of G =
+  // next_pow2(M) lanes, field f on lane f of its group (one coalesced read
+  // of the row's scalars); eight passes' loads are issued before any is
+  // used, so M <= 8 takes one round. Per clause one ballot: the clause
+  // holds when every lane of the group passes (a lane past M passes).
+  if (apply_pred) {
+    int lg = 0;
+    while ((1 << lg) < M) ++lg;
+    const int G = 1 << lg;
+    const int f = tid & (G - 1);
+    const int first = tid >> lg;
+    const int per_pass = kThreads >> lg;
+    const int gbase = lane & ~(G - 1) & 31;
+    const unsigned gmask = G == 32 ? 0xffffffffu : (1u << G) - 1u;
+    bool f_act[kMaxCols];
+    float f_lo[kMaxCols], f_hi[kMaxCols];
+#pragma unroll
+    for (int c = 0; c < kMaxCols; ++c) {
+      f_act[c] = c < C && f < M && s_act[c * M + f] >= 0.5f;
+      f_lo[c] = f_act[c] ? s_lo[c * M + f] : 0.f;
+      f_hi[c] = f_act[c] ? s_hi[c * M + f] : 0.f;
+    }
+    for (int p0 = 0; p0 < G; p0 += kFieldPasses) {
+      float x[kFieldPasses];
+#pragma unroll
+      for (int u = 0; u < kFieldPasses; ++u) {
+        x[u] = 0.f;
+        const int id = p0 + u < G ? s_id[(p0 + u) * per_pass + first] : -1;
+        if (id >= 0 && f < M)
+          x[u] = __ldg(scalars + (size_t)min(id, n_rows - 1) * M + f);
+      }
+#pragma unroll
+      for (int u = 0; u < kFieldPasses; ++u) {
+        if (p0 + u >= G) break;  // uniform across the CTA
+        bool ok = false;
+#pragma unroll
+        for (int c = 0; c < kMaxCols; ++c) {
+          if (c >= C) break;  // uniform across the CTA
+          const bool pass = !f_act[c] || (x[u] >= f_lo[c] && x[u] <= f_hi[c]);
+          const unsigned all = (__ballot_sync(0xffffffffu, pass) >> gbase) & gmask;
+          ok = ok || (all == gmask && s_cval[c] > 0.5f);
+        }
+        if (f == 0) s_ok[(p0 + u) * per_pass + first] = ok;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. compact the qualifying slots
+  const int my_id = s_id[tid];
+  const bool live = my_id >= 0 && (!apply_pred || s_ok[tid]);
+  const unsigned bal = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) s_warp_live[warp] = __popc(bal);
+  s_score[tid] = live ? 0.f : kNeg;
+  __syncthreads();
+  int n_live = 0, before = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = s_warp_live[w];
+    if (w < warp) before += c;
+    n_live += c;
+  }
+  if (live) s_live[before + __popc(bal & ((1u << lane) - 1u))] = tid;
+  __syncthreads();
+
+  // 4. score the qualifying rows: warp w takes list entries
+  // (p * kF32RowsInFlight + r) * kWarps + w; every thread runs every pass
+  const int n_pass = (n_live + kWarps * kF32RowsInFlight - 1) /
+                     (kWarps * kF32RowsInFlight);
+  for (int i = 0; i < n_vec; ++i) {
+    const int d = cols.dim[i];
+    const float* vec = static_cast<const float*>(cols.vec[i]);
+    const float* sq = s_query + cols.qoff[i];
+    const float w = s_w[i];
+    for (int p = 0; p < n_pass; ++p) {
+      int slot[kF32RowsInFlight];
+      bool has[kF32RowsInFlight];
+      const float* row[kF32RowsInFlight];
+      float dot[kF32RowsInFlight], vv[kF32RowsInFlight];
+#pragma unroll
+      for (int r = 0; r < kF32RowsInFlight; ++r) {
+        const int idx = (p * kF32RowsInFlight + r) * kWarps + warp;
+        has[r] = idx < n_live;
+        slot[r] = has[r] ? s_live[idx] : 0;
+        const int idc = has[r] ? min(s_id[slot[r]], n_rows - 1) : 0;
+        row[r] = vec + (size_t)idc * d;
+        dot[r] = 0.f;
+        vv[r] = 0.f;
+      }
+      if (cols.vec_ok[i]) {
+        f32_row_dots_aligned<kL2>(row, has, reinterpret_cast<const float4*>(sq),
+                                  d >> 2, lane, dot, vv);
+      } else {
+        f32_row_dots_elems<kL2>(row, has, sq, d, lane, dot, vv);
+      }
+#pragma unroll
+      for (int r = 0; r < kF32RowsInFlight; ++r) {
+        const float dsum = warp_sum(dot[r]);
+        const float vsum = kL2 ? warp_sum(vv[r]) : 0.f;
+        if (lane == 0 && has[r]) {
+          float s = dsum;
+          if (kL2) {
+            s = __fsub_rn(__fsub_rn(__fmul_rn(2.f, dsum), vsum), s_qn[i]);
+          }
+          s_score[slot[r]] = __fmaf_rn(w, s, s_score[slot[r]]);
+        }
+      }
+    }
+  }
+  if (my_id < 0) s_id[tid] = kIdSentinel;
+  __syncthreads();
+
+  // 5. the block top-k: bitonic sort of the 256 slots, best (score desc,
+  // id asc) first
+  for (int size = 2; size <= kBlockSlots; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const int p = tid ^ stride;
+      if (p > tid) {
+        const float si = s_score[tid], sp = s_score[p];
+        const int ii = s_id[tid], ip = s_id[p];
+        const bool i_first = si > sp || (si == sp && ii < ip);
+        const bool want_i_first = (tid & size) == 0;
+        if (i_first != want_i_first) {
+          s_score[tid] = sp;
+          s_score[p] = si;
+          s_id[tid] = ip;
+          s_id[p] = ii;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  if (tid == 0) {
+    float* os = out_s + ((size_t)b * nb + j) * k;
+    int* oi = out_i + ((size_t)b * nb + j) * k;
+    int cnt = 0;
+    int last = -1;
+    for (int p = 0; p < kBlockSlots && cnt < k; ++p) {
+      const float sc = s_score[p];
+      if (!(sc > 0.5f * kNeg)) break;  // sorted: only masked slots remain
+      const int id = s_id[p];
+      if (id == last) continue;  // duplicate of the row just emitted
+      os[cnt] = sc;
+      oi[cnt] = id;
+      last = id;
+      ++cnt;
+    }
+    for (; cnt < k; ++cnt) {
+      os[cnt] = kNeg;
+      oi[cnt] = -1;
+    }
+    out_q[(size_t)b * nb + j] = n_live;
+  }
+}
+
+cudaError_t launch_f32(bool l2, dim3 grid, size_t smem, cudaStream_t stream,
+                       const int* cand, int S, int n_rows, int n_vec,
+                       const Cols& cols, const float* weights,
+                       const float* scalars, int M, const float* lo,
+                       const float* hi, const float* act, const float* cval,
+                       int C, int apply_pred, int bs, int k, float* out_s,
+                       int* out_i, int* out_q) {
+  auto kernel = l2 ? gather_score_kernel<true> : gather_score_kernel<false>;
+  if (smem > 32 * 1024) {  // with the static arrays, past the default 48 KB
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(
+      cand, S, n_rows, n_vec, cols, weights, scalars, M, lo, hi, act, cval, C,
+      apply_pred, bs, k, out_s, out_i, out_q);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Pointer arrays `vecs`, `scales`,
@@ -648,7 +807,12 @@ extern "C" int gather_score_launch(int int8_rows, int l2, const int* cand,
         scalars, M, lo, hi, act, cval, C, apply_pred, bs, k, out_s, out_i,
         out_q));
   }
-  return static_cast<int>(launch_typed<float>(
-      l2 != 0, grid, smem, st, cand, S, n_rows, n_vec, cols, weights, scalars,
-      M, lo, hi, act, cval, C, apply_pred, bs, k, out_s, out_i, out_q));
+  if (apply_pred && M > 32) return static_cast<int>(cudaErrorInvalidValue);
+  // fp32 runs query-major (blockIdx.x the query): the CTAs resident at one
+  // time take the same blocks of every query, so a row that the queries'
+  // IVF probes share is read again while it is still in L2
+  return static_cast<int>(launch_f32(
+      l2 != 0, dim3(B, S / bs), smem, st, cand, S, n_rows, n_vec, cols,
+      weights, scalars, M, lo, hi, act, cval, C, apply_pred, bs, k, out_s,
+      out_i, out_q));
 }

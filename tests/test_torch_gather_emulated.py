@@ -6,9 +6,10 @@ the source uses: one OS thread per CUDA thread, the CTAs of a grid one
 after another, ``__syncthreads`` and the warp collectives (``__ballot_sync``,
 ``__shfl_xor_sync``) as barriers, and the byte and integer intrinsics
 (``__byte_perm``, ``__dp4a``) by their definitions. The launch syntax is
-rewritten to a call. Both kernels (fp32, and the int8 stage with its
-predicate-first read, qualifying-row list and 16-lane row groups) are then
-held to the port's plain version on the shapes they branch on: qualifying
+rewritten to a call. Both kernels (each with its predicate-first read and
+qualifying-row list; fp32 rows scored by warps, int8 rows by 16-lane
+groups) are then held to the port's plain version on the shapes they
+branch on: qualifying
 counts equal, scores to atol=1e-3, rtol=1e-4, ids equal except between
 tied scores, and no block emitting a row twice. This checks the kernels'
 indexing and control flow, not timing or the memory model; the ``cuda``
@@ -61,6 +62,7 @@ struct dim3 {
 };
 struct uint3 { unsigned x, y, z; };
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -90,6 +92,7 @@ inline int __dp4a(int a, int b, int c) {
   return c;
 }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
@@ -164,7 +167,7 @@ def emulated(tmp_path_factory):
     (out / "cuda_runtime.h").write_text(EMULATION_HEADER)
     shutil.copy(CSRC / "row_dot.cuh", out / "row_dot.cuh")
     src = _emulated_source((CSRC / "gather_score.cu").read_text())
-    assert src.count("emu_launch(") == 3  # fp32 dot/l2 and the int8 launch
+    assert src.count("emu_launch(") == 2  # the fp32 and the int8 launch
     (out / "gather_score.cpp").write_text(src)
     lib = out / "libgather_score.so"
     subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
@@ -220,7 +223,12 @@ def _launch(lib, cand, vectors, qs, w, scalars, pred, k, metric, scales):
 # and 768, byte loads at the unaligned d=770, M=16 (one 32-lane group a
 # slot with its scale), four clauses, four columns, a query past 32 KB of
 # shared memory, a predicate every slot fails, no predicate, the
-# ±1.4e-45 bounds of ~(col == 0), and one row in most slots of a block
+# ±1.4e-45 bounds of ~(col == 0), and one row in most slots of a block;
+# then 16-byte loads on fewer lanes than a group (d=4, 12), qualifying
+# lists of 37 and 41 slots (no multiple of the rows a pass scores) and of
+# one slot, each under k, M=16 under four clauses at d=768 ("fields16"),
+# and a graph walk's pool (S=530: three blocks, the last part padding,
+# k=128); both of these draw a random DNF, as "dnf" does
 CASES = [
     (0, 200, (16,), 2, 3, 64, 1, 5, "dot", "dnf"),
     (1, 200, (16, 8), 3, 2, 33, 1, 5, "l2", "dnf"),
@@ -233,6 +241,12 @@ CASES = [
     (8, 300, (768,), 4, 2, 300, 1, 32, "l2", "no_pred"),
     (9, 300, (768,), 4, 2, 300, 2, 32, "dot", "not_zero"),
     (10, 300, (768,), 4, 2, 400, 2, 32, "dot", "same_row"),
+    (11, 200, (4,), 4, 2, 300, 2, 16, "dot", "dnf"),
+    (12, 200, (12, 4), 3, 2, 300, 1, 16, "l2", "dnf"),
+    (13, 300, (768,), 4, 2, 300, 2, 64, "l2", "ragged"),
+    (14, 300, (768, 12), 4, 2, 300, 1, 10, "dot", "one_live"),
+    (15, 300, (768,), 16, 2, 300, 4, 10, "l2", "fields16"),
+    (16, 400, (768,), 4, 2, 530, 2, 128, "dot", "pool"),
 ]
 
 
@@ -252,8 +266,19 @@ def _case(seed, n, dims, m, b, s, c, kind):
     cand[rng.random((b, s)) < 0.2] = -1
     if kind == "same_row":
         cand[:, 3:200] = cand[0][cand[0] >= 0][0]
+    elif kind == "ragged":  # 37 live slots in the first block, 41 in the next
+        cand[:, :37] = rng.integers(0, n, (b, 37))
+        cand[:, 37:256] = -1
+        cand[:, 256:297] = rng.integers(0, n, (b, 41))
+        cand[:, 297:] = -1
+    elif kind == "one_live":
+        cand[:] = -1
+        cand[:, 5] = rng.integers(0, n, b)
     if kind == "no_pred":
         pred = None
+    elif kind in ("ragged", "one_live"):  # every row passes
+        pred = tp.PredicateSet.from_clauses(m, [{0: (-1.0, 11.0)}] * c,
+                                            n_clauses=c, device="cpu")
     elif kind == "all_fail":
         pred = tp.PredicateSet.from_clauses(m, [{0: (100.0, 200.0)}] * c,
                                             n_clauses=c, device="cpu")
@@ -289,6 +314,10 @@ def test_emulated_kernel_matches_plain_version(emulated, int8, seed, n, dims,
     assert torch.equal(got[2].long(), want[2].long())
     if kind == "all_fail":
         assert int(want[2].sum()) == 0
+    elif kind == "ragged":
+        assert want[2].tolist() == [78] * b
+    elif kind == "one_live":
+        assert want[2].tolist() == [1] * b
     elif kind == "not_zero":  # the rows holding 0 are excluded
         assert int(want[2].sum()) < int((cand >= 0).sum())
     torch.testing.assert_close(got[1], want[1], atol=ATOL, rtol=RTOL)

@@ -247,6 +247,17 @@ BRANCH_CASES = [
     (59, 300, (3072, 3072, 3072), 4, 2, 256, 1, 16, "dot", "dnf"),
 ]
 
+# chip_smoke.py's selectivity shapes at k=32 on 768-d rows: ≈1%, ≈10% and
+# 100% ranges on one column, ~(col == 0) on zeros, one conjunction over all
+# M columns — the qualifying list from a few slots a block to all of them
+SELECTIVITY_CASES = [
+    (60, 5000, (768,), 4, 4, 2048, 1, 32, "dot", "range_1"),
+    (61, 5000, (768,), 4, 4, 2048, 1, 32, "dot", "range_10"),
+    (62, 5000, (768,), 4, 4, 2048, 1, 32, "dot", "range_100"),
+    (63, 5000, (768,), 4, 4, 2048, 2, 32, "dot", "not_zero"),
+    (64, 5000, (768,), 4, 4, 2048, 1, 32, "dot", "all_cols"),
+]
+
 
 def branch_case(seed, n, dims, m, b, s, c, kind):
     case = make_case(seed, n, dims, m, b, s, c)
@@ -261,6 +272,12 @@ def branch_case(seed, n, dims, m, b, s, c, kind):
         case["scalars"][::3, 0] = 0.0
         tiny = float(np.nextafter(np.float32(0), np.float32(1)))
         case["clauses"] = [[{0: (-np.inf, -tiny)}, {0: (tiny, np.inf)}]] * b
+    elif kind.startswith("range_"):  # scalars are uniform on [0, 10)
+        half = 5.0 * int(kind[6:]) / 100
+        case["clauses"] = [[{0: (5.0 - half, 5.0 + half)}
+                            if half < 5.0 else {}]] * b
+    elif kind == "all_cols":
+        case["clauses"] = [[{col: (0.2, 9.8) for col in range(m)}]] * b
     return case
 
 
@@ -269,10 +286,12 @@ def branch_case(seed, n, dims, m, b, s, c, kind):
 def test_cuda_kernel_matches_plain_version(cuda_device, int8):
     """The CUDA kernel (both element types) against the port's plain
     version on the same card tensors, over the corpus, main-path widths
-    (768-d columns, k up to 128) and the int8 kernel's branch shapes."""
+    (768-d columns, k up to 128), the kernels' branch shapes and
+    ``chip_smoke.py``'s selectivity shapes."""
     cases = [(*x, "dnf") for x in CORPUS] + [
         (8, 5000, (768,), 4, 8, 1000, 2, 32, "dot", "dnf"),
-        (9, 5000, (768, 768), 4, 4, 700, 4, 128, "l2", "dnf")] + BRANCH_CASES
+        (9, 5000, (768, 768), 4, 4, 700, 4, 128, "l2", "dnf")] + \
+        BRANCH_CASES + SELECTIVITY_CASES
     for seed, n, dims, m, b, s, c, k, metric, kind in cases:
         case = branch_case(seed, n, dims, m, b, s, c, kind)
         vecs, scales = (int8_replica(case) if int8 else (None, None))
