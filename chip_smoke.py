@@ -22,8 +22,10 @@ Phases (any failure raises and exits non-zero):
      host's enqueue where it is the slower, and the same 20 launches
      replayed from a CUDA graph: the device time), the plain version's and
      the bound (bytes the call must move over 3.35 TB/s vs. its flops over
-     67 TFLOP/s fp32, the larger; a gather under a predicate must read
-     every named row's scalars but only the qualifying rows' vectors).
+     67 TFLOP/s fp32, the larger; a gather or a scan under a predicate
+     must read every row's scalars it decides but only the qualifying
+     rows' vectors; a scan also reports the bound of every row's vector and
+     scalars, ``bound_all_rows_ms``).
      Gather-score: IVF-probed candidates (fp32 and the int8 stage) under
      random DNFs, and both also under ≈1%, ≈10% and 100% price ranges
      (fp32 at k=32, the int8 stage at kq=128), the ±1.4e-45 bounds of
@@ -32,7 +34,8 @@ Phases (any failure raises and exits non-zero):
      the candidate pool of a real graph walk at the largest knobs (beam
      16, 8 hops: 8 + 4·16 + 8·16·16 = 2,120 slots). Full-table scans of column 0: ``ops.masked_topk`` (dot, l2)
      and ``ops.int8_masked_topk`` on ``table.quantized(0)``, k ∈ {10, 128},
-     conjunctive predicates at ≈1%, ≈10% and 100% selectivity;
+     conjunctive predicates at ≈1%, ≈10% and 100% selectivity and one over
+     all M columns (≈12.5%);
   4. the main path: fit BoomHQ (default graph tier, the quickstart's
      encoder and rewriter step budgets, labels without the per-column trim
      as in the tests' fitted fixture) on a mixed conjunctive + DNF
@@ -466,13 +469,18 @@ def check_kernels(table, index, graph_, queries, device) -> list:
     return out
 
 
-def _scan_bound_ms(n, d, m, k, nb, *, int8, l2):
-    """Least time for one full-table scan: every row's vector (int8 + its
-    f32 scale, or f32) and scalars read once, the query and predicate read
-    and the block pools written once, against the dots (and l2 norms)."""
-    bytes_ = n * (d * (1 if int8 else 4) + (4 if int8 else 0) + 4 * m) \
+def _scan_bound_ms(n, d, m, k, nb, *, n_qual, any_active, int8, l2):
+    """Least time for one full-table scan: every row's scalars when some
+    column is active (none when no column is), the vectors (int8: + the f32
+    scale) of the ``n_qual`` qualifying rows only — a failing row scores NEG
+    whatever its vector holds — the query and predicate read and the block
+    pools written once, against the dots (and l2 norms) of the qualifying
+    rows. ``n_qual=n, any_active=True`` counts every row's vector and
+    scalars. -> (ms, what binds)."""
+    bytes_ = (n * 4 * m if any_active else 0) \
+        + n_qual * (d * (1 if int8 else 4) + (4 if int8 else 0)) \
         + 4 * (d + 3 * m) + nb * k * 8
-    flops = n * d * (4 if l2 else 2)
+    flops = n_qual * d * (4 if l2 else 2)
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -491,10 +499,23 @@ def _range_pred(scal_np, frac, device):
                                       device=device)
 
 
+def _all_cols_pred(scal_np, device):
+    """A conjunction over all M columns: each column's central 47.5% by
+    quantile, ≈12.5% of the 200,000-row ``part`` table in all (two of its
+    columns are discrete, so the share moves in steps)."""
+    from repro_torch.vectordb.predicates import Predicates
+
+    return Predicates.from_conditions(scal_np.shape[1], {
+        c: tuple(float(x) for x in np.quantile(scal_np[:, c],
+                                               [0.2625, 0.7375]))
+        for c in range(scal_np.shape[1])}, device=device)
+
+
 def check_scans(table, queries, device) -> list:
     """Full-table scan kernels vs their plain versions on column 0: fp32
-    (dot, l2) and int8, k ∈ {10, 128}, ≈1%, ≈10% and 100% selectivity.
-    Returns one row per (variant, k, selectivity)."""
+    (dot, l2) and int8, k ∈ {10, 128}, ≈1%, ≈10% and 100% price ranges and
+    one conjunction over all M columns. Returns one row per (variant, k,
+    predicate)."""
     from repro_torch.kernels import masked_topk as mt
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.shapes import SCAN_BLOCK_ROWS
@@ -507,11 +528,13 @@ def check_scans(table, queries, device) -> list:
     q = queries[0].query_vectors[0]
     nb = -(-n // SCAN_BLOCK_ROWS)
     out = []
-    for frac in (0.01, 0.10, 1.0):
-        p = _range_pred(scal_np, frac, device)
+    preds = [_range_pred(scal_np, frac, device) for frac in (0.01, 0.10, 1.0)]
+    preds.append(_all_cols_pred(scal_np, device))
+    for p in preds:
         lo, hi, act = (x.to(torch.float32) for x in (p.lo, p.hi, p.active))
         n_qual = int(torch.all(((table.scalars >= lo) & (table.scalars <= hi))
                                | (act < 0.5), dim=1).sum())
+        n_act = int((act >= 0.5).sum())
         for k in (10, 128):
             for variant in ("dot", "l2", "int8"):
                 int8 = variant == "int8"
@@ -542,7 +565,8 @@ def check_scans(table, queries, device) -> list:
                         return mt.masked_topk_blocks(
                             q, v0, table.scalars, lo, hi, act, n, k=k,
                             metric=metric)
-                label = f"{variant} k={k} sel={n_qual / n:.4f}"
+                label = (f"{variant} k={k} sel={n_qual / n:.4f}"
+                         + (f" {n_act} cols" if n_act > 1 else ""))
                 s_k, i_k, valid = kern()
                 s_p, i_p = plain()
                 torch.cuda.synchronize()
@@ -565,19 +589,24 @@ def check_scans(table, queries, device) -> list:
                 kernel_only_ms = cuda_time_ms(blocks)
                 device_ms = graph_time_ms(blocks)
                 plain_ms = cuda_time_ms(plain, iters=5, warmup=1)
-                bound, by = _scan_bound_ms(n, d, m, k, nb, int8=int8,
+                bound, by = _scan_bound_ms(n, d, m, k, nb, n_qual=n_qual,
+                                           any_active=n_act > 0, int8=int8,
                                            l2=variant == "l2")
+                bound_all = _scan_bound_ms(n, d, m, k, nb, n_qual=n,
+                                           any_active=True, int8=int8,
+                                           l2=variant == "l2")[0]
                 out.append(dict(shape=label, variant=variant, k=k,
-                                selectivity=n_qual / n, ms=ms,
-                                kernel_only_ms=kernel_only_ms,
+                                selectivity=n_qual / n, active_cols=n_act,
+                                ms=ms, kernel_only_ms=kernel_only_ms,
                                 device_ms=device_ms,
                                 plain_ms=plain_ms, bound_ms=bound,
-                                bound_by=by, max_abs_err=err,
-                                tie_swaps=n_swaps))
-                log(f"  scan {label:26s} entry {ms:7.4f} ms (kernel "
+                                bound_by=by, bound_all_rows_ms=bound_all,
+                                max_abs_err=err, tie_swaps=n_swaps))
+                log(f"  scan {label:33s} entry {ms:7.4f} ms (kernel "
                     f"{kernel_only_ms:7.4f}, device {device_ms:7.4f})  "
                     f"plain {plain_ms:8.4f} ms  "
-                    f"bound {bound:7.4f} ms ({by})  max|err| {err:.3g}  "
+                    f"bound {bound:7.4f} ms ({by}), all rows "
+                    f"{bound_all:7.4f}  max|err| {err:.3g}  "
                     f"tie swaps {n_swaps}")
     return out
 
@@ -895,7 +924,8 @@ def main() -> int:
         vrows = [r for r in scan_rows if r["variant"] in
                  ((variant,) if variant == "int8" else ("dot", "l2"))]
         main_row = next(r for r in vrows if r["variant"] == variant
-                        and r["k"] == 10 and 0.05 < r["selectivity"] < 0.5)
+                        and r["k"] == 10 and r["active_cols"] == 1
+                        and 0.05 < r["selectivity"] < 0.5)
         kernels.append(_kernel_entry(
             name, "src/repro_torch/csrc/masked_topk.cu", replaces, vrows,
             main_row, spass["launches"]["int8" if variant == "int8"

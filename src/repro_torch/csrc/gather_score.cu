@@ -76,6 +76,8 @@
 //      arithmetic, whichever group or pass it lands in, so two slots naming
 //      one row score bit-identically. Unaligned or odd widths read a byte a
 //      lane.
+// The row loops of both kernels live in row_dot.cuh, shared with the
+// full-table scan (masked_topk.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,98 +107,9 @@ struct Cols {
 // int8 (kernel 2)
 // ---------------------------------------------------------------------------
 
-constexpr int kGroupLanes = 16;                  // lanes that score one row
 constexpr int kGroups = kThreads / kGroupLanes;  // row groups per CTA
 constexpr int kRowsInFlight = 2;                 // rows a group loads at once
-constexpr int kChunkLoads = 3;  // 16-byte loads a lane issues per row and step
 constexpr int kFieldPasses = 8;  // slots a thread reads fields for at once
-
-// The int8 value in byte c of `biased` (a word XOR 0x80808080, so each byte
-// holds v + 128), exactly: placed in the low mantissa byte of 2^23 it reads
-// 2^23 + v + 128.
-__device__ __forceinline__ float i8_at(uint32_t biased, int c) {
-  return __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7650u | c)) -
-         8388736.f;
-}
-
-__device__ __forceinline__ void dot_word(int w, float4 q, float& dot) {
-  const uint32_t u = static_cast<uint32_t>(w) ^ 0x80808080u;
-  dot = fmaf(i8_at(u, 0), q.x, dot);
-  dot = fmaf(i8_at(u, 1), q.y, dot);
-  dot = fmaf(i8_at(u, 2), q.z, dot);
-  dot = fmaf(i8_at(u, 3), q.w, dot);
-}
-
-// Sum over the 16 lanes of a group; every lane of the warp takes part.
-template <typename V>
-__device__ __forceinline__ V group_sum(V x) {
-#pragma unroll
-  for (int off = kGroupLanes / 2; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Lane l's partial q.v (and v.v) of kRowsInFlight rows of an aligned
-// column: chunk e (16 bytes) of each row goes to lane e % 16, all of a
-// step's loads issued before any is used. `q4` is the transposed query.
-template <bool kL2>
-__device__ __forceinline__ void row_dots_aligned(
-    const int8_t* const (&row)[kRowsInFlight], const bool (&has)[kRowsInFlight],
-    const float4* q4, int n16, int l, float (&dot)[kRowsInFlight],
-    int (&vv)[kRowsInFlight]) {
-  for (int e0 = 0; e0 < n16; e0 += kGroupLanes * kChunkLoads) {
-    int4 raw[kRowsInFlight][kChunkLoads];
-#pragma unroll
-    for (int r = 0; r < kRowsInFlight; ++r) {
-#pragma unroll
-      for (int u = 0; u < kChunkLoads; ++u) {
-        const int e = e0 + u * kGroupLanes + l;
-        raw[r][u] = make_int4(0, 0, 0, 0);
-        if (has[r] && e < n16)
-          raw[r][u] = __ldg(reinterpret_cast<const int4*>(row[r]) + e);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kChunkLoads; ++u) {
-      const int e = e0 + u * kGroupLanes + l;
-      if (e >= n16) continue;
-      const float4 qa = q4[e], qb = q4[n16 + e], qc = q4[2 * n16 + e],
-                   qd = q4[3 * n16 + e];
-#pragma unroll
-      for (int r = 0; r < kRowsInFlight; ++r) {
-        const int4 v = raw[r][u];
-        dot_word(v.x, qa, dot[r]);
-        dot_word(v.y, qb, dot[r]);
-        dot_word(v.z, qc, dot[r]);
-        dot_word(v.w, qd, dot[r]);
-        if (kL2) {
-          vv[r] = __dp4a(v.x, v.x, vv[r]);
-          vv[r] = __dp4a(v.y, v.y, vv[r]);
-          vv[r] = __dp4a(v.z, v.z, vv[r]);
-          vv[r] = __dp4a(v.w, v.w, vv[r]);
-        }
-      }
-    }
-  }
-}
-
-// The same for a column whose width or address rules out 16-byte loads:
-// element e goes to lane e % 16, one byte a load; `q` in natural order.
-template <bool kL2>
-__device__ __forceinline__ void row_dots_bytes(
-    const int8_t* const (&row)[kRowsInFlight], const bool (&has)[kRowsInFlight],
-    const float* q, int d, int l, float (&dot)[kRowsInFlight],
-    int (&vv)[kRowsInFlight]) {
-  for (int e = l; e < d; e += kGroupLanes) {
-    const float qe = q[e];
-#pragma unroll
-    for (int r = 0; r < kRowsInFlight; ++r) {
-      const int v = has[r] ? static_cast<int>(__ldg(row[r] + e)) : 0;
-      dot[r] = fmaf(static_cast<float>(v), qe, dot[r]);
-      if (kL2) vv[r] += v * v;
-    }
-  }
-}
 
 template <bool kL2>
 __global__ void __launch_bounds__(kThreads)
@@ -360,10 +273,10 @@ gather_score_int8_kernel(const int* __restrict__ cand, int S, int n_rows,
         vv[r] = 0;
       }
       if (cols.vec_ok[i]) {
-        row_dots_aligned<kL2>(row, has, reinterpret_cast<const float4*>(sq),
-                              d >> 4, l, dot, vv);
+        row_dots_aligned<kL2, kRowsInFlight>(
+            row, has, reinterpret_cast<const float4*>(sq), d >> 4, l, dot, vv);
       } else {
-        row_dots_bytes<kL2>(row, has, sq, d, l, dot, vv);
+        row_dots_bytes<kL2, kRowsInFlight>(row, has, sq, d, l, dot, vv);
       }
 #pragma unroll
       for (int r = 0; r < kRowsInFlight; ++r) {
@@ -455,81 +368,6 @@ cudaError_t launch_int8(bool l2, dim3 grid, size_t smem, cudaStream_t stream,
 // ---------------------------------------------------------------------------
 
 constexpr int kF32RowsInFlight = 2;  // rows a warp loads at once
-constexpr int kF32ChunkLoads = 6;    // loads a lane issues per row and step
-
-// Lane `lane`'s partial q.v (and v.v) of kF32RowsInFlight rows of an
-// aligned column: float4 e of each row goes to lane e % 32, all of a step's
-// loads issued before any is used (a 768-float row is one step).
-template <bool kL2>
-__device__ __forceinline__ void f32_row_dots_aligned(
-    const float* const (&row)[kF32RowsInFlight],
-    const bool (&has)[kF32RowsInFlight], const float4* q4, int n4, int lane,
-    float (&dot)[kF32RowsInFlight], float (&vv)[kF32RowsInFlight]) {
-  for (int e0 = 0; e0 < n4; e0 += 32 * kF32ChunkLoads) {
-    float4 raw[kF32RowsInFlight][kF32ChunkLoads];
-#pragma unroll
-    for (int r = 0; r < kF32RowsInFlight; ++r) {
-#pragma unroll
-      for (int u = 0; u < kF32ChunkLoads; ++u) {
-        const int e = e0 + u * 32 + lane;
-        raw[r][u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (has[r] && e < n4)
-          raw[r][u] = __ldg(reinterpret_cast<const float4*>(row[r]) + e);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kF32ChunkLoads; ++u) {
-      const int e = e0 + u * 32 + lane;
-      if (e >= n4) break;
-      const float4 q = q4[e];
-#pragma unroll
-      for (int r = 0; r < kF32RowsInFlight; ++r) {
-        const float4 v = raw[r][u];
-        dot[r] = __fmaf_rn(v.x, q.x, dot[r]);
-        dot[r] = __fmaf_rn(v.y, q.y, dot[r]);
-        dot[r] = __fmaf_rn(v.z, q.z, dot[r]);
-        dot[r] = __fmaf_rn(v.w, q.w, dot[r]);
-        if (kL2) {
-          vv[r] = __fmaf_rn(v.x, v.x, vv[r]);
-          vv[r] = __fmaf_rn(v.y, v.y, vv[r]);
-          vv[r] = __fmaf_rn(v.z, v.z, vv[r]);
-          vv[r] = __fmaf_rn(v.w, v.w, vv[r]);
-        }
-      }
-    }
-  }
-}
-
-// The same for a column whose width or address rules out 16-byte loads:
-// element e goes to lane e % 32, one float a load.
-template <bool kL2>
-__device__ __forceinline__ void f32_row_dots_elems(
-    const float* const (&row)[kF32RowsInFlight],
-    const bool (&has)[kF32RowsInFlight], const float* q, int d, int lane,
-    float (&dot)[kF32RowsInFlight], float (&vv)[kF32RowsInFlight]) {
-  for (int e0 = 0; e0 < d; e0 += 32 * kF32ChunkLoads) {
-    float raw[kF32RowsInFlight][kF32ChunkLoads];
-#pragma unroll
-    for (int r = 0; r < kF32RowsInFlight; ++r) {
-#pragma unroll
-      for (int u = 0; u < kF32ChunkLoads; ++u) {
-        const int e = e0 + u * 32 + lane;
-        raw[r][u] = has[r] && e < d ? __ldg(row[r] + e) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kF32ChunkLoads; ++u) {
-      const int e = e0 + u * 32 + lane;
-      if (e >= d) break;
-      const float qe = q[e];
-#pragma unroll
-      for (int r = 0; r < kF32RowsInFlight; ++r) {
-        dot[r] = __fmaf_rn(raw[r][u], qe, dot[r]);
-        if (kL2) vv[r] = __fmaf_rn(raw[r][u], raw[r][u], vv[r]);
-      }
-    }
-  }
-}
 
 template <bool kL2>
 __global__ void __launch_bounds__(kThreads)
@@ -672,10 +510,12 @@ gather_score_kernel(const int* __restrict__ cand, int S, int n_rows, int n_vec,
         vv[r] = 0.f;
       }
       if (cols.vec_ok[i]) {
-        f32_row_dots_aligned<kL2>(row, has, reinterpret_cast<const float4*>(sq),
-                                  d >> 2, lane, dot, vv);
+        f32_row_dots_aligned<kL2, kF32RowsInFlight>(
+            row, has, reinterpret_cast<const float4*>(sq), d >> 2, lane, dot,
+            vv);
       } else {
-        f32_row_dots_elems<kL2>(row, has, sq, d, lane, dot, vv);
+        f32_row_dots_elems<kL2, kF32RowsInFlight>(row, has, sq, d, lane, dot,
+                                                  vv);
       }
 #pragma unroll
       for (int r = 0; r < kF32RowsInFlight; ++r) {

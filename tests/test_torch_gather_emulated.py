@@ -150,31 +150,39 @@ def _emulated_source(src: str) -> str:
     """The CUDA source with its dynamic shared array bound to the
     emulator's buffer and each ``k<<<grid, threads, smem, stream>>>(`` a
     call of ``emu_launch``."""
-    src = src.replace("extern __shared__ __align__(16) float s_query[];",
-                      "float* s_query = emu_dynamic_smem;")
+    src = re.sub(r"extern __shared__ __align__\(16\) float (\w+)\[\];",
+                 r"float* \1 = emu_dynamic_smem;", src)
     return re.sub(r"(\S[^\n]*?)<<<([^,]+), ([^,]+), ([^,]+), [^>]+>>>\(",
                   r"emu_launch(\1, \2, \3, \4)(", src)
+
+
+def build_emulated(out: pathlib.Path, name: str, launches: int):
+    """``csrc/<name>.cu`` built with the host ``g++`` against the emulation
+    header (and the shared ``csrc/*.cuh``) into ``out``; the source must
+    hold ``launches`` kernel launches. -> the loaded library."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    (out / "cuda_runtime.h").write_text(EMULATION_HEADER)
+    for header in CSRC.glob("*.cuh"):
+        shutil.copy(header, out / header.name)
+    src = _emulated_source((CSRC / f"{name}.cu").read_text())
+    assert src.count("emu_launch(") == launches
+    (out / f"{name}.cpp").write_text(src)
+    lib = out / f"lib{name}.so"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-pthread", "-Wno-unknown-pragmas", "-I", str(out),
+                    "-o", str(lib), str(out / f"{name}.cpp")],
+                   check=True, capture_output=True)
+    return ctypes.CDLL(str(lib))
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """The emulated build of ``csrc/gather_score.cu`` with its C entry
     point declared as ``gather_score._library`` declares it."""
-    cxx = shutil.which("g++")
-    if cxx is None:
-        pytest.skip("needs a host C++ compiler (g++)")
-    out = tmp_path_factory.mktemp("gather_emulated")
-    (out / "cuda_runtime.h").write_text(EMULATION_HEADER)
-    shutil.copy(CSRC / "row_dot.cuh", out / "row_dot.cuh")
-    src = _emulated_source((CSRC / "gather_score.cu").read_text())
-    assert src.count("emu_launch(") == 2  # the fp32 and the int8 launch
-    (out / "gather_score.cpp").write_text(src)
-    lib = out / "libgather_score.so"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-pthread", "-Wno-unknown-pragmas", "-I", str(out),
-                    "-o", str(lib), str(out / "gather_score.cpp")],
-                   check=True, capture_output=True)
-    dll = ctypes.CDLL(str(lib))
+    dll = build_emulated(tmp_path_factory.mktemp("gather_emulated"),
+                         "gather_score", 2)  # the fp32 and the int8 launch
     p, i = ctypes.c_void_p, ctypes.c_int
     dll.gather_score_launch.argtypes = [
         i, i, p, i, i, i, i, p, p, p, p, p, p, i, p, p, p, p, i, i, i, i,

@@ -1,8 +1,9 @@
 """Boundaries of the PyTorch port.
 
-* No file of ``src/repro_torch/`` and not ``chip_smoke.py`` imports ``jax``
-  or the JAX package ``repro`` (an AST scan, so lazy imports inside
-  functions count too).
+* No file of ``src/repro_torch/``, not ``chip_smoke.py`` and not the
+  kernel-variant scripts (``scripts/*_variants.py``) imports ``jax`` or the
+  JAX package ``repro`` (an AST scan, so lazy imports inside functions
+  count too).
 * Entry points run on the CUDA device by default: with no CUDA device and
   no ``device="cpu"`` they raise instead of falling back to the CPU.
 """
@@ -16,7 +17,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*_variants.py"))
 
 
 def _imported_modules(path: pathlib.Path) -> list:

@@ -80,6 +80,8 @@ def make_case(n, d, sel, dup, seed):
         lo[0], hi[0], act[0] = 5.0, 5.1, True
     elif sel == "all":  # nothing qualifies
         lo[2], hi[2], act[2] = 100.0, 200.0, True
+    elif sel == "all_cols":  # every column active, ≈ 12.5% in all
+        lo[:], hi[:], act[:] = 2.5, 7.5, True
     return q, vecs, scal, lo, hi, act
 
 
@@ -159,9 +161,13 @@ def test_merge_matches_jax():
 def test_cuda_scan_matches_plain_version(cuda_device, int8):
     """The CUDA kernel (both element types) through the entry points
     against the plain version on the same card tensors, over the corpus
-    plus main-path widths (768-d rows, 1024-row blocks)."""
+    plus main-path widths (768-d rows, 1024-row blocks): ≈40%, ≈1% at
+    k=10 and at k=128 (fewer qualifying rows than k), and every column
+    active."""
     cases = list(FP32) + [(5000, 768, 1024, 128, "dot", "mid", True),
-                          (5000, 768, 1024, 10, "l2", "narrow", False)]
+                          (5000, 768, 1024, 10, "l2", "narrow", False),
+                          (5000, 768, 1024, 128, "dot", "narrow", False),
+                          (5000, 768, 1024, 10, "l2", "all_cols", True)]
     for n, d, block, k, metric, sel, dup in cases:
         q, vecs, scal, lo, hi, act = (
             torch.as_tensor(a, device=cuda_device)

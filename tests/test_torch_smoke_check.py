@@ -138,3 +138,28 @@ def test_gather_bound_without_predicate_is_unchanged(smoke, int8):
     fixed = 2 * 6 * 4 + 2 * 1 * (8 * k + 4) + 2 * 24 * 4
     assert smoke._gather_traffic(CAND, dims, elem, m, k, int8=int8,
                                  l2=False) == (5 * row + fixed, 9 * 24 * 2)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_scan_bound_counts_vectors_of_qualifying_rows_only(smoke, int8):
+    """A scan under a predicate: every row's 4M scalar bytes, but only the
+    30 qualifying rows' vector (and int8 scale) bytes; the query, the
+    predicate fields and the block pools as ever. With no active column no
+    scalar byte; with every row counted, the old every-row figure."""
+    n, d, m, k, nb = 2000, 16, 4, 10, 2
+    row = d * (1 if int8 else 4) + (4 if int8 else 0)
+    fixed = 4 * (d + 3 * m) + nb * k * 8
+
+    def ms(bytes_):
+        return bytes_ / smoke.HBM_BYTES_PER_S * 1e3
+
+    got, by = smoke._scan_bound_ms(n, d, m, k, nb, n_qual=30,
+                                   any_active=True, int8=int8, l2=False)
+    assert by == "bytes"
+    assert got == pytest.approx(ms(n * 4 * m + 30 * row + fixed))
+    none = smoke._scan_bound_ms(n, d, m, k, nb, n_qual=n, any_active=False,
+                                int8=int8, l2=False)[0]
+    assert none == pytest.approx(ms(n * row + fixed))
+    every = smoke._scan_bound_ms(n, d, m, k, nb, n_qual=n, any_active=True,
+                                 int8=int8, l2=False)[0]
+    assert every == pytest.approx(ms(n * (row + 4 * m) + fixed))
