@@ -1,14 +1,101 @@
-"""Scalar -> vector benchmark construction (paper §4).
+"""Benchmark construction (paper §4): correlated scalar/vector augmentation.
 
-Port of ``repro.bench.augment.hash_embed`` (plain numpy on both sides): a
-deterministic random-feature embedding of scalar rows, so vectors are
-CORRELATED with the scalars as §4 requires. The vector -> scalar
-constructions and the LM embedder are not ported yet.
+Port of ``repro.bench.augment``.
+
+Vector -> scalar (for ann-benchmark-style datasets):
+  * cluster IDs        — k-means cluster of each vector (categorical), on
+                         the port's own k-means (``ivf._kmeans`` from a
+                         seeded ``torch.Generator``), so the labels are the
+                         port's, not the JAX package's;
+  * hyperplane codes   — side-of-random-hyperplane bit strings (categorical);
+  * reference distance — Σ distances to random reference points
+                         (continuous).
+
+Scalar -> vector: ``hash_embed``, a deterministic random-feature embedding
+of scalar rows, so vectors are CORRELATED with the scalars as §4 requires.
+The numpy constructions match the JAX package's bit for bit. The LM
+embedder waits for the port of ``models/``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from repro_torch.common.device import resolve_device
+
+# rows a chunk of ``refpoint_distance_sum``: its (rows, n_refs, d) f32
+# temporary stays at a few MB whatever the table's size
+REFPOINT_CHUNK = 8192
+
+
+# ---------------------------------------------------------------------------
+# vector -> scalar
+# ---------------------------------------------------------------------------
+
+def cluster_labels(vectors: np.ndarray, n_clusters: int = 16, seed: int = 0,
+                   iters: int = 8, *, device=None) -> np.ndarray:
+    """k-means cluster id of each row (f32 codes), the k-means run on
+    ``device`` (the CUDA device by default)."""
+    from repro_torch.vectordb.ivf import _kmeans
+
+    v = torch.as_tensor(np.asarray(vectors, np.float32),
+                        device=resolve_device(device))
+    _, assign = _kmeans(v, torch.Generator().manual_seed(seed), n_clusters,
+                        iters)
+    return assign.cpu().numpy().astype(np.float32)
+
+
+def hyperplane_codes(vectors: np.ndarray, n_planes: int = 4,
+                     seed: int = 0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    planes = rng.normal(size=(vectors.shape[1], n_planes)).astype(np.float32)
+    bits = (vectors @ planes > 0).astype(np.int64)
+    code = np.zeros(vectors.shape[0], np.int64)
+    for j in range(n_planes):
+        code = code * 2 + bits[:, j]
+    return code.astype(np.float32)
+
+
+def refpoint_distance_sum(vectors: np.ndarray, n_refs: int = 4,
+                          seed: int = 0) -> np.ndarray:
+    """Σ_r ‖v − ref_r‖ per row, in chunks of ``REFPOINT_CHUNK`` rows: each
+    row's distances are reduced exactly as over the whole array at once,
+    so the result is bit-identical to the unchunked formula."""
+    rng = np.random.default_rng(seed + 7)
+    lo, hi = vectors.min(axis=0), vectors.max(axis=0)
+    refs = rng.uniform(lo, hi, size=(n_refs, vectors.shape[1])).astype(
+        np.float32)
+    out = np.empty(vectors.shape[0], np.float32)
+    for s in range(0, vectors.shape[0], REFPOINT_CHUNK):
+        v = vectors[s: s + REFPOINT_CHUNK]
+        d = np.sqrt(((v[:, None, :] - refs[None]) ** 2).sum(-1))
+        out[s: s + REFPOINT_CHUNK] = d.sum(axis=1)
+    return out
+
+
+def augment_with_scalars(vectors: np.ndarray, *, n_clusters: int = 16,
+                         n_planes: int = 4, n_refs: int = 4, seed: int = 0,
+                         device=None):
+    """-> (scalars (n, 3) f32, column specs) via the three §4
+    constructions; the k-means of ``cluster_labels`` runs on ``device``."""
+    from repro_torch.vectordb.table import ScalarCol
+
+    cols = [
+        ScalarCol("cluster_id", "cat", n_clusters),
+        ScalarCol("hplane_code", "cat", 2 ** n_planes),
+        ScalarCol("ref_dist_sum", "num"),
+    ]
+    scalars = np.stack([
+        cluster_labels(vectors, n_clusters, seed, device=device),
+        hyperplane_codes(vectors, n_planes, seed),
+        refpoint_distance_sum(vectors, n_refs, seed),
+    ], axis=1)
+    return scalars, cols
+
+
+# ---------------------------------------------------------------------------
+# scalar -> vector
+# ---------------------------------------------------------------------------
 
 def hash_embed(scalars: np.ndarray, dim: int, *, seed: int = 0,
                noise: float = 0.25) -> np.ndarray:

@@ -1,10 +1,16 @@
 """The benchmark dataset registry (paper Table 1), offline-reproducible.
 
-Port of ``repro.bench.datasets`` for the scalar -> vector (``s->v``) sets,
-which include TPC-H Part: realistic scalar marginals (Zipf categoricals,
-lognormal and uniform numerics) plus correlated embeddings of them
-(``augment.hash_embed``). The data is generated in numpy exactly as the JAX
-package generates it, then placed on the device.
+Port of ``repro.bench.datasets``. Each entry reproduces its set's SHAPE
+(dims preserved, row counts scalable up to the paper's) and CHARACTER:
+  * v+s / v->s sets: Gaussian-mixture vectors (clusterable, like real
+    embeddings) + the paper's three correlated-scalar constructions
+    (``augment.augment_with_scalars``);
+  * s->v sets, which include TPC-H Part: realistic scalar marginals (Zipf
+    categoricals, lognormal and uniform numerics) plus correlated
+    embeddings of them (``augment.hash_embed``).
+The data is generated in numpy exactly as the JAX package generates it,
+then placed on the device; only ``cluster_id`` (the port's own k-means)
+differs from the JAX package's.
 """
 from __future__ import annotations
 
@@ -12,7 +18,8 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.bench.augment import hash_embed
+from repro_torch.bench.augment import augment_with_scalars, hash_embed
+from repro_torch.common.device import resolve_device
 from repro_torch.vectordb.table import ScalarCol, Table, TableSchema, VectorCol
 
 
@@ -40,6 +47,15 @@ SPECS: dict = {
 }
 
 
+def _mixture_vectors(n: int, dim: int, *, n_comp: int = 24, seed: int = 0,
+                     spread: float = 0.35) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    mus = rng.normal(size=(n_comp, dim)).astype(np.float32)
+    comp = rng.integers(0, n_comp, n)
+    v = mus[comp] + spread * rng.normal(size=(n, dim)).astype(np.float32)
+    return v.astype(np.float32)
+
+
 def _scalar_table(n: int, seed: int) -> tuple:
     """TPC-H/IMDb-flavoured scalar columns: two Zipf categoricals, a
     lognormal 'size' and a uniform 'price'."""
@@ -55,18 +71,36 @@ def _scalar_table(n: int, seed: int) -> tuple:
 
 def make(name: str, *, rows: int = 20_000, seed: int = 0,
          metric: str = "dot", device=None) -> Table:
-    """A fully built ``Table`` on ``device`` (the CUDA device by default)."""
+    """A fully built ``Table`` on ``device`` (the CUDA device by default;
+    the v->s sets' k-means runs there too)."""
     spec = SPECS[name]
-    if spec.kind != "s->v":
-        raise NotImplementedError(
-            f"{name} is a {spec.kind} set; only the s->v sets are ported")
+    dev = resolve_device(device)
     n = min(rows, spec.paper_rows)
-    scalars, cols = _scalar_table(n, seed)
-    vectors = [hash_embed(scalars, d, seed=seed + 11 * (i + 1),
-                          noise=0.25 + 0.1 * i)
-               for i, d in enumerate(spec.dims)]
+    if spec.kind in ("v+s", "v->s"):
+        vectors = [_mixture_vectors(n, d, seed=seed + i)
+                   for i, d in enumerate(spec.dims)]
+        scalars, cols = augment_with_scalars(vectors[0], seed=seed,
+                                             device=dev)
+        if spec.kind == "v+s":  # fungis: extra native metadata column
+            rng = np.random.default_rng(seed + 3)
+            extra = (scalars[:, 0] * 2.0 + rng.normal(0, 1.0, n)).astype(
+                np.float32)
+            scalars = np.concatenate([scalars, extra[:, None]], axis=1)
+            cols = cols + [ScalarCol("obs_count", "num")]
+    else:  # s->v
+        scalars, cols = _scalar_table(n, seed)
+        vectors = [hash_embed(scalars, d, seed=seed + 11 * (i + 1),
+                              noise=0.25 + 0.1 * i)
+                   for i, d in enumerate(spec.dims)]
     schema = TableSchema(
         vector_cols=tuple(VectorCol(f"vec{i}", d)
                           for i, d in enumerate(spec.dims)),
         scalar_cols=tuple(cols), metric=metric)
-    return Table.from_numpy(schema, vectors, scalars, device=device)
+    return Table.from_numpy(schema, vectors, scalars, device=dev)
+
+
+def table_row(name: str) -> dict:
+    """The set's row of the paper's Table 1."""
+    s = SPECS[name]
+    return {"Benchmark": name, "Type": s.kind, "Rows": s.paper_rows,
+            "Dimension": "/".join(str(d) for d in s.dims)}

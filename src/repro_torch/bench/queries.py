@@ -168,3 +168,8 @@ def gen_dnf_workload(table: Table, n_queries: int, *, n_vec_used: int = 1,
     chosen = _stratify(pool, n_queries, stratify_bins)
     return _attach_vectors(table, chosen, rng, n_vec_used=n_vec_used, k=k,
                            recall_target=recall_target)
+
+
+def workload_selectivities(table: Table, workload) -> np.ndarray:
+    """Exact qualifying fraction of each query's predicate on ``table``."""
+    return np.asarray([_selectivity(table, q.predicates) for q in workload])

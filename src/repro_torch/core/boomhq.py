@@ -12,9 +12,11 @@ Port of ``repro.core.boomhq`` for an unsharded, untiered table:
                     host sync.
   execute() / execute_batch(): optimize + run, with one underfill
                     escalation to the robust default plan.
+  insert():         the eager data-update path: append the rows, extend
+                    the indexes, histograms and graphs, rebuild the
+                    executors and fine-tune the data encoder.
 
-Shards, tiers, tenants, ``insert`` and the semantic cache are not ported
-yet.
+Shards, tiers, tenants and the semantic cache are not ported yet.
 """
 from __future__ import annotations
 
@@ -97,6 +99,7 @@ class BoomHQ:
         self._fitted = False
         self.cost_model = None  # scoring-dispatch override (bind_cost_model)
         self._batched = None
+        self.insert_seconds: dict = {}  # the last insert's seconds by step
 
     # -- offline -------------------------------------------------------------
 
@@ -280,11 +283,84 @@ class BoomHQ:
         return results
 
     def _batched_executor(self):
-        """The batched executor bound to this table and cost model."""
+        """The batched executor bound to this table and cost model; rebuilt
+        when the table is another object (after ``insert``), so no
+        executor serves the pre-insert table."""
         from repro_torch.serve.batch import BatchedHybridExecutor
-        if self._batched is None:
+        if self._batched is None or self._batched.table is not self.table:
             self._batched = BatchedHybridExecutor(
                 self.table, self.indexes, self.engine,
                 cost_model=self.cost_model, hists=self.hists,
                 graphs=self.graphs)
         return self._batched
+
+    def execute_timed(self, q: MHQ, *, repeats: int = 1):
+        """(ids, scores, seconds) numpy — one warm ``execute``, then the mean
+        seconds of ``repeats`` timed ones, optimizer included (the paper
+        counts pre-probing and inference in the measured latency)."""
+        from repro_torch.common.device import synchronize
+
+        dev = self.table.device
+        ids, scores = self.execute(q)
+        synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            ids, scores = self.execute(q)
+            synchronize(dev)
+        dt = (time.perf_counter() - t0) / repeats
+        return ids.cpu().numpy(), scores.cpu().numpy(), dt
+
+    # -- updates (paper §3.2 incremental, §5.3) ------------------------------
+
+    def insert(self, vectors: list, scalars: np.ndarray, *,
+               finetune: bool = True) -> dict:
+        """Data updates, the eager untiered path: append the rows, extend
+        the IVF indexes from the first new row, update the histograms,
+        extend the graphs (on the post-append columns), rebuild the
+        executor (the batched one rebuilds on its next use and sizes its
+        dispatcher by the grown ``n_rows``), then fine-tune the data encoder on the new rows when ``finetune`` is set
+        and rebuild the query encoder on the grown table. -> the encoder
+        update's metrics ({} without one). ``insert_seconds`` keeps the
+        seconds of each step (device work included)."""
+        from repro_torch.common.device import synchronize
+
+        dev = self.table.device
+        secs = {}
+        t0 = time.perf_counter()
+
+        def lap(step):
+            nonlocal t0
+            synchronize(dev)
+            secs[step] = secs.get(step, 0.0) + time.perf_counter() - t0
+            t0 = time.perf_counter()
+
+        first_new = self.table.n_rows
+        self.table = self.table.append(vectors, scalars)
+        t = self.table
+        lap("append")
+        self.indexes = [ivf.extend(idx, v[first_new:], first_new)
+                        for idx, v in zip(self.indexes, t.vectors)]
+        lap("ivf")
+        self.hists = histogram.update(self.hists, t.scalars[first_new:])
+        lap("histograms")
+        if self.graphs is not None:
+            # graph.extend reads the FULL post-append column (the graph
+            # stores no vectors), so this must follow the table append
+            self.graphs = tuple(graph.extend(g, v, first_new)
+                                for g, v in zip(self.graphs, t.vectors))
+        lap("graphs")
+        # the batched executor rebuilds on its next use: its table is no
+        # longer self.table (``_batched_executor``)
+        self.executor = HybridExecutor(t, self.indexes, self.engine,
+                                       graphs=self.graphs)
+        lap("rebuild")
+        out = {}
+        if self.data_encoder is not None and finetune:
+            out = self.data_encoder.update(t, np.arange(first_new, t.n_rows))
+        lap("encoder_update")
+        if self.qenc is not None:
+            self.qenc = QueryEncoder(t, self.indexes, self.hists,
+                                     self.data_encoder)
+        lap("rebuild")
+        self.insert_seconds = secs
+        return out

@@ -9,8 +9,9 @@ the anomaly score ε_recon_i the rewriter reads.
 
 Initialization draws from a ``torch.Generator`` seeded with ``cfg.seed``;
 the sampled training subset and the minibatch indices come from numpy
-``default_rng`` exactly as in the JAX package. Incremental ``update``
-waits for the tiered-ingest slice.
+``default_rng`` exactly as in the JAX package. ``update`` fine-tunes the
+trainable nets and the autoencoder on inserted rows only (paper §3.2
+'Incremental Model Updates'); the frozen predictors stay fixed.
 """
 from __future__ import annotations
 
@@ -116,6 +117,34 @@ class DataEncoder(nn.Module):
     def ae(self, e: torch.Tensor) -> torch.Tensor:
         return self.ae_dec(self.ae_enc(e))
 
+    def _encode_values(self, scalars: torch.Tensor) -> torch.Tensor:
+        """E_s of concrete rows: (n, M) -> (n, M·B) one-hot bins."""
+        return value_encode(scalars, self.edges).reshape(scalars.shape[0], -1)
+
+    def _ae_loss(self, vecs: list, es: torch.Tensor) -> torch.Tensor:
+        """Mean over columns of the reconstruction MSE of [E_vi ; E_s]; the
+        frozen predictors' outputs are constants (no gradient)."""
+        loss = 0.0
+        for i, v in enumerate(vecs):
+            with torch.no_grad():
+                fr = self.frozen[i](v)
+            ev = torch.cat([fr.reshape(v.shape[0], -1), self.trainable[i](v)],
+                           dim=-1)
+            e = torch.cat([ev, es], dim=-1)
+            loss = loss + torch.mean(torch.square(self.ae(e) - e))
+        return loss / len(vecs)
+
+    def _tuned_parameters(self) -> list:
+        return [*self.trainable.parameters(), *self.ae_enc.parameters(),
+                *self.ae_dec.parameters()]
+
+    @torch.no_grad()
+    def embed_rows(self, i: int, vecs: torch.Tensor, scalars: torch.Tensor
+                   ) -> torch.Tensor:
+        """[E_vi ; E_s] of table rows: vecs (n, d_i), scalars (n, M)."""
+        return torch.cat([self.evec(i, vecs), self._encode_values(scalars)],
+                         dim=-1)
+
     # -- training -----------------------------------------------------------
 
     def fit(self, table: Table) -> dict:
@@ -152,26 +181,38 @@ class DataEncoder(nn.Module):
             metrics[f"frozen_loss_col{i}"] = float(loss.detach())
 
         # ---- stage 2: trainable + AE (frozen nets held fixed) ----
-        es_all = value_encode(torch.as_tensor(scal_np, device=dev),
-                              self.edges).reshape(len(sub), -1)
-        params = [*self.trainable.parameters(), *self.ae_enc.parameters(),
-                  *self.ae_dec.parameters()]
-        opt = optimizer.make_adamw(params, opt_cfg)
+        es_all = self._encode_values(torch.as_tensor(scal_np, device=dev))
+        opt = optimizer.make_adamw(self._tuned_parameters(), opt_cfg)
         for _ in range(cfg.ae_steps):
             bidx = torch.as_tensor(rng.integers(0, len(sub), cfg.batch),
                                    device=dev)
-            loss = 0.0
-            for i in range(len(self.vec_dims)):
-                with torch.no_grad():
-                    fr = self.frozen[i](vec_subs[i][bidx])
-                ev = torch.cat([fr.reshape(len(bidx), -1),
-                                self.trainable[i](vec_subs[i][bidx])], dim=-1)
-                e = torch.cat([ev, es_all[bidx]], dim=-1)
-                loss = loss + torch.mean(torch.square(self.ae(e) - e))
-            loss = loss / len(self.vec_dims)
+            loss = self._ae_loss([v[bidx] for v in vec_subs], es_all[bidx])
             optimizer.step(opt, loss, opt_cfg)
         metrics["ae_loss"] = float(loss.detach())
         return metrics
+
+    def update(self, table: Table, new_rows: np.ndarray) -> dict:
+        """Incremental fine-tune on the inserted rows only (paper: O(c·M̃)):
+        the trainable nets and the autoencoder continue training for
+        ``update_steps`` steps of AdamW at half the fit's rate, with a
+        fresh optimizer state; the frozen predictors and the bin edges
+        stay as they are."""
+        cfg = self.cfg
+        rng = np.random.default_rng(cfg.seed + 2)
+        rows = torch.as_tensor(np.asarray(new_rows), dtype=torch.int64,
+                               device=table.device)
+        es_new = self._encode_values(table.scalars[rows])
+        vec_new = [v[rows] for v in table.vectors]
+        opt_cfg = AdamWConfig(lr=cfg.lr * 0.5, weight_decay=1e-4)
+        opt = optimizer.make_adamw(self._tuned_parameters(), opt_cfg)
+        nb = int(rows.shape[0])
+        loss = torch.zeros(())
+        for _ in range(cfg.update_steps):
+            bidx = torch.as_tensor(rng.integers(0, nb, min(cfg.batch, nb)),
+                                   device=table.device)
+            loss = self._ae_loss([v[bidx] for v in vec_new], es_new[bidx])
+            optimizer.step(opt, loss, opt_cfg)
+        return {"ae_update_loss": float(loss.detach())}
 
     # -- query phase --------------------------------------------------------
 

@@ -121,6 +121,15 @@ class MHQRewriter(nn.Module):
         return ExecutionPlan(strategy=STRATEGIES[s_idx], subqueries=subs,
                              precision=prec, beam_width=beam, n_hops=hops)
 
+    def predict(self, x: np.ndarray, *, k: int = 10) -> ExecutionPlan:
+        """Single-query convenience wrapper over the canonical decode path
+        (``plan_codes`` -> ``plan_from_codes``), so the two cannot drift.
+        x: (F,) features. The caller picks the dominant column for
+        ``single_index``."""
+        dev = self.trunk.layers[0].w.device
+        xt = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        return self.plan_from_codes(self.plan_codes(xt[None])[0].cpu().numpy())
+
     # -- training --------------------------------------------------------------
 
     def fit(self, X: np.ndarray, labels: list) -> dict:

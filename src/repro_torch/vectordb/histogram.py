@@ -33,15 +33,30 @@ def build(scalars: torch.Tensor, n_bins: int = 64) -> Histograms:
     span = torch.clamp(hi - lo, min=1e-9)
     ramp = torch.linspace(0.0, 1.0 + 1e-6, n_bins + 1, device=scalars.device)
     edges = lo[:, None] + span[:, None] * ramp[None, :]
+    return Histograms(edges=edges, prefix=_binned_prefix(edges, scalars),
+                      n_rows=torch.tensor(float(n), device=scalars.device))
+
+
+def _binned_prefix(edges: torch.Tensor, scalars: torch.Tensor
+                   ) -> torch.Tensor:
+    """(M, B+1) cumulative counts of ``scalars`` (n, M) binned into
+    ``edges``: ``searchsorted(right) - 1`` clipped to [0, B-1]."""
+    m, n_bins = edges.shape[0], edges.shape[1] - 1
     idx = torch.searchsorted(edges.contiguous(),
                              scalars.T.contiguous(), right=True) - 1
     idx = torch.clamp(idx, 0, n_bins - 1)  # (M, n)
     counts = torch.zeros((m, n_bins), device=scalars.device)
     counts.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.float32))
-    prefix = torch.cat([torch.zeros((m, 1), device=scalars.device),
-                        torch.cumsum(counts, dim=1)], dim=1)
-    return Histograms(edges=edges, prefix=prefix,
-                      n_rows=torch.tensor(float(n), device=scalars.device))
+    return torch.cat([torch.zeros((m, 1), device=scalars.device),
+                      torch.cumsum(counts, dim=1)], dim=1)
+
+
+def update(h: Histograms, scalars_new: torch.Tensor) -> Histograms:
+    """Incremental maintenance on insert: the new rows (n_new, M) re-binned
+    into the existing edges (kept — the paper's 'offline background'
+    statistics) and their counts added to ``prefix``."""
+    return Histograms(h.edges, h.prefix + _binned_prefix(h.edges, scalars_new),
+                      h.n_rows + scalars_new.shape[0])
 
 
 def _prefix_at(h: Histograms, x: torch.Tensor) -> torch.Tensor:

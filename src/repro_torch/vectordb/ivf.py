@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.shapes import NEG
@@ -70,6 +71,75 @@ def build(vectors: torch.Tensor, n_clusters: int, seed: int = 0,
                          torch.cumsum(counts, 0)]).to(torch.int32)
     return IVFIndex(centroids=cent, sorted_rows=order, offsets=offsets,
                     metric=metric)
+
+
+# Below this fraction of the existing rows an insert takes the incremental
+# splice (one O(n + m) np.insert, no sort) instead of the full regroup.
+EXTEND_INCREMENTAL_FRACTION = 0.25
+
+
+def _assign_to_centroids(index: IVFIndex, new_vectors: torch.Tensor
+                         ) -> np.ndarray:
+    """Nearest centroid of each new row by L2 (``‖c‖² − 2 v·c``, for either
+    metric, as k-means assigned the built rows). -> (m,) int64."""
+    return _assign(new_vectors, index.centroids).cpu().numpy()
+
+
+def _with_layout(index: IVFIndex, sorted_rows: np.ndarray,
+                 offsets: np.ndarray) -> IVFIndex:
+    dev = index.sorted_rows.device
+    return IVFIndex(
+        centroids=index.centroids,
+        sorted_rows=torch.as_tensor(sorted_rows.astype(np.int32), device=dev),
+        offsets=torch.as_tensor(offsets.astype(np.int32), device=dev),
+        metric=index.metric)
+
+
+def _extend_regroup(index: IVFIndex, assign: np.ndarray,
+                    rows: np.ndarray) -> IVFIndex:
+    """One stable sort of [old assignments ‖ new assignments]: each
+    cluster keeps its rows in order and gets its new rows, in insertion
+    order, behind them."""
+    old_rows = index.sorted_rows.cpu().numpy()
+    old_off = index.offsets.cpu().numpy()
+    c = index.n_clusters
+    old_assign = np.repeat(np.arange(c), np.diff(old_off))
+    all_assign = np.concatenate([old_assign, assign])
+    all_rows = np.concatenate([old_rows, rows]).astype(np.int32)
+    order = np.argsort(all_assign, kind="stable")
+    counts = np.bincount(all_assign, minlength=c)
+    return _with_layout(index, all_rows[order],
+                        np.concatenate([[0], np.cumsum(counts)]))
+
+
+def _extend_incremental(index: IVFIndex, assign: np.ndarray,
+                        rows: np.ndarray) -> IVFIndex:
+    """Splice each new row in at the END of its cluster's segment
+    (``np.insert`` is stable at equal positions, so rows sharing a cluster
+    keep insertion order): the regroup's layout at O(n + m)."""
+    old_rows = index.sorted_rows.cpu().numpy()
+    old_off = index.offsets.cpu().numpy()
+    pos = old_off[assign + 1]  # just before the next cluster's rows
+    counts = np.bincount(assign, minlength=index.n_clusters)
+    return _with_layout(index, np.insert(old_rows, pos, rows),
+                        old_off + np.concatenate([[0], np.cumsum(counts)]))
+
+
+def extend(index: IVFIndex, new_vectors: torch.Tensor,
+           first_new_row: int) -> IVFIndex:
+    """Insert rows ``first_new_row ..`` into the existing clusters
+    (centroids unchanged). Inserts of at most
+    ``EXTEND_INCREMENTAL_FRACTION`` of the indexed rows take the
+    incremental splice, larger ones the regroup; both give the same
+    layout. The layout is spliced on the host and goes back to the
+    index's device."""
+    assign = _assign_to_centroids(index, new_vectors)
+    rows = np.arange(first_new_row, first_new_row + new_vectors.shape[0],
+                     dtype=np.int32)
+    n_old = int(index.sorted_rows.shape[0])
+    if rows.shape[0] <= max(1, int(n_old * EXTEND_INCREMENTAL_FRACTION)):
+        return _extend_incremental(index, assign, rows)
+    return _extend_regroup(index, assign, rows)
 
 
 # ---------------------------------------------------------------------------

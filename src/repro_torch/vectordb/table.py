@@ -67,7 +67,9 @@ class Table:
 
     def quantized(self, i: int) -> tuple:
         """The column's int8 replica, built on first use and cached.
-        -> ((n, d_i) int8, (n,) f32 per-row scales)."""
+        -> ((n, d_i) int8, (n,) f32 per-row scales). A cached replica whose
+        row count is not the table's is never served: it was built for
+        another table (one that shared this object's replica lists)."""
         if self.vectors_i8 is None:
             self.vectors_i8 = [None] * self.schema.n_vec
             self.scales = [None] * self.schema.n_vec
@@ -75,7 +77,11 @@ class Table:
             from repro_torch.kernels.int8_scan import quantize_rows
 
             self.vectors_i8[i], self.scales[i] = quantize_rows(self.vectors[i])
-        return self.vectors_i8[i], self.scales[i]
+        vq, sc = self.vectors_i8[i], self.scales[i]
+        if vq.shape[0] != self.n_rows or sc.shape[0] != self.n_rows:
+            raise ValueError(f"column {i}: the cached int8 replica holds "
+                             f"{vq.shape[0]} rows, the table {self.n_rows}")
+        return vq, sc
 
     @staticmethod
     def from_numpy(schema: TableSchema, vectors: list, scalars: np.ndarray,
@@ -99,6 +105,37 @@ class Table:
                      for v in vectors],
             scalars=torch.as_tensor(np.asarray(scalars, np.float32),
                                     device=dev))
+
+    def append(self, vectors: list, scalars: np.ndarray) -> "Table":
+        """Immutable append: a new ``Table`` on the same device.
+
+        The scale is per ROW, so an append never re-quantizes old rows: a
+        column whose int8 replica is built carries over as (old replica ‖
+        quantized new rows); a column never quantized stays unbuilt. The
+        new table gets replica lists of its own, so a replica built later
+        on this (old) table never reaches it."""
+        dev = self.device
+        new_vecs = [torch.as_tensor(np.asarray(v, np.float32), device=dev)
+                    for v in vectors]
+        new = Table(
+            schema=self.schema,
+            vectors=[torch.cat([a, b]) for a, b in zip(self.vectors,
+                                                         new_vecs)],
+            scalars=torch.cat([self.scalars, torch.as_tensor(
+                np.asarray(scalars, np.float32), device=dev)]))
+        if self.vectors_i8 is not None and any(
+                q is not None for q in self.vectors_i8):
+            from repro_torch.kernels.int8_scan import quantize_rows
+
+            new.vectors_i8 = [None] * self.schema.n_vec
+            new.scales = [None] * self.schema.n_vec
+            for i, nv in enumerate(new_vecs):
+                if self.vectors_i8[i] is None:
+                    continue
+                qn, sn = quantize_rows(nv)
+                new.vectors_i8[i] = torch.cat([self.vectors_i8[i], qn])
+                new.scales[i] = torch.cat([self.scales[i], sn])
+        return new
 
 
 def similarity(q: torch.Tensor, vecs: torch.Tensor, metric: str

@@ -163,3 +163,177 @@ def test_scan_bound_counts_vectors_of_qualifying_rows_only(smoke, int8):
     every = smoke._scan_bound_ms(n, d, m, k, nb, n_qual=n, any_active=True,
                                  int8=int8, l2=False)[0]
     assert every == pytest.approx(ms(n * (row + 4 * m) + fixed))
+
+
+# ---------------------------------------------------------------------------
+# phase 7's checks (data updates)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def grown():
+    """(table with column 0's replica carried through an append, old row
+    count, the pre-append replica and scales)."""
+    from repro_torch.bench import datasets
+
+    t = datasets.make("part", rows=300, seed=0, device="cpu")
+    old_q, old_s = (x.clone() for x in t.quantized(0))
+    rng = np.random.default_rng(0)
+    new = [rng.normal(size=(40, 768)).astype(np.float32) for _ in range(2)]
+    return t.append(new, t.scalars[:40].numpy()), 300, old_q, old_s
+
+
+def test_int8_carry_check_passes_a_carried_replica(smoke, grown):
+    smoke.check_int8_carry(*grown, "x")
+
+
+@pytest.mark.parametrize("fault", ["old_row", "old_scale", "new_row",
+                                   "not_carried"])
+def test_int8_carry_check_refuses(smoke, grown, fault):
+    t, n_old, old_q, old_s = grown
+    if fault == "old_row":
+        t.vectors_i8[0] = t.vectors_i8[0].clone()
+        t.vectors_i8[0][17] = -t.vectors_i8[0][17]
+        msg = "old rows changed"
+    elif fault == "old_scale":
+        t.scales[0] = t.scales[0].clone()
+        t.scales[0][5] *= 2.0
+        msg = "old rows changed"
+    elif fault == "new_row":
+        t.vectors_i8[0] = t.vectors_i8[0].clone()
+        t.vectors_i8[0][n_old + 3, 0] += 1
+        msg = "new rows"
+    else:
+        t.vectors_i8[0] = None
+        msg = "not carried"
+    with pytest.raises(AssertionError, match=msg):
+        smoke.check_int8_carry(t, n_old, old_q, old_s, "x")
+
+
+def _index(rows, offsets):
+    from repro_torch.vectordb.ivf import IVFIndex
+
+    return IVFIndex(torch.zeros((len(offsets) - 1, 4)),
+                    torch.tensor(rows, dtype=torch.int32),
+                    torch.tensor(offsets, dtype=torch.int32), "dot")
+
+
+def test_layout_check(smoke):
+    smoke.check_layout(_index([3, 0, 4, 1, 2], [0, 2, 2, 5]), 5, "x")
+    with pytest.raises(AssertionError, match="permutation"):
+        smoke.check_layout(_index([3, 0, 4, 1, 1], [0, 2, 2, 5]), 5, "x")
+    with pytest.raises(AssertionError, match="offsets"):
+        smoke.check_layout(_index([3, 0, 4, 1, 2], [0, 2, 2, 4]), 5, "x")
+    with pytest.raises(AssertionError, match="offsets"):
+        smoke.check_layout(_index([3, 0, 4, 1, 2], [0, 3, 2, 5]), 5, "x")
+
+
+def test_new_row_check(smoke):
+    gt = [np.array([1, 12, 3, -1]), np.array([11, 2, 5, 6])]
+    served = [(np.array([1, 12, 3, -1]), None), (np.array([2, 5, 6, 7]),
+                                                 None)]
+    assert smoke.new_row_shares(gt, served, 10, "x") == (2 / 7, 1 / 7)
+    dropped = [(np.array([1, 3, 4, -1]), None), (np.array([2, 5, 6, 7]),
+                                                 None)]
+    with pytest.raises(AssertionError, match="no served result"):
+        smoke.new_row_shares(gt, dropped, 10, "x")
+    # a ground truth without new rows asks nothing of the served results
+    assert smoke.new_row_shares([np.array([1, 2])], dropped, 10, "x") == \
+        (0.0, 0.0)
+
+
+def test_skewed_insert_is_the_benchmark_s(smoke):
+    """The script's numpy copy draws what benchmarks/data_updates draws."""
+    from benchmarks.data_updates import _skewed_insert
+    from repro.bench import datasets as jds
+
+    from repro_torch.bench import datasets
+
+    jt = jds.make("part", rows=300, seed=0)
+    tt = datasets.make("part", rows=300, seed=0, device="cpu")
+    want_v, want_s = _skewed_insert(jt, 25, 1000)
+    got_v, got_s = smoke.skewed_insert(tt, 25, 1000)
+    for a, b in zip(got_v, want_v):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got_s, want_s)
+
+
+def test_phase_7_shapes_are_phase_3_shapes(smoke):
+    """Every shape phase 7 repeats on the grown tables is one of
+    ``gather_cases``'s, once."""
+    from repro_torch.bench import datasets, queries as qgen
+    from repro_torch.vectordb import ivf
+
+    t = datasets.make("part", rows=2000, seed=0, device="cpu")
+    index = ivf.build(t.vectors[0], 16, seed=0, metric=t.schema.metric)
+    wl = qgen.gen_workload(t, smoke.BATCH, n_vec_used=2, seed=3)
+    labels = [c[0] for c in smoke.gather_cases(t, index, None, wl, "cpu")]
+    assert all(labels.count(s) == 1 for s in smoke.GROWN_SHAPES)
+
+
+# ---------------------------------------------------------------------------
+# phase 8's search check
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def sift_search(smoke):
+    """A small ``sift`` table, its IVF index and queries, ``search_cases``
+    on them, and the two searches as the port runs them on CPU tensors
+    (where the wrappers take the plain versions)."""
+    from repro_torch.bench import datasets, queries as qgen
+    from repro_torch.vectordb import ivf, predicates
+
+    t = datasets.make("sift", rows=4000, seed=0, device="cpu")
+    index = ivf.build(t.vectors[0], 16, seed=0, metric=t.schema.metric)
+    wl = qgen.gen_workload(t, 8, n_vec_used=1, seed=3)
+    cases, plains, rescore = smoke.search_cases(t, index, wl, "cpu")
+    pred = predicates.stack([q.predicates for q in wl])
+    q_b = torch.stack([q.query_vectors[0] for q in wl])
+    max_scan = smoke.SIFT_NPROBE * t.n_rows // 16
+    vq, sc = t.quantized(0)
+    got = ivf.search_local_batch(index, t.vectors[0], t.scalars, pred, q_b,
+                                 nprobe=smoke.SIFT_NPROBE,
+                                 max_scan=max_scan, k=10)
+    got8 = ivf.search_local_batch_int8(
+        index, t.vectors[0], vq, sc, t.scalars, pred, q_b,
+        nprobe=smoke.SIFT_NPROBE, max_scan=max_scan, k=10)
+    return t, cases, plains, rescore, (got, got8)
+
+
+def test_search_cases_are_the_searches_launches(sift_search):
+    """The three cases are the searches' own gather calls: the fp32 case
+    is the fp32 search, the int8 stage feeds the rerank case, and the
+    rerank case is the int8 search."""
+    from repro_torch.kernels import gather_score as gs
+
+    t, cases, plains, _, (got, got8) = sift_search
+    assert [(label.split()[0], v) for label, v, _ in cases] == [
+        ("search", "fp32"), ("search", "int8"), ("search", "fp32")]
+    out = []
+    for _, _, a in cases:
+        out.append(gs.gather_score_topk(
+            a["cand"], a["vectors"], a["qs"], a["w"], t.scalars, a["pred"],
+            k=a["k"], metric=a["metric"], scales=a["scales"]))
+    assert torch.equal(out[1][0], cases[2][2]["cand"])
+    for search, case, plain in ((got, out[0], plains[0]),
+                                (got8, out[2], plains[1])):
+        for x in (search[0], case[0], plain[0]):
+            assert torch.equal(x, search[0])
+        for x in (case[1], plain[1]):
+            assert torch.equal(x, search[1])
+        assert torch.equal(plain[2], search[3])
+
+
+def test_search_check_refuses_a_wrong_result(smoke, sift_search):
+    _, _, plains, rescore, (got, got8) = sift_search
+    for name, search, plain in (("fp32", got, plains[0]),
+                                ("int8", got8, plains[1])):
+        ids, scores = search[0], search[1]
+        assert smoke._held_to_plain(name, scores, ids, plain[1], plain[0],
+                                    rescore) == (0.0, 0)
+        # the best row of a query with results replaced by another row
+        r = int(torch.nonzero(ids[:, 0] >= 0)[0])
+        bad = ids.clone()
+        bad[r, 0] = next(x for x in range(10) if x not in ids[r].tolist())
+        with pytest.raises(AssertionError, match="does not tie"):
+            smoke._held_to_plain(name, scores, bad, plain[1], plain[0],
+                                 rescore)
