@@ -32,7 +32,11 @@ Phases (any failure raises and exits non-zero):
      ``~(col == 0)`` on a column holding zeros, and one conjunction over
      all M columns; the rerank union, and
      the candidate pool of a real graph walk at the largest knobs (beam
-     16, 8 hops: 8 + 4·16 + 8·16·16 = 2,120 slots). Full-table scans of column 0: ``ops.masked_topk`` (dot, l2)
+     16, 8 hops: 8 + 4·16 + 8·16·16 = 2,120 slots), and a tiered table's
+     hot view as ``tiered._hot_topk`` scores it (B=32, S=2,048 slots
+     with the 548 past the view's 1,500 rows at -1, rows from the view's
+     own buffer, both columns weighted, predicates folded on a fifth
+     scalar column, the tenant, k=16). Full-table scans of column 0: ``ops.masked_topk`` (dot, l2)
      and ``ops.int8_masked_topk`` on ``table.quantized(0)``, k ∈ {10, 128},
      conjunctive predicates at ≈1%, ≈10% and 100% selectivity and one over
      all M columns (≈12.5%);
@@ -94,10 +98,44 @@ Phases (any failure raises and exits non-zero):
      survivors), then the 32 queries through ``ivf.search_local_batch``
      and its int8 twin with the counts zeroed (both kernels must launch;
      each search's result held to its plain version on the same
-     candidates; recall@10 reported).
+     candidates; recall@10 reported);
+  9. the tiered, tenanted, cached path: ``part``'s 200,000 rows with a
+     categorical ``tenant`` column of 3 values (``run_semcache``'s draw;
+     phase 2's vectors, so its graphs are bound again), fitted as phase
+     4, ``bind_tenants("tenant")``. (a)
+     ``run_semcache``'s trace (16 tenanted queries, 80 requests) served
+     one by one through ``AsyncServingEngine`` without and with
+     ``SemanticCache(eps=0)``: QPS, hit rate, recall against the
+     tenant-folded oracle (the cached run's must equal the uncached
+     run's), per-tenant accounting; every cache event is logged and each
+     hit must replay the entry its miss stored under the same
+     ``(epoch, n_rows)`` token; then under ``bind_tiered`` 48 rows go hot
+     and a compaction swaps the epoch, and the first pass after each must
+     miss throughout. (b) ``run_mixed`` at full width: ``bind_tiered(
+     hot_capacity=2048)``, tenanted requests in Poisson arrivals at 60%
+     of the warm batch throughput (batch 16, ``max_wait`` 0.02 s) while
+     ``skewed_insert`` rows (+20,000 in 8 chunks) stream in and compact
+     in the background; the arrivals (at least 256) go on until the
+     ingest has ended and every compaction has published, then 32 more:
+     QPS, p50/p99, requests by epoch, each compaction's seconds by step
+     (timed on the compacting thread, device work included), the
+     worker's idle gaps with work pending (reported), recall
+     before, per request against its own snapshot's hot ∪ cold oracle
+     and after, ``default_plan``'s on the final snapshot, and the
+     ``hot_view_transfers`` delta over an insert-only window (must be 0).
+     Every request must resolve ``ok``, every tenanted result hold rows
+     of its tenant only, no served result miss a hot row its snapshot's
+     oracle ranks in the top-k (float ties aside), at least one
+     compaction run with the engine's epoch the table's, the requests'
+     snapshots span two epochs or more up to the final one, and the fp32
+     kernel launch on the hot views. The launch counts are zeroed before
+     and read after each serving run (the engine runs of (a), and (b)'s
+     pass before the stream, the stream and the pass after it); the
+     compaction thread's warm-up launches are counted apart, and the
+     oracle and ``default_plan`` comparisons are not counted.
 
-The ``launches`` of the kernel report sum the main paths' counts (phase 4
-and phase 7's serving passes, phase 8's searches for the gather kernels;
+The ``launches`` of the kernel report sum the main paths' counts (phase 4,
+7 and 9's serving passes, phase 8's searches for the gather kernels;
 phase 5 for the scans); ``chip_smoke.json`` keeps each phase's apart.
 
 The line before the last is the JSON kernel report; the last line is
@@ -106,12 +144,15 @@ The line before the last is the JSON kernel report; the last line is
 """
 from __future__ import annotations
 
+import asyncio
 import concurrent.futures
+import dataclasses
 import json
 import os
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -134,6 +175,19 @@ SIFT_NPROBE = 4
 # phase 3's gather shapes that phase 7 repeats on each grown table
 GROWN_SHAPES = ("S=8192 C=1 dot", "S=8192 C=1 dot kq=128",
                 "S=8192 range 10% k=32", "S=8192 range 10% kq=128")
+# phase 9: benchmarks/serving.run_semcache's tenants and cache trace, and
+# benchmarks/data_updates.run_mixed's tiered stream, at full width
+TENANTS = 3
+CACHE_UNIQUE, CACHE_TRACE, CACHE_INSERT = 16, 80, 48
+HOT_CAPACITY = 2048
+HOT_CASE_ROWS = 1500  # phase 3's hot view: a tail of -1 past its count
+MIXED_REQUESTS, MIXED_BATCH, MIXED_WAIT = 256, 16, 0.02
+# arrivals go on past MIXED_REQUESTS until the ingest has ended and every
+# compaction has published, then MIXED_TAIL more, at most MIXED_MAX in all
+MIXED_TAIL, MIXED_MAX = 2 * MIXED_BATCH, 16384
+MIXED_UTILIZATION = 0.6
+MIXED_INSERT_RATIO, MIXED_CHUNKS = 0.1, 8
+PAUSE_SLACK = 0.25  # run_mixed's slack for asyncio scheduling jitter
 T0 = time.perf_counter()
 
 
@@ -459,30 +513,72 @@ def gather_cases(table, index, graph_, queries, device) -> list:
     return cases
 
 
+def hot_case(table, queries, device, count: int = HOT_CASE_ROWS) -> list:
+    """Phase 3's hot-segment gather shape, the arguments
+    ``tiered._hot_topk`` gives ``gather_score_topk``: a hot view of
+    ``HOT_CAPACITY`` slots holding ``count`` rows (``tenant_skewed_insert``
+    of the tenant ``table``), candidates ``arange(capacity)`` with the
+    slots from ``count`` on set to -1, broadcast over the first ``BATCH``
+    tenanted ``queries``, rows and scalars from the view's own buffer,
+    every vector column weighted, predicates folded on the tenant column,
+    k the padded bucket of k=10. -> one ``check_kernels`` case."""
+    from repro_torch.core.executor import K_BUCKET_FLOOR, next_bucket
+    from repro_torch.vectordb import predicates
+    from repro_torch.vectordb.tiered import HotView
+
+    vecs, scal = tenant_skewed_insert(table, count, UPDATE_SEED + 7)
+    buf_v = [np.zeros((HOT_CAPACITY, v.shape[1]), np.float32) for v in vecs]
+    buf_s = np.zeros((HOT_CAPACITY, scal.shape[1]), np.float32)
+    for b, v in zip(buf_v, vecs):
+        b[:count] = v
+    buf_s[:count] = scal
+    view = HotView(tuple(buf_v), buf_s, count, table.n_rows, device)
+    qs = queries[:BATCH]
+    tcol = table.schema.n_scalar - 1
+    pred = predicates.stack([predicates.fold_conjunct(
+        q.predicates, tcol, float(q.tenant_id), float(q.tenant_id))
+        for q in qs])
+    slots = torch.arange(HOT_CAPACITY, dtype=torch.int32, device=device)
+    cand = torch.where(slots < count, slots, torch.full_like(slots, -1))
+    return [(f"hot S={HOT_CAPACITY} count={count} "
+             f"M={table.schema.n_scalar}", "fp32",
+             dict(cand=cand.expand(len(qs), -1).contiguous(),
+                  vectors=view.vectors,
+                  qs=tuple(torch.stack([q.query_vectors[i] for q in qs])
+                           for i in range(table.schema.n_vec)),
+                  w=torch.as_tensor(np.asarray([q.weights for q in qs],
+                                               np.float32), device=device),
+                  pred=pred, k=next_bucket(10, K_BUCKET_FLOOR),
+                  metric=table.schema.metric, scales=None,
+                  scalars=view.scalars))]
+
+
 def check_kernels(table, cases, device) -> list:
     """Gather-score kernel vs plain version on ``cases`` ((label, variant,
-    arguments of ``gather_score_topk``), as ``gather_cases`` gives them).
+    arguments of ``gather_score_topk``), as ``gather_cases`` gives them;
+    a case's ``scalars`` stand in for the table's, as a hot view's do).
     Returns one row per (shape, variant)."""
     from repro_torch.kernels import gather_score as gs
     from repro_torch.kernels.ref import gather_score_ref, gather_scores_ref
     from repro_torch.vectordb import predicates
 
-    m = table.schema.n_scalar
     b = BATCH
     out = []
     for label, variant, a in cases:
+        scal = a.get("scalars", table.scalars)
+        m = scal.shape[1]
 
-        def kern(a=a):
+        def kern(a=a, scal=scal):
             return gs.gather_score_topk(a["cand"], a["vectors"], a["qs"],
-                                        a["w"], table.scalars, a["pred"],
+                                        a["w"], scal, a["pred"],
                                         k=a["k"], metric=a["metric"],
                                         scales=a["scales"])
 
         fields = gs._pred_fields(a["pred"], b, m, device)
 
-        def plain(a=a, fields=fields):
+        def plain(a=a, fields=fields, scal=scal):
             return gather_score_ref(a["cand"], a["vectors"], a["qs"], a["w"],
-                                    table.scalars, *fields, k=a["k"],
+                                    scal, *fields, k=a["k"],
                                     metric=a["metric"],
                                     apply_pred=a["pred"] is not None,
                                     scales=a["scales"])
@@ -493,10 +589,10 @@ def check_kernels(table, cases, device) -> list:
         if not torch.equal(q_k.long(), q_p.long()):
             raise AssertionError(f"{label} {variant}: qualifying counts "
                                  f"differ from the plain version")
-        def rescore(ids, a=a, fields=fields):
+        def rescore(ids, a=a, fields=fields, scal=scal):
             return gather_scores_ref(
                 ids.to(torch.int32), a["vectors"], a["qs"], a["w"],
-                table.scalars, *fields, metric=a["metric"],
+                scal, *fields, metric=a["metric"],
                 apply_pred=a["pred"] is not None, scales=a["scales"])[0]
 
         err, n_swaps = _held_to_plain(f"{label} {variant}", s_k, ids_k, s_p,
@@ -510,9 +606,9 @@ def check_kernels(table, cases, device) -> list:
         cand_k = torch.cat([a["cand"], torch.full(
             (b, (-s_len) % bs), -1, dtype=torch.int32, device=device)], 1)
 
-        def blocks(a=a, fields=fields, cand_k=cand_k, bs=bs):
+        def blocks(a=a, fields=fields, cand_k=cand_k, bs=bs, scal=scal):
             return gs.gather_score_blocks(
-                cand_k, a["vectors"], a["qs"], a["w"], table.scalars,
+                cand_k, a["vectors"], a["qs"], a["w"], scal,
                 *(f.contiguous() for f in fields), a["scales"], k=a["k"],
                 block_s=bs, metric=a["metric"],
                 apply_pred=a["pred"] is not None)
@@ -523,7 +619,7 @@ def check_kernels(table, cases, device) -> list:
         elem = 1 if variant == "int8" else 4
         dims = [v.shape[1] for v in a["vectors"]]
         qual = None if a["pred"] is None else (
-            predicates.eval_mask(a["pred"], table.scalars[
+            predicates.eval_mask(a["pred"], scal[
                 a["cand"].clamp(min=0).long()]) & (a["cand"] >= 0))
         bound, by = _bound_ms(a["cand"], dims, elem, m, a["k"],
                               int8=variant == "int8",
@@ -1214,6 +1310,680 @@ def sift_phase(device) -> dict:
                 launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the tiered, tenanted, cached path
+# ---------------------------------------------------------------------------
+
+def semcache_draws(n_rows: int, seed: int = 0) -> tuple:
+    """``benchmarks/serving.run_semcache``'s draws from its one generator,
+    in its order: a tenant for every row, then the repeat trace (every
+    unique query once, then random repeats). -> (tenants, trace, the
+    generator)."""
+    rng = np.random.default_rng(seed + 11)
+    tcol = rng.integers(0, TENANTS, n_rows).astype(np.float32)
+    trace = list(range(CACHE_UNIQUE)) + [
+        int(i) for i in rng.integers(0, CACHE_UNIQUE,
+                                     CACHE_TRACE - CACHE_UNIQUE)]
+    return tcol, trace, rng
+
+
+def tenant_table(table):
+    """``table`` with one more categorical scalar column, ``tenant``, of
+    ``TENANTS`` values (``run_semcache``'s construction); the vector
+    columns are ``table``'s own tensors."""
+    from repro_torch.vectordb.table import ScalarCol, Table
+
+    tcol = torch.as_tensor(semcache_draws(table.n_rows)[0],
+                           device=table.device)
+    schema = dataclasses.replace(table.schema, scalar_cols=tuple(
+        table.schema.scalar_cols) + (ScalarCol("tenant", "cat", TENANTS),))
+    return Table(schema, list(table.vectors),
+                 torch.cat([table.scalars, tcol[:, None]], dim=1))
+
+
+def tenant_skewed_insert(table, n_new: int, seed: int):
+    """``skewed_insert`` rows for a tenant table: the skew drawn on the
+    columns without the tenant (so the shifted column is the last numeric
+    one, as in ``data_updates``), then one tenant a row from ``seed + 1``."""
+    from repro_torch.vectordb.table import Table
+
+    base = Table(dataclasses.replace(
+        table.schema, scalar_cols=table.schema.scalar_cols[:-1]),
+        table.vectors, table.scalars[:, :-1])
+    vecs, scal = skewed_insert(base, n_new, seed)
+    tenant = np.random.default_rng(seed + 1).integers(
+        0, TENANTS, n_new).astype(np.float32)
+    return vecs, np.concatenate([scal, tenant[:, None]], axis=1)
+
+
+def audit_cache(cache) -> list:
+    """Log every ``lookup`` of ``cache`` (query, token, result or None)
+    and every ``insert`` (query, token, result). -> the event list."""
+    events = []
+    lookup, insert = cache.lookup, cache.insert
+
+    def logged_lookup(q, token):
+        got = lookup(q, token)
+        events.append(("lookup", q, tuple(token), None if got is None else
+                       tuple(np.asarray(x).copy() for x in got)))
+        return got
+
+    def logged_insert(q, token, ids, scores):
+        insert(q, token, ids, scores)
+        events.append(("insert", q, tuple(token),
+                       (np.asarray(ids).copy(), np.asarray(scores).copy())))
+
+    cache.lookup, cache.insert = logged_lookup, logged_insert
+    return events
+
+
+def check_cache_events(events, label: str) -> int:
+    """Each cache hit must be the entry that its exact query's last miss
+    stored, under the token of the hit: a hit never crosses an epoch or a
+    hot insert (either changes the ``(epoch, n_rows)`` token), and it
+    replays the miss's ids and scores bit for bit. -> the hit count."""
+    from repro_torch.serve.semcache import k_bucket, query_signature
+
+    def key(q):
+        return (q.tenant_id, query_signature(q), k_bucket(q.k),
+                b"".join(v.cpu().numpy().tobytes() for v in q.query_vectors))
+
+    stored, hits = {}, 0
+    for kind, q, token, res in events:
+        if kind == "insert":
+            stored[key(q)] = (token, res)
+            continue
+        if res is None:
+            continue
+        hits += 1
+        src = stored.get(key(q))
+        if src is None or src[0] != token:
+            raise AssertionError(
+                f"{label}: a cache hit under token {token} was stored under "
+                f"{None if src is None else src[0]}: a stale hit")
+        if not (np.array_equal(res[0], src[1][0][: q.k])
+                and np.array_equal(res[1], src[1][1][: q.k])):
+            raise AssertionError(f"{label}: a cache hit does not replay its "
+                                 f"miss's result")
+    return hits
+
+
+def check_tenant_ids(results, tenants, tenant_of_row, label: str) -> None:
+    """Every id of a tenanted result names a row of its tenant.
+    ``tenant_of_row``: the logical table's tenant column (numpy); rows
+    never move, so the last snapshot's covers every id served before."""
+    for (ids, _), t in zip(results, tenants):
+        if t is None:
+            continue
+        ids = np.asarray(ids)
+        ids = ids[ids >= 0]
+        if ids.size and (int(ids.max()) >= tenant_of_row.shape[0]
+                         or bool(np.any(tenant_of_row[ids] != t))):
+            raise AssertionError(f"{label}: a result of tenant {t} holds a "
+                                 f"row of another tenant")
+
+
+def missed_hot_rows(ids, scores, oracle_ids, oracle_scores,
+                    first_hot: int) -> list:
+    """Rows of the hot segment (global id ≥ ``first_hot``) that the exact
+    top-k (``oracle_ids``/``oracle_scores``) holds and the served result
+    (``ids``/``scores``) lacks — except a row that ties the served k-th
+    score within the phase-3 tolerance, which the merge may drop for its
+    tie."""
+    ids, scores = np.asarray(ids), np.asarray(scores)
+    served = {int(i) for i in ids if i >= 0}
+    kth = float(scores[-1]) if ids[-1] >= 0 else None
+    out = []
+    for h, sc in zip(np.asarray(oracle_ids), np.asarray(oracle_scores)):
+        if h < first_hot or int(h) in served:
+            continue
+        if kth is not None and abs(float(sc) - kth) <= ATOL + RTOL * abs(kth):
+            continue
+        out.append(int(h))
+    return out
+
+
+def check_epochs_served(epochs, final_epoch: int, label: str) -> None:
+    """The stream must run across an epoch publish: the snapshots its
+    requests were served on span at least two epochs, the table's final
+    one among them."""
+    seen = sorted(set(int(e) for e in epochs))
+    if len(seen) < 2 or seen[-1] != final_epoch:
+        raise AssertionError(f"{label}: requests were served on epochs "
+                             f"{seen} and the table ended at epoch "
+                             f"{final_epoch}: no batch ran across a swap")
+
+
+def count_launches(fn, counts: dict):
+    """Run ``fn()`` with the gather launch counts set to 0 just before it
+    and read just after: the serving launches add to ``counts["serving"]``,
+    the compaction warm-up's to ``counts["prewarm"]``. -> ``fn()``."""
+    from repro_torch.kernels import gather_score as gs
+
+    gs.reset_launches()
+    out = fn()
+    for name, got in (("serving", gs.LAUNCHES),
+                      ("prewarm", gs.PREWARM_LAUNCHES)):
+        for k, v in got.items():
+            counts[name][k] += v
+    return out
+
+
+def snapshot_topk(snap, queries, k: int = 10) -> tuple:
+    """The exact filtered top-k over a tiered snapshot's cold ∪ hot rows
+    in global id order, for resolved (tenant-folded) ``queries``: plain
+    torch on the snapshot's device. -> (ids (B, k), scores (B, k)) numpy,
+    id -1 past the qualifying rows."""
+    from repro_torch.kernels.shapes import NEG
+    from repro_torch.vectordb import predicates
+    from repro_torch.vectordb.table import similarity_batch
+
+    cold = snap.cold.table
+    dev, metric, n_vec = cold.device, cold.schema.metric, cold.schema.n_vec
+    segs = [(cold.vectors, cold.scalars)] + [
+        (tuple(torch.from_numpy(b[: v.count]).to(dev) for b in v.np_vectors),
+         torch.from_numpy(v.np_scalars[: v.count]).to(dev))
+        for v in snap.hot_views]
+    out_i, out_s = [], []
+    for s in range(0, len(queries), MIXED_BATCH):
+        qs = queries[s: s + MIXED_BATCH]
+        pred = predicates.stack([q.predicates for q in qs])
+        w = torch.as_tensor(np.asarray([q.weights for q in qs], np.float32),
+                            device=dev)
+        parts = []
+        for vecs, scal in segs:
+            tot = sum(w[:, i, None] * similarity_batch(
+                torch.stack([q.query_vectors[i] for q in qs]), vecs[i],
+                metric) for i in range(n_vec))
+            parts.append(torch.where(predicates.eval_mask(pred, scal), tot,
+                                     torch.full_like(tot, NEG)))
+        top_s, top_i = torch.topk(torch.cat(parts, dim=1), k, dim=1)
+        top_i = torch.where(top_s > NEG / 2, top_i, torch.full_like(top_i,
+                                                                    -1))
+        out_i.append(top_i.cpu().numpy())
+        out_s.append(top_s.cpu().numpy())
+    return np.concatenate(out_i), np.concatenate(out_s)
+
+
+def _tenant_column(snap) -> np.ndarray:
+    t = snap.cold.table
+    col = t.schema.n_scalar - 1
+    return np.concatenate([t.scalars[:, col].cpu().numpy()] + [
+        v.np_scalars[: v.count, col] for v in snap.hot_views])
+
+
+def cache_pass(bq, table, device, launches: dict) -> dict:
+    """Phase 9 (a): ``run_semcache``'s trace through ``AsyncServingEngine``
+    (batch 8, ``max_wait`` 0.002 s, requests one by one) without and with
+    ``SemanticCache(eps=0)``, then the epoch-swap oracle under
+    ``bind_tiered``: 48 rows go hot, then a compaction; the first pass
+    after each must miss throughout. Each engine run's launches add to
+    ``launches`` (``count_launches``)."""
+    from repro_torch.bench import datasets, queries as qgen
+    from repro_torch.core.executor import recall_at_k
+    from repro_torch.serve.queue import AsyncServingEngine
+    from repro_torch.serve.semcache import SemanticCache
+    from repro_torch.vectordb import flat
+
+    _, trace, rng = semcache_draws(table.n_rows)
+    pool = [dataclasses.replace(q, tenant_id=i % TENANTS)
+            for i, q in enumerate(qgen.gen_workload(
+                table, CACHE_UNIQUE, n_vec_used=2, k=10, seed=100))]
+    gts = [flat.ground_truth(table, list(q.query_vectors), list(q.weights),
+                             bq.resolve_tenant(q).predicates, q.k)[0]
+           .cpu().numpy() for q in pool]
+
+    async def serve_seq(eng, qs):
+        async with eng:
+            t = time.perf_counter()
+            reqs = [await eng.submit(q) for q in qs]
+            return reqs, time.perf_counter() - t
+
+    def engine(cache=None):
+        return AsyncServingEngine(bq, batch_size=8, max_wait=0.002,
+                                  semcache=cache)
+
+    def serve(eng, qs):
+        return count_launches(lambda: asyncio.run(serve_seq(eng, qs)),
+                              launches)
+
+    serve(engine(), pool)  # warm-up
+    stream = [pool[i] for i in trace]
+    reqs_b, dt_b = serve(engine(), stream)
+    cache = SemanticCache(eps=0.0)
+    events = audit_cache(cache)
+    eng_c = engine(cache)
+    reqs_c, dt_c = serve(eng_c, stream)
+    hits = check_cache_events(events, "cache pass")
+    rec_b = [recall_at_k(r.result[0], gts[trace[i]])
+             for i, r in enumerate(reqs_b)]
+    rec_c = [recall_at_k(r.result[0], gts[trace[i]])
+             for i, r in enumerate(reqs_c)]
+    parity_bad = sum(
+        r.cache_hit and not (np.array_equal(r.result[0], b.result[0])
+                             and np.array_equal(r.result[1], b.result[1]))
+        for r, b in zip(reqs_c, reqs_b))
+    rep = eng_c.report(gt_ids={r.seq: gts[trace[i]]
+                               for i, r in enumerate(reqs_c)})
+    tcol = table.scalars[:, -1].cpu().numpy()
+    for reqs in (reqs_b, reqs_c):
+        if any(r.status != "ok" for r in reqs):
+            raise AssertionError("cache pass: a request did not resolve ok")
+        check_tenant_ids([r.result for r in reqs],
+                         [r.query.tenant_id for r in reqs], tcol,
+                         "cache pass")
+    if float(np.mean(rec_c)) != float(np.mean(rec_b)):
+        raise AssertionError(f"cache pass: the cached run's recall "
+                             f"{np.mean(rec_c)} is not the uncached run's "
+                             f"{np.mean(rec_b)}")
+
+    # the epoch-swap oracle: hot insert, then compaction
+    bq.bind_tiered(hot_capacity=CACHE_INSERT + 16)
+    swap_cache = SemanticCache(eps=0.0)
+    swap_events = audit_cache(swap_cache)
+    eng_s = engine(swap_cache)
+    extra = datasets.make("part", rows=CACHE_INSERT, seed=31, device=device)
+    new_scal = np.concatenate(
+        [extra.scalars.cpu().numpy(), rng.integers(
+            0, TENANTS, CACHE_INSERT).astype(np.float32)[:, None]], axis=1)
+
+    async def swap_phase():
+        async with eng_s:
+            passes = {}
+            for name in ("first", "warm", "after_insert", "after_swap",
+                         "again"):
+                if name == "after_insert":
+                    bq.insert([v.cpu().numpy() for v in extra.vectors],
+                              new_scal)
+                elif name == "after_swap":
+                    passes["compaction"] = bq.tiered.compact()
+                passes[name] = [await eng_s.submit(q) for q in pool]
+            return passes
+
+    epoch0 = bq.tiered.epoch
+    passes = count_launches(lambda: asyncio.run(swap_phase()), launches)
+    swap_hits = {n: sum(r.cache_hit for r in passes[n])
+                 for n in ("first", "warm", "after_insert", "after_swap",
+                           "again")}
+    check_cache_events(swap_events, "epoch swap")
+    snap = bq.tiered.snapshot()
+    for n in swap_hits:
+        check_tenant_ids([r.result for r in passes[n]],
+                         [r.query.tenant_id for r in passes[n]],
+                         _tenant_column(snap), f"epoch swap {n}")
+    if swap_hits["after_insert"] or swap_hits["after_swap"]:
+        raise AssertionError(f"epoch swap: a hit crossed a hot insert or an "
+                             f"epoch: {swap_hits}")
+    if bq.tiered.epoch != epoch0 + 1 or swap_hits["warm"] != len(pool) or \
+            swap_hits["again"] != len(pool):
+        raise AssertionError(f"epoch swap: epoch {bq.tiered.epoch}, hits "
+                             f"{swap_hits}")
+    comp = passes["compaction"]
+    bq.unbind_tiered()
+    out = dict(
+        requests=len(stream), qps_nocache=len(stream) / dt_b,
+        qps_cache=len(stream) / dt_c, speedup=dt_b / dt_c,
+        hit_rate=hits / len(stream), n_cache_hits=rep.n_cache_hits,
+        mean_recall_uncached=float(np.mean(rec_b)),
+        mean_recall_cached=float(np.mean(rec_c)),
+        replay_parity_mismatches=int(parity_bad), per_tenant=rep.tenants,
+        cache_stats=cache.stats(),
+        epoch_swap=dict(hits=swap_hits, stats=swap_cache.stats(),
+                        compaction=comp))
+    log(f"  cache pass: {out['qps_nocache']:.1f} QPS uncached, "
+        f"{out['qps_cache']:.1f} cached ({out['speedup']:.2f}x) at hit rate "
+        f"{out['hit_rate']:.3f}; recall {out['mean_recall_uncached']:.4f} "
+        f"both; {parity_bad} replay mismatches against the uncached run; "
+        f"epoch swap hits {swap_hits}, stale drops "
+        f"{swap_cache.stats()['stale_drops']}; compaction "
+        f"{comp['seconds']:.2f} s")
+    return out
+
+
+def mixed_pass(bq, table, stream_wl, device, launches: dict) -> dict:
+    """Phase 9 (b): ``benchmarks/data_updates.run_mixed`` at full width —
+    tenanted Poisson arrivals through ``AsyncServingEngine`` while
+    ``tenant_skewed_insert`` rows stream in and compact in the
+    background. The arrivals go on until the ingest has ended and every
+    compaction has published, so batches run across each epoch swap.
+    Every batch, compaction step and hot-view scoring is timed; the
+    serving passes' launches add to ``launches``."""
+    from repro_torch.core.data_encoder import DataEncoder
+    from repro_torch.core.executor import recall_at_k
+    from repro_torch.core.query import default_plan
+    from repro_torch.kernels import gather_score as gs
+    from repro_torch.serve import batch as batchmod
+    from repro_torch.serve.batch import warm_bucket_ladder
+    from repro_torch.serve.queue import AsyncServingEngine
+    from repro_torch.vectordb import graph as graphmod
+    from repro_torch.vectordb import histogram, ivf, tiered
+    from repro_torch.vectordb.table import Table
+
+    bq.bind_tiered(hot_capacity=HOT_CAPACITY)
+
+    def request(i):
+        return dataclasses.replace(stream_wl[i % len(stream_wl)],
+                                   tenant_id=i % TENANTS, recall_target=0.9)
+
+    stream = [request(i) for i in range(MIXED_REQUESTS)]
+    folded = [bq.resolve_tenant(q) for q in stream]
+
+    def recalls(results, snap, qs):
+        o_ids, _ = snapshot_topk(snap, qs)
+        return [recall_at_k(r[0], g) for r, g in zip(results, o_ids)]
+
+    snap0 = bq.tiered.snapshot()
+    pre = count_launches(lambda: bq.execute_batch(stream), launches)
+    pre_recall = float(np.mean(recalls(pre, snap0, folded)))
+    warm_bucket_ladder(bq.execute_batch, stream, MIXED_BATCH)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    bq.execute_batch(stream[:MIXED_BATCH])
+    warm_batch_s = time.perf_counter() - t
+    lam = MIXED_UTILIZATION * MIXED_BATCH / warm_batch_s
+    arrivals = np.random.default_rng(UPDATE_SEED + 17)
+    n_insert = int(ROWS * MIXED_INSERT_RATIO)
+    per = -(-n_insert // MIXED_CHUNKS)
+    t = time.perf_counter()
+    # set-up: each chunk's skew statistics over a host copy of the table,
+    # the chunks drawn side by side (numpy's reductions leave the GIL)
+    host = dataclasses.replace(table, vectors=[v.cpu() for v in
+                                               table.vectors],
+                               scalars=table.scalars.cpu())
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        chunks = list(pool.map(
+            lambda d: tenant_skewed_insert(host, min(per, n_insert - d),
+                                           UPDATE_SEED + 31 + d),
+            range(0, n_insert, per)))
+    del host
+    data_s = time.perf_counter() - t
+
+    exec_spans, compactions, hot = [], [], {"calls": 0, "fp32": 0}
+    inner_exec, inner_compact = bq.execute_batch, bq.tiered.compact
+    inner_hot = tiered._hot_topk
+    in_flight = [0]  # compactions running (timed_compact)
+    # each compaction's steps, timed to the end of their device work on the
+    # compacting thread only (``step_secs.secs`` is set there); graph
+    # extension's own steps — the kNN on the card, the reverse fill and
+    # the reachability repair on the host — summed over all compactions
+    step_secs = threading.local()
+    graph_steps = ("_chunk_topk", "_reverse_fill", "_repair_reachability")
+    graph_s = dict.fromkeys(graph_steps, 0.0)
+    patches = [(Table, "append", "append"), (ivf, "extend", "ivf"),
+               (ivf, "build", "ivf"), (histogram, "update", "histograms"),
+               (graphmod, "extend", "graphs"),
+               (DataEncoder, "update", "encoder"),
+               (bq, "_prewarm_cold", "prewarm")] + [
+        (graphmod, n, n) for n in graph_steps]
+    saved = [(obj, attr, vars(obj).get(attr)) for obj, attr, _ in patches]
+    saved.append((batchmod, "BatchedHybridExecutor",
+                  batchmod.BatchedHybridExecutor))
+    # the epoch executors built, and their seconds, by thread: the
+    # compaction's warm-up builds the new epoch's; a batch on an older
+    # snapshot rebuilds its own on the serving thread (one cache slot)
+    builds = {"serving": [0, 0.0], "compaction": [0, 0.0]}
+
+    def counted_build(*a, **kw):
+        t0 = time.perf_counter()
+        out = saved[-1][2](*a, **kw)
+        torch.cuda.synchronize()
+        b = builds["serving" if getattr(step_secs, "secs", None) is None
+                   else "compaction"]
+        b[0] += 1
+        b[1] += time.perf_counter() - t0
+        return out
+
+    def timed(fn, step):
+        def wrapper(*a, **kw):
+            secs = graph_s if step in graph_s else getattr(step_secs, "secs",
+                                                           None)
+            if secs is None:
+                return fn(*a, **kw)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            secs[step] = secs.get(step, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def timed_exec(queries, **kw):
+        t0 = time.perf_counter()
+        try:
+            return inner_exec(queries, **kw)
+        finally:
+            exec_spans.append((t0, time.perf_counter(), list(queries)))
+
+    def timed_compact():
+        in_flight[0] += 1
+        step_secs.secs = secs = {}
+        t0 = time.perf_counter()
+        try:
+            out = inner_compact()
+        finally:
+            step_secs.secs = None
+            in_flight[0] -= 1
+        if out["compacted"]:
+            # the encoder's copy and the query encoder's and executors'
+            # rebuilds
+            secs["other"] = out["seconds"] - sum(secs.values())
+        compactions.append(dict(start=t0, end=time.perf_counter(),
+                                seconds_by_step=secs, **out))
+        return out
+
+    def counted_hot(*a, **kw):
+        before = gs.LAUNCHES["fp32"]
+        out = inner_hot(*a, **kw)
+        hot["calls"] += 1
+        hot["fp32"] += gs.LAUNCHES["fp32"] - before
+        return out
+
+    async def drive():
+        eng = AsyncServingEngine(bq, batch_size=MIXED_BATCH,
+                                 max_wait=MIXED_WAIT, clock=time.perf_counter)
+        loop = asyncio.get_running_loop()
+
+        async def ingest():
+            for vecs, scal in chunks:
+                await loop.run_in_executor(None, bq.insert, vecs, scal)
+                await asyncio.sleep(MIXED_REQUESTS / lam / MIXED_CHUNKS / 2)
+
+        async with eng:
+            ing = asyncio.ensure_future(ingest())
+            tasks, end = [], MIXED_MAX
+            for i in range(MIXED_MAX):
+                if i >= end:
+                    break
+                if i > 0:
+                    await asyncio.sleep(arrivals.exponential(1.0 / lam))
+                tasks.append(asyncio.ensure_future(eng.submit(request(i))))
+                if end == MIXED_MAX and ing.done() and not in_flight[0] \
+                        and not bq.tiered.needs_compaction():
+                    end = max(MIXED_REQUESTS, i + 1 + MIXED_TAIL)
+            reqs = await asyncio.gather(*tasks)
+            stream_end = time.perf_counter()
+            await ing
+        return eng, reqs, stream_end
+
+    bq.execute_batch, bq.tiered.compact = timed_exec, timed_compact
+    tiered._hot_topk = counted_hot
+    for obj, attr, step in patches:
+        setattr(obj, attr, timed(getattr(obj, attr), step))
+    batchmod.BatchedHybridExecutor = counted_build
+    try:
+        t_start = time.perf_counter()
+        eng, reqs, stream_end = count_launches(lambda: asyncio.run(drive()),
+                                               launches)
+        wall = time.perf_counter() - t_start
+    finally:
+        del bq.execute_batch, bq.tiered.compact
+        tiered._hot_topk = inner_hot
+        for obj, attr, fn in saved:
+            if fn is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, fn)
+    rep = eng.report()
+    if any(r.status != "ok" for r in reqs):
+        raise AssertionError(f"mixed pass: {sum(r.status != 'ok' for r in reqs)}"
+                             f" requests did not resolve ok")
+
+    # run_mixed's pause measure: with one execution worker, batch i+1 may
+    # start once its cut deadline and batch i have both passed; more idle
+    # time than the slack is the worker waiting on something else
+    arrival_of = {id(r.query): r.arrival for r in reqs}
+    gaps_idle, prev_end, serving_spans = [], None, []
+    for start, end, qs in sorted(exec_spans, key=lambda x: x[0]):
+        oldest = min((arrival_of[id(q)] for q in qs if id(q) in arrival_of),
+                     default=None)
+        if oldest is None:
+            continue  # the compaction thread's warm-up batches
+        serving_spans.append((start, end, len(qs)))
+        ready = oldest + MIXED_WAIT if prev_end is None \
+            else max(oldest + MIXED_WAIT, prev_end)
+        gaps_idle.append(start - ready)
+        prev_end = end
+    violations = int(np.sum(np.asarray(gaps_idle) > PAUSE_SLACK))
+    # what a compaction running beside a batch costs it: the batches'
+    # seconds with and without one overlapping (the warm batch of 16,
+    # timed alone before the stream, is the reference)
+    busy = [(c["start"], c["end"]) for c in compactions if c["compacted"]]
+    batch_ms: dict = {"during_compaction": [], "outside": []}
+    for start, end, _ in serving_spans:
+        beside = any(start < ce and end > cs for cs, ce in busy)
+        batch_ms["during_compaction" if beside else "outside"].append(
+            (end - start) * 1e3)
+
+    # per request: recall and hot rows against its own snapshot's oracle
+    by_snap: dict = {}
+    for r in reqs:
+        by_snap.setdefault(id(r.snapshot), (r.snapshot, []))[1].append(r)
+    req_recall, missed, hot_in_oracle = {}, [], 0
+    for snap, rs in by_snap.values():
+        o_ids, o_s = snapshot_topk(snap, [r.query for r in rs])
+        first_hot = snap.cold.table.n_rows
+        for r, oi, os_ in zip(rs, o_ids, o_s):
+            req_recall[r.seq] = recall_at_k(r.result[0], oi)
+            hot_in_oracle += int(np.sum(oi >= first_hot))
+            missed += missed_hot_rows(r.result[0], r.result[1], oi, os_,
+                                      first_hot)
+    by_epoch: dict = {}
+    for r in reqs:
+        by_epoch[r.snapshot.epoch] = by_epoch.get(r.snapshot.epoch, 0) + 1
+    # an insert-only window: publishing views costs no transfer
+    base_t = tiered.hot_view_transfers()
+    extra = tenant_skewed_insert(table, 48, UPDATE_SEED + 99)
+    for j in range(3):
+        bq.insert([v[16 * j: 16 * (j + 1)] for v in extra[0]],
+                  extra[1][16 * j: 16 * (j + 1)])
+    transfers = tiered.hot_view_transfers() - base_t
+    final = bq.tiered.snapshot()
+    uniq = folded[: len(stream_wl)]
+    post = count_launches(lambda: bq.execute_batch(
+        stream[: len(stream_wl)], snapshot=final), launches)
+    post_recall = float(np.mean(recalls(post, final, uniq)))
+    # comparison, outside the launch windows: default_plan on the same state
+    bx = bq._batched_executor(final.cold)
+    dp = bx.execute_batch(uniq, [default_plan(q.n_vec, bq.engine)
+                                 for q in uniq])
+    if final.hot_views:
+        dp = bq._merge_hot(dp, uniq, final)
+    dp_recall = float(np.mean(recalls(dp, final, uniq)))
+    check_tenant_ids([r.result for r in reqs],
+                     [r.query.tenant_id for r in reqs],
+                     _tenant_column(final), "mixed pass")
+    if missed:
+        raise AssertionError(f"mixed pass: served results miss {len(missed)}"
+                             f" hot rows their snapshot's oracle ranks in the"
+                             f" top-k: {missed[:8]}")
+    if rep.n_compactions < 1 or rep.epoch != bq.tiered.epoch:
+        raise AssertionError(f"mixed pass: {rep.n_compactions} compactions, "
+                             f"engine epoch {rep.epoch} against the table's "
+                             f"{bq.tiered.epoch}")
+    check_epochs_served(list(by_epoch), bq.tiered.epoch, "mixed pass")
+    if hot["calls"] <= 0 or hot["fp32"] <= 0:
+        raise AssertionError(f"mixed pass: the fp32 gather kernel did not "
+                             f"launch on the hot views ({hot})")
+    if transfers != 0:
+        raise AssertionError(f"mixed pass: {transfers} hot-view transfers "
+                             f"over an insert-only window")
+    done = [c for c in compactions if c["compacted"]]
+    steps = sorted({k for c in done for k in c["seconds_by_step"]})
+    out = dict(
+        requests=len(reqs), lam=lam, warm_batch_s=warm_batch_s,
+        insert_data_s=data_s, qps=rep.qps, qps_wall=len(reqs) / wall,
+        stream_s=stream_end - t_start, wall_s=wall, p50_ms=rep.p50_ms,
+        p99_ms=rep.p99_ms, p99_over_p50=rep.p99_ms / rep.p50_ms,
+        n_batches=rep.n_batches, n_inserted=rep.n_inserted,
+        n_compactions=rep.n_compactions, epoch=rep.epoch,
+        requests_by_epoch={str(e): n for e, n in sorted(by_epoch.items())},
+        executor_builds={k: dict(n=n, s=sec) for k, (n, sec) in
+                         builds.items()},
+        compactions=[dict(compacted=c["compacted"], seconds=c["seconds"],
+                          start=c["start"] - t_start, end=c["end"] - t_start,
+                          seconds_by_step=c["seconds_by_step"])
+                     for c in done],
+        idle_gaps_ms=[g * 1e3 for g in gaps_idle],
+        max_idle_gap_ms=max(gaps_idle) * 1e3 if gaps_idle else 0.0,
+        pause_violations=violations,
+        pause_bound_ms=(MIXED_WAIT + max(e - s for s, e, _ in serving_spans)
+                        + PAUSE_SLACK) * 1e3,
+        batch_size_mean=float(np.mean([n for _, _, n in serving_spans])),
+        graph_extend_s={n.lstrip("_"): v for n, v in graph_s.items()},
+        batch_ms_mean={k: float(np.mean(v)) if v else None
+                       for k, v in batch_ms.items()},
+        batches={k: len(v) for k, v in batch_ms.items()},
+        pre_insert_recall=pre_recall,
+        request_recall=float(np.mean(list(req_recall.values()))),
+        post_stream_recall=post_recall, default_plan_recall=dp_recall,
+        hot_rows_in_oracle=hot_in_oracle, snapshots=len(by_snap),
+        hot_calls=hot["calls"], hot_fp32_launches=hot["fp32"],
+        hot_view_transfers_insert_only=transfers, per_tenant=rep.tenants)
+    log(f"  mixed pass: {rep.describe()}")
+    log(f"  mixed pass: stream {out['stream_s']:.2f} s of {wall:.2f} s; "
+        f"p99/p50 {out['p99_over_p50']:.2f}; requests by epoch "
+        f"{out['requests_by_epoch']}; epoch executors built "
+        f"{out['executor_builds']}; {len(done)} compactions, seconds by "
+        f"step (mean) " + ", ".join(
+            f"{k} {np.mean([c['seconds_by_step'].get(k, 0.0) for c in done]):.3f}"
+            for k in steps)
+        + f"; batches {out['batches']} of mean ms {out['batch_ms_mean']} "
+        f"(a warm batch of {MIXED_BATCH} alone: {warm_batch_s * 1e3:.1f} ms)"
+        f"; graph extension's steps over all compactions (s) "
+        f"{out['graph_extend_s']}"
+        + f"; idle gaps max {out['max_idle_gap_ms']:.1f} ms, {violations} "
+        f"over {PAUSE_SLACK} s (reported); recall pre {pre_recall:.4f}, per "
+        f"request {out['request_recall']:.4f} over {len(by_snap)} snapshots "
+        f"({hot_in_oracle} oracle slots hot), post {post_recall:.4f}, "
+        f"default_plan {dp_recall:.4f}; hot views scored {hot['calls']}x "
+        f"({hot['fp32']} fp32 launches); insert-only transfers {transfers}")
+    return out
+
+
+def tiered_phase(ttable, graphs, fit_wl, stream_wl, device) -> dict:
+    """Phase 9: fit on the tenant table, bind tenants, then the cache pass
+    and the mixed ingest pass. The launch counts cover the serving runs
+    only (``count_launches`` around each), the compaction warm-up's apart;
+    the oracle and ``default_plan`` comparisons fall outside them."""
+    from repro_torch.core.boomhq import BoomHQ
+
+    bq = BoomHQ(ttable, smoke_config(), graphs=graphs)
+    t = time.perf_counter()
+    metrics = bq.fit(fit_wl)
+    fit_s = time.perf_counter() - t
+    bq.bind_tenants("tenant")
+    log(f"phase 9: fit on {ttable.n_rows} rows x {ttable.schema.n_scalar} "
+        f"scalars in {fit_s:.1f} s; tenants bound")
+    launches = {name: {"fp32": 0, "int8": 0} for name in ("serving",
+                                                            "prewarm")}
+    cache = cache_pass(bq, ttable, device, launches)
+    mixed = mixed_pass(bq, ttable, stream_wl, device, launches)
+    log(f"  phase 9 launches: serving {launches['serving']}, compaction "
+        f"warm-up {launches['prewarm']}")
+    return dict(fit=metrics, fit_s=fit_s, cache=cache, mixed=mixed,
+                launches=launches["serving"],
+                prewarm_launches=launches["prewarm"])
+
+
 def _kernel_entry(name, source, replaces, rows, main, launches) -> dict:
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches,
@@ -1257,6 +2027,12 @@ def main() -> int:
     log(f"table {table.n_rows} rows x {[v.shape[1] for v in table.vectors]} "
         f"+ {table.schema.n_scalar} scalars; {len(fit_wl)} fit / "
         f"{len(serve_wl)} serve queries")
+    # phase 9's table (phase 2's vectors and one more scalar, the tenant)
+    # and workloads; phase 3 checks the hot-view shape on it
+    ttable = tenant_table(table)
+    t_fit_wl, t_serve_wl = smoke_workloads(ttable)
+    t_serve_wl = [dataclasses.replace(q, tenant_id=i % TENANTS)
+                  for i, q in enumerate(t_serve_wl)]
     cfg = smoke_config()
     if cfg.graph_degree != GRAPH_DEGREE:
         raise AssertionError("the graphs are not at BoomHQ's default degree")
@@ -1266,7 +2042,8 @@ def main() -> int:
 
     # phase 3
     rows = check_kernels(table, gather_cases(table, bq.indexes[0], graphs[0],
-                                             serve_wl, dev), dev)
+                                             serve_wl, dev)
+                         + hot_case(ttable, t_serve_wl, dev), dev)
     scan_rows = check_scans(table, serve_wl, dev)
 
     # phase 4 — launch counts cover exactly this run
@@ -1359,8 +2136,12 @@ def main() -> int:
     upd = update_phase(bq, serve_wl, dev)
     # phase 8 — a vector->scalar set at d=128, its search pass's counts
     sift = sift_phase(dev)
+    # phase 9 — the tiered, tenanted, cached path, its serving counts
+    tier = tiered_phase(ttable, graphs, t_fit_wl, t_serve_wl, dev)
     launches_by_phase = {"4": launches, "5": spass["launches"],
-                         "7": upd["launches"], "8": sift["launches"]}
+                         "7": upd["launches"], "8": sift["launches"],
+                         "9": tier["launches"],
+                         "9 compaction warm-up": tier["prewarm_launches"]}
 
     kernels = []
     for variant in ("fp32", "int8"):
@@ -1373,7 +2154,7 @@ def main() -> int:
             f"gather_score_{variant}", "src/repro_torch/csrc/gather_score.cu",
             "src/repro/kernels/gather_score.py:88", checked, vrows[0],
             launches[variant] + upd["launches"][variant]
-            + sift["launches"][variant]))
+            + sift["launches"][variant] + tier["launches"][variant]))
     for name, variant, replaces in (
             ("masked_topk_fp32", "dot", "src/repro/kernels/masked_topk.py:28"),
             ("int8_scan", "int8", "src/repro/kernels/int8_scan.py:28")):
@@ -1394,7 +2175,7 @@ def main() -> int:
         plan_mix=plan_mix, scan_pass=spass, fit=metrics, profile=prof,
         profile_graph=prof_graph, launches=launches,
         launches_by_phase=launches_by_phase, updates=upd["inserts"],
-        sift=sift,
+        sift=sift, tiered=tier,
         default_plan_recall=robust_recall, recall_target=target,
         seconds=time.perf_counter() - T0), indent=1))
     log(f"done in {time.perf_counter() - T0:.1f} s")

@@ -17,6 +17,11 @@ and of ``default_plan`` through the batched executor, the share of
 queries whose learned plans agree across the packages, and the share
 whose ids agree. ``--device cpu`` rehearses at a small ``--rows``.
 
+The check it exits non-zero on: at every stage the port's gap between
+learned and ``default_plan`` recall lies within ``GAP_SPREAD`` (0.02) of
+the JAX package's on the same state — the post-insert floor restated as
+a claim the reference itself meets.
+
 Everything goes to ``chiprun_out/update_witness.json``.
 """
 from __future__ import annotations
@@ -38,6 +43,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+GAP_SPREAD = 0.02  # |port gap - JAX gap| allowed at every stage
 sys.path.insert(0, str(ROOT / "src"))
 
 import jax  # noqa: E402
@@ -211,6 +217,8 @@ def measure(bq, jbq, queries, jqueries) -> dict:
                                          for a, b in zip(gt, jgt)])))
     out["port_gap"] = out["port_learned"] - out["port_default_plan"]
     out["jax_gap"] = out["jax_learned"] - out["jax_default_plan"]
+    out["gap_within_spread"] = bool(
+        abs(out["port_gap"] - out["jax_gap"]) <= GAP_SPREAD)
     return out
 
 
@@ -273,6 +281,11 @@ def main() -> int:
         rows=rows, queries=len(queries), device=card,
         jax_platform=jax.devices()[0].platform,
         stages=stages, seconds=time.perf_counter() - t0), indent=1))
+    bad = [st["stage"] for st in stages if not st["gap_within_spread"]]
+    if bad:
+        log(t0, f"the port's gap to default_plan is more than {GAP_SPREAD} "
+            f"from the JAX package's at {bad}")
+        return 1
     log(t0, "done")
     return 0
 

@@ -8,7 +8,8 @@ on ``device``. Nothing here imports JAX: the caller exports with
 Covered: ``IVFIndex``, ``GraphIndex``, ``Histograms``, ``DataEncoder``
 parameters and bin edges, ``MHQRewriter`` parameters and the query
 encoder's S_enc edges — and ``boomhq``, which assembles a fitted ``BoomHQ``
-from all of them.
+from all of them; ``cold_state`` and ``tiered_snapshot`` carry a tiered
+table's epoch (cold state and hot buffers) across mid-stream.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ from repro_torch.core.rewriter import MHQRewriter
 from repro_torch.vectordb.graph import GraphIndex
 from repro_torch.vectordb.histogram import Histograms
 from repro_torch.vectordb.ivf import IVFIndex
+from repro_torch.vectordb.table import Table
+from repro_torch.vectordb.tiered import ColdState, HotView, TieredSnapshot
 
 
 def _t(a, device, dtype=torch.float32) -> torch.Tensor:
@@ -96,21 +99,34 @@ def rewriter(params: dict, in_dim: int, n_vec: int, cfg, *,
     return rw
 
 
+def _indexes(dicts: list, device) -> list:
+    return [ivf_index(d["centroids"], d["sorted_rows"], d["offsets"],
+                      d["metric"], device=device) for d in dicts]
+
+
+def _graphs(dicts, device):
+    if dicts is None:
+        return None
+    return tuple(graph_index(d["neighbors"], d["entry_points"], d["metric"],
+                             device=device) for d in dicts)
+
+
 def boomhq(table, cfg: BoomHQConfig, state: dict, engine=PGVECTOR
            ) -> BoomHQ:
     """A fitted ``BoomHQ`` on ``table``'s device from the JAX package's
     exported state: ``indexes`` (list of dicts with ``centroids``,
     ``sorted_rows``, ``offsets``, ``metric``), ``hists`` (``edges``,
     ``prefix``, ``n_rows``), ``qenc_edges``, ``rewriter`` (``params``,
-    ``in_dim``) and, when the encoder is on, ``data_encoder``
-    (``params``, ``edges``)."""
+    ``in_dim``), when the encoder is on ``data_encoder`` (``params``,
+    ``edges``), and optionally ``graphs`` (list of dicts with
+    ``neighbors``, ``entry_points``, ``metric``; without it a graph tier
+    is built as ``cfg.graph_degree`` says)."""
     dev = table.device
-    idxs = [ivf_index(d["centroids"], d["sorted_rows"], d["offsets"],
-                      d["metric"], device=dev) for d in state["indexes"]]
     h = state["hists"]
-    bq = BoomHQ(table, cfg, engine, indexes=idxs,
+    bq = BoomHQ(table, cfg, engine, indexes=_indexes(state["indexes"], dev),
                 hists=histograms(h["edges"], h["prefix"], h["n_rows"],
-                                 device=dev))
+                                 device=dev),
+                graphs=_graphs(state.get("graphs"), dev))
     if bq.data_encoder is not None:
         d = state["data_encoder"]
         bq.data_encoder = data_encoder(
@@ -123,3 +139,33 @@ def boomhq(table, cfg: BoomHQConfig, state: dict, engine=PGVECTOR
                            cfg.rewriter, device=dev)
     bq._fitted = True
     return bq
+
+
+def cold_state(schema, vectors: list, scalars, indexes: list, hists: dict,
+               graphs=None, *, device=None) -> ColdState:
+    """A JAX ``tiered.ColdState`` as the port's: the table's ``vectors``
+    and ``scalars`` (numpy) under the port's ``schema``, ``indexes``,
+    ``hists`` and ``graphs`` as in ``boomhq``'s state (``graphs`` None
+    without a graph tier)."""
+    dev = resolve_device(device)
+    table = Table.from_numpy(schema, [np.asarray(v) for v in vectors],
+                             np.asarray(scalars), device=dev)
+    return ColdState(table, tuple(_indexes(indexes, dev)),
+                     histograms(hists["edges"], hists["prefix"],
+                                hists["n_rows"], device=dev),
+                     _graphs(graphs, dev))
+
+
+def tiered_snapshot(epoch: int, cold: ColdState, hot_views: list
+                    ) -> TieredSnapshot:
+    """A JAX ``tiered.TieredSnapshot`` as the port's, on ``cold``'s device:
+    ``cold`` from ``cold_state``, ``hot_views`` one dict per view with its
+    full-capacity host buffers ``np_vectors`` and ``np_scalars``, its
+    ``count`` and ``id_offset`` (copied, so the JAX side's later appends
+    never reach them)."""
+    views = tuple(
+        HotView(tuple(np.array(b, np.float32) for b in v["np_vectors"]),
+                np.array(v["np_scalars"], np.float32), int(v["count"]),
+                int(v["id_offset"]), cold.table.device)
+        for v in hot_views)
+    return TieredSnapshot(epoch=int(epoch), cold=cold, hot_views=views)

@@ -1,6 +1,6 @@
 """BoomHQ façade: the learned optimizer wired end-to-end (paper Fig. 2).
 
-Port of ``repro.core.boomhq`` for an unsharded, untiered table:
+Port of ``repro.core.boomhq`` for an unsharded table:
 
   fit():            train the data encoder, label the training workload
                     by grid execution, train the rewriter heads (the
@@ -12,16 +12,24 @@ Port of ``repro.core.boomhq`` for an unsharded, untiered table:
                     host sync.
   execute() / execute_batch(): optimize + run, with one underfill
                     escalation to the robust default plan.
-  insert():         the eager data-update path: append the rows, extend
-                    the indexes, histograms and graphs, rebuild the
-                    executors and fine-tune the data encoder.
+  insert():         data updates: into the hot segment of a tiered table
+                    (``bind_tiered``), else the eager path (append the
+                    rows, extend the indexes, histograms and graphs,
+                    rebuild the executors, fine-tune the data encoder).
+  bind_tiered():    streaming ingest: a hot segment scored exactly beside
+                    the cold epoch, background compaction swapping epochs
+                    (``vectordb.tiered``).
+  bind_tenants():   namespaces: a query's ``tenant_id`` folds into its
+                    predicate as an implicit equality (``resolve_tenant``).
 
-Shards, tiers, tenants and the semantic cache are not ported yet.
+Sharding (``bind_shards``) is not ported yet.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -34,6 +42,7 @@ from repro_torch.core.query_encoder import QueryEncoder
 from repro_torch.core.rewriter import MHQRewriter, RewriterConfig, generate_label
 from repro_torch.vectordb import flat, graph, histogram, ivf, predicates
 from repro_torch.vectordb.table import Table
+from repro_torch.vectordb.tiered import ColdState, TieredSnapshot, TieredTable
 
 
 def _n_valid(ids) -> int:
@@ -66,29 +75,33 @@ class BoomHQ:
 
     ``indexes`` / ``hists`` / ``graphs``: already-built IVF indexes,
     histograms and per-column graphs to bind instead of building them
-    (``convert`` carries the JAX package's across this way)."""
+    (``convert`` carries the JAX package's across this way).
+
+    ``state`` holds the serving epoch (table, indexes, histograms, graphs)
+    as one ``tiered.ColdState``; ``table``/``indexes``/``hists``/``graphs``
+    read it. Planning and execution take the epoch as an argument: this
+    one, or a tiered snapshot's cold epoch."""
 
     def __init__(self, table: Table, cfg: BoomHQConfig = BoomHQConfig(),
                  engine: EngineCaps = PGVECTOR, *, indexes=None, hists=None,
                  graphs=None):
-        self.table = table
         self.cfg = cfg
         self.engine = engine
-        self.indexes = list(indexes) if indexes is not None else [
+        indexes = tuple(indexes) if indexes is not None else tuple(
             ivf.build(v, min(cfg.n_clusters, max(2, table.n_rows // 8)),
                       seed=i, metric=table.schema.metric)
-            for i, v in enumerate(table.vectors)]
-        self.hists = hists if hists is not None else histogram.build(
-            table.scalars, cfg.hist_bins)
-        self.graphs = None
+            for i, v in enumerate(table.vectors))
+        if hists is None:
+            hists = histogram.build(table.scalars, cfg.hist_bins)
         if graphs is not None:
-            self.graphs = tuple(graphs)
+            graphs = tuple(graphs)
         elif cfg.graph_degree:
-            self.graphs = tuple(
+            graphs = tuple(
                 graph.build(v, cfg.graph_degree, metric=table.schema.metric)
                 for v in table.vectors)
-        self.executor = HybridExecutor(table, self.indexes, engine,
-                                       graphs=self.graphs)
+        self.state = ColdState(table, indexes, hists, graphs)
+        self.executor = HybridExecutor(table, list(indexes), engine,
+                                       graphs=graphs)
         self.data_encoder: Optional[DataEncoder] = None
         if cfg.use_de:
             self.data_encoder = DataEncoder(
@@ -100,6 +113,30 @@ class BoomHQ:
         self.cost_model = None  # scoring-dispatch override (bind_cost_model)
         self._batched = None
         self.insert_seconds: dict = {}  # the last insert's seconds by step
+        self.tiered = None  # streaming-ingest state (bind_tiered)
+        self.tenant_col = None  # namespace column index (bind_tenants)
+        self._compactor = None  # background scheduler (serve attaches one)
+        self._tiered_finetune = True
+        # recent served queries, retained so compaction can warm the next
+        # epoch's serving state with real traffic before the publish
+        self._recent: deque = deque(maxlen=64)
+        self._last_batch = 1
+
+    @property
+    def table(self) -> Table:
+        return self.state.table
+
+    @property
+    def indexes(self) -> list:
+        return list(self.state.indexes)
+
+    @property
+    def hists(self) -> histogram.Histograms:
+        return self.state.hists
+
+    @property
+    def graphs(self) -> Optional[tuple]:
+        return self.state.graphs
 
     # -- offline -------------------------------------------------------------
 
@@ -115,7 +152,8 @@ class BoomHQ:
             gt_ids, _ = flat.ground_truth(
                 self.table, list(q.query_vectors), list(q.weights),
                 q.predicates, q.k)
-            feats.append(self._features_batch([q])[0].cpu().numpy())
+            feats.append(self._features_batch([q], self.state)[0]
+                         .cpu().numpy())
             labels.append(generate_label(
                 self.executor, q, gt_ids.cpu().numpy(),
                 refine_columns=self.cfg.rewriter.refine_columns))
@@ -130,15 +168,16 @@ class BoomHQ:
         self._fitted = True
         return metrics
 
-    def _features_batch(self, qs: list, *,
+    def _features_batch(self, qs: list, cold: ColdState, *,
                         scores_b: Optional[tuple] = None) -> torch.Tensor:
         """X_in for a query batch (B_bucket, F) — the port's counterpart of
-        the fused feature jit: features of every query in one batched pass.
-        The batch pads to a power-of-two bucket by repeating the first
-        query, so it lines up with ``compute_batch_scores`` rows."""
+        the fused feature jit: features of every query in one batched pass,
+        pre-probed and estimated against the epoch ``cold``. The batch
+        pads to a power-of-two bucket by repeating the first query, so it
+        lines up with ``compute_batch_scores`` rows."""
         from repro_torch.serve.batch import next_bucket
 
-        t = self.table
+        t = cold.table
         dev = t.device
         qpad = list(qs) + [qs[0]] * (next_bucket(len(qs)) - len(qs))
         pred_b = predicates.stack([q.predicates for q in qpad])
@@ -146,7 +185,7 @@ class BoomHQ:
                      for i in range(t.schema.n_vec))
         cfg = self.cfg
         return self.qenc.encode_batch(
-            qv_b, pred_b,
+            cold, qv_b, pred_b,
             torch.as_tensor(np.asarray([q.weights for q in qpad], np.float32),
                             device=dev),
             torch.as_tensor([float(np.log(q.k)) for q in qpad],
@@ -166,7 +205,8 @@ class BoomHQ:
         """One batched feature + head pass and one host sync per query."""
         if not self._fitted:
             return default_plan(q.n_vec, self.engine)
-        codes = self.rewriter.plan_codes(self._features_batch([q]))
+        codes = self.rewriter.plan_codes(self._features_batch([q],
+                                                              self.state))
         return self._apply_skew_guard(
             self.rewriter.plan_from_codes(codes[0].cpu().numpy()), q)
 
@@ -179,16 +219,16 @@ class BoomHQ:
                 plan = dataclasses.replace(plan, strategy="index_scan")
         return plan
 
-    def _plan_local(self, b: int) -> bool:
+    def _plan_local(self, b: int, cold: ColdState) -> bool:
         """Should batch planning skip the dense score GEMMs? The pre-probe
-        budget is weighed against the table by the same cost model that
-        dispatches execution groups."""
+        budget is weighed against the epoch ``cold``'s table by the same
+        cost model that dispatches execution groups."""
         from repro_torch.serve.batch import CANDIDATE_LOCAL, CostModel, \
             next_bucket
         cm = self.cost_model if self.cost_model is not None else CostModel()
-        n = self.table.n_rows
+        n = cold.table.n_rows
         scan = 0
-        for idx in self.indexes:
+        for idx in cold.indexes:
             if self.qenc is not None:
                 scan += ivf.probe_scan_budget(
                     idx.n_clusters, n, nprobe=self.qenc.probe_nprobe,
@@ -196,33 +236,46 @@ class BoomHQ:
             else:
                 scan += min(n, self.engine.default_max_scan)
         return cm.choose(batch=next_bucket(max(1, b)), scan=max(1, scan),
-                         n_rows=n * max(1, len(self.indexes))) \
+                         n_rows=n * max(1, len(cold.indexes))) \
             == CANDIDATE_LOCAL
 
     def optimize_batch(self, qs: list, *, scores_b: Optional[tuple] = None,
-                       dense: Optional[bool] = None) -> list:
+                       dense: Optional[bool] = None, cold=None) -> list:
         """Plan a whole batch with one batched feature + head pass and ONE
         host sync. ``scores_b`` — per-column (B_bucket, n) similarities from
         ``compute_batch_scores`` — feeds the pre-probe features; ``dense``
         None auto-picks: past the dense crossover (and with no matrices
-        passed in) planning runs the unscored pre-probe instead."""
+        passed in) planning runs the unscored pre-probe instead.
+
+        ``cold`` — a snapshot's ``tiered.ColdState`` (``state`` where None):
+        planning reads THAT epoch's table, indexes and histograms, so plans
+        stay consistent with the data the batch executes against."""
         if not qs:
             return []
         if not self._fitted:
             return [default_plan(q.n_vec, self.engine) for q in qs]
+        cold = self.state if cold is None else cold
         if dense is None:
-            dense = scores_b is not None or not self._plan_local(len(qs))
+            dense = scores_b is not None or not self._plan_local(len(qs),
+                                                                 cold)
         if dense and scores_b is None:
             from repro_torch.serve.batch import compute_batch_scores
-            scores_b = compute_batch_scores(self.table, qs)
-        x = self._features_batch(qs, scores_b=scores_b if dense else None)
+            scores_b = compute_batch_scores(cold.table, qs)
+        x = self._features_batch(qs, cold,
+                                 scores_b=scores_b if dense else None)
         codes = self.rewriter.plan_codes(x).cpu().numpy()
         return [self._apply_skew_guard(self.rewriter.plan_from_codes(c), q)
                 for q, c in zip(qs, codes[:len(qs)])]
 
     def execute(self, q: MHQ):
-        """-> (ids (k,), scores (k,)) tensors; one underfill escalation to
-        the robust default plan."""
+        """-> (ids (k,), scores (k,)): tensors on the untiered path, with
+        one underfill escalation to the robust default plan; over a tiered
+        table the query rides a one-element batch against one snapshot
+        (numpy, as ``execute_batch`` returns). The tenant namespace folds
+        in first."""
+        q = self.resolve_tenant(q)
+        if self.tiered is not None:
+            return self.execute_batch([q])[0]
         ids, scores = self.executor.execute(q, self.optimize(q))
         nv = _n_valid(ids)
         if nv < q.k:
@@ -241,32 +294,179 @@ class BoomHQ:
         self._batched = None
         return self
 
-    def execute_batch(self, queries: list) -> list:
+    # -- tiered streaming ingest ---------------------------------------------
+
+    def bind_tiered(self, hot_capacity: int = 1024, *,
+                    rebuild_every: int = 0,
+                    finetune: bool = True) -> "BoomHQ":
+        """Serve over a TIERED hot/cold table: subsequent ``insert`` calls
+        append to a bounded writable hot segment (scored exactly,
+        candidate-locally, as one extra merge source of every query) and
+        compaction folds full segments into the cold IVF state under an
+        epoch-swapped snapshot (``vectordb.tiered``). ``rebuild_every=N``
+        makes every Nth compaction a full re-cluster; ``finetune`` keeps
+        the data encoder updating on compacted rows. ``unbind_tiered()``
+        restores build-once serving."""
+        self._tiered_finetune = finetune
+        self.tiered = TieredTable(
+            self.table, self.state.indexes, self.hists,
+            hot_capacity=hot_capacity, rebuild_every=rebuild_every,
+            finetune_cb=self._on_compaction, graphs=self.graphs)
+        return self
+
+    def unbind_tiered(self) -> "BoomHQ":
+        """Back to build-once serving. The façade's fields tracked every
+        compaction, so the latest cold epoch stays the serving state; rows
+        still hot fold in through the eager insert."""
+        t = self.tiered
+        self.tiered = None
+        self._compactor = None
+        if t is not None:
+            for view in t.snapshot().hot_views:
+                if view.count:
+                    self.insert(
+                        [v[: view.count] for v in view.np_vectors],
+                        view.np_scalars[: view.count],
+                        finetune=self._tiered_finetune)
+        return self
+
+    def _on_compaction(self, cold: ColdState, first_new: int,
+                       n_new: int) -> None:
+        """Compaction-thread callback (runs BEFORE the epoch publish):
+        fine-tune the data encoder on the newly cold rows, rebuild the query
+        encoder, keep the façade's state on the latest epoch, and warm the
+        next epoch's serving state. Serving reads none of these fields for
+        a tiered batch except the query encoder, which is replaced whole:
+        the encoder is updated on a copy and published with it, so a batch
+        on the serving thread sees the old pair or the new one, never a
+        half-trained encoder."""
+        de = self.data_encoder
+        if de is not None and self._tiered_finetune:
+            de = copy.deepcopy(de)
+            de.update(cold.table, np.arange(first_new, first_new + n_new))
+        self.data_encoder = de
+        if self.qenc is not None:
+            self.qenc = QueryEncoder(cold.table, list(cold.indexes),
+                                     cold.hists, de)
+        self.state = cold
+        self.executor = HybridExecutor(cold.table, list(cold.indexes),
+                                       self.engine, graphs=cold.graphs)
+        self._prewarm_cold(cold)
+
+    def _prewarm_cold(self, cold: ColdState) -> None:
+        """Serve the retained recent queries against the new cold state on
+        the compacting thread BEFORE the epoch publish, through the real
+        serving entry (``warm_bucket_ladder`` of ``execute_batch``), as
+        the reference does. There is no compile to warm on the card; the
+        passes build the new epoch's ``BatchedHybridExecutor`` into the
+        single-slot cache and the new table's int8 replicas.
+
+        Two limits, both the reference's: the recent queries are those of
+        the last direct ``execute_batch`` calls, since
+        ``AsyncServingEngine`` passes a ``snapshot`` with every batch and
+        so records none; and a batch served on the old snapshot between
+        this warm-up and the publish rebuilds the old epoch's executor on
+        the serving thread, evicting the one built here. Its kernel
+        launches count into ``gather_score.PREWARM_LAUNCHES``."""
+        qs = list(self._recent)[-max(1, self._last_batch):]
+        if not qs:
+            return
+        from repro_torch.kernels import gather_score as gs
+        from repro_torch.serve.batch import warm_bucket_ladder
+
+        # a pre-publish snapshot of the new cold state (no hot views:
+        # compaction just drained them); passing a snapshot also keeps
+        # these batches out of _recent
+        snap = TieredSnapshot(epoch=-1, cold=cold, hot_views=())
+        with gs.counted_as(gs.PREWARM_LAUNCHES):
+            warm_bucket_ladder(
+                lambda batch: self.execute_batch(batch, snapshot=snap),
+                qs, len(qs))
+
+    # -- tenants -------------------------------------------------------------
+
+    def bind_tenants(self, column: int | str = "tenant") -> "BoomHQ":
+        """Serve MULTI-TENANT: queries carrying ``MHQ.tenant_id`` are scoped
+        to rows whose ``column`` equals that id, through an implicit
+        ``tenant == id`` conjunct folded into every DNF clause
+        (``predicates.fold_conjunct``); clause buckets and kernels stay as
+        they are. ``unbind_tenants()`` restores shared serving."""
+        if isinstance(column, str):
+            names = {sc.name: i for i, sc in
+                     enumerate(self.table.schema.scalar_cols)}
+            if column not in names:
+                raise KeyError(f"unknown scalar column {column!r}")
+            self.tenant_col = names[column]
+        else:
+            if not 0 <= int(column) < self.table.schema.n_scalar:
+                raise IndexError(f"scalar column {column} out of range")
+            self.tenant_col = int(column)
+        return self
+
+    def unbind_tenants(self) -> "BoomHQ":
+        self.tenant_col = None
+        return self
+
+    def resolve_tenant(self, q: MHQ) -> MHQ:
+        """Fold the query's tenant namespace into its predicate. A no-op for
+        untenanted queries or unbound instances; idempotent, so the serving
+        front-end (which folds before its cache lookup) and the execute
+        paths may both resolve."""
+        if q.tenant_id is None or self.tenant_col is None:
+            return q
+        t = float(int(q.tenant_id))
+        return dataclasses.replace(q, predicates=predicates.fold_conjunct(
+            q.predicates, self.tenant_col, t, t))
+
+    # -- batched serving -------------------------------------------------------
+
+    def execute_batch(self, queries: list, *, snapshot=None) -> list:
         """Batched analogue of execute(): one batched optimizer pass for the
         whole batch, grouped execution, then one batched underfill
-        escalation. Returns [(ids, scores)] numpy pairs per query."""
+        escalation. Returns [(ids, scores)] numpy pairs per query.
+
+        Over a TIERED table the whole batch executes against ONE immutable
+        snapshot — ``snapshot`` when the batch former stamped one at cut
+        time, else taken here: the cold side runs the plan-driven paths on
+        the snapshot's epoch and the hot views merge in as one more exact
+        candidate source (``_merge_hot``). Only calls without a
+        ``snapshot`` are recorded as recent traffic."""
         if not queries:
             return []
+        queries = [self.resolve_tenant(q) for q in queries]
+        if snapshot is None:
+            self._recent.extend(queries)
+            self._last_batch = len(queries)
+        snap = snapshot
+        if snap is None and self.tiered is not None:
+            snap = self.tiered.snapshot()
+        return self._execute_batch_on(queries, snap)
+
+    def _execute_batch_on(self, queries: list, snap) -> list:
+        """``execute_batch`` on resolved queries against ``snap`` (None for
+        the façade's untiered ``state``), cut into sub-batches that keep the
+        dense-score working set (batch · n_rows per column) bounded."""
         from repro_torch.serve.batch import (
             MAX_BATCH_KERNEL, SLOT_BUDGET, compute_batch_scores, pow2_at_most,
         )
-        t = self.table
-        # bound the dense-score working set (batch · n_rows per column)
+        cold = self.state if snap is None else snap.cold
+        t = cold.table
         limit = pow2_at_most(max(1, min(
             MAX_BATCH_KERNEL, SLOT_BUDGET // max(t.n_rows, 1))))
         if len(queries) > limit:
             out = []
             for s in range(0, len(queries), limit):
-                out.extend(self.execute_batch(queries[s: s + limit]))
+                out.extend(self._execute_batch_on(queries[s: s + limit],
+                                                  snap))
             return out
         # past the dense crossover the (B, n) similarity matrices are never
         # built: planning runs the unscored pre-probe and execution groups
         # gather only their candidate budgets
-        plan_local = self._plan_local(len(queries))
+        plan_local = self._plan_local(len(queries), cold)
         scores_b = None if plan_local else compute_batch_scores(t, queries)
-        bx = self._batched_executor()
+        bx = self._batched_executor(cold)
         plans = self.optimize_batch(queries, scores_b=scores_b,
-                                    dense=not plan_local)
+                                    dense=not plan_local, cold=cold)
         results = bx.execute_batch(queries, plans, scores_b=scores_b)
         under = [j for j, (ids, _) in enumerate(results)
                  if _n_valid(ids) < queries[j].k]
@@ -280,19 +480,66 @@ class BoomHQ:
             for j, (ids2, s2) in zip(under, retry):
                 if _n_valid(ids2) > _n_valid(results[j][0]):
                     results[j] = (ids2, s2)
+        if snap is not None and snap.hot_views:
+            results = self._merge_hot(results, queries, snap)
         return results
 
-    def _batched_executor(self):
-        """The batched executor bound to this table and cost model; rebuilt
-        when the table is another object (after ``insert``), so no
-        executor serves the pre-insert table."""
+    def _merge_hot(self, results, queries: list, snap) -> list:
+        """Fold the snapshot's hot views into the cold results: one fused
+        exact gather-score over each bounded hot view plus one pass of the
+        dedup merge (``tiered.merge_hot_batch``). Hot and cold row ids are
+        disjoint, so escalation and recall contracts hold unchanged; an
+        empty hot segment never reaches here (bit-for-bit cold parity)."""
+        from repro_torch.core.executor import K_BUCKET_FLOOR, next_bucket
+        from repro_torch.kernels.shapes import NEG
+        from repro_torch.vectordb import tiered
+
+        dev = snap.cold.table.device
+        b = len(queries)
+        k_pad = next_bucket(max(K_BUCKET_FLOOR, max(q.k for q in queries)))
+        b_pad = next_bucket(b)
+        qpad = list(queries) + [queries[0]] * (b_pad - b)
+        n_vec = snap.cold.table.schema.n_vec
+        pred_b = predicates.stack([q.predicates for q in qpad])
+        qv_b = tuple(torch.stack([q.query_vectors[i] for q in qpad])
+                     for i in range(n_vec))
+        w_b = torch.as_tensor(np.asarray([q.weights for q in qpad],
+                                         np.float32), device=dev)
+        cold_ids = np.full((b_pad, k_pad), -1, np.int32)
+        cold_scores = np.full((b_pad, k_pad), np.float32(NEG), np.float32)
+        for j, (ids, scores) in enumerate(results):
+            ids = np.asarray(ids, np.int32).ravel()
+            kk = min(ids.shape[0], k_pad)
+            cold_ids[j, :kk] = ids[:kk]
+            cold_scores[j, :kk] = np.asarray(scores, np.float32).ravel()[:kk]
+        views = tuple(tiered.view_args(v) for v in snap.hot_views)
+        m_ids, m_scores = tiered.merge_hot_batch(
+            torch.as_tensor(cold_ids, device=dev),
+            torch.as_tensor(cold_scores, device=dev), views, qv_b, w_b,
+            pred_b, k=k_pad, metric=snap.cold.table.schema.metric)
+        m_ids, m_scores = m_ids.cpu().numpy(), m_scores.cpu().numpy()
+        return [(m_ids[j, : q.k], m_scores[j, : q.k])
+                for j, q in enumerate(queries)]
+
+    def _batched_executor(self, cold: Optional[ColdState] = None):
+        """The batched executor bound to an epoch — ``cold``, else the
+        façade's ``state`` — and the cost model. A
+        single-slot cache keyed on table identity: batches execute in
+        formation order, so an epoch swap rebuilds once (the compacting
+        thread's warm-up usually did it already). The slot is read once,
+        so a concurrent replacement can never hand this caller an executor
+        of another table."""
         from repro_torch.serve.batch import BatchedHybridExecutor
-        if self._batched is None or self._batched.table is not self.table:
-            self._batched = BatchedHybridExecutor(
-                self.table, self.indexes, self.engine,
-                cost_model=self.cost_model, hists=self.hists,
-                graphs=self.graphs)
-        return self._batched
+
+        cold = self.state if cold is None else cold
+        bx = self._batched
+        if bx is None or bx.table is not cold.table:
+            bx = BatchedHybridExecutor(
+                cold.table, list(cold.indexes), self.engine,
+                cost_model=self.cost_model, hists=cold.hists,
+                graphs=cold.graphs)
+            self._batched = bx
+        return bx
 
     def execute_timed(self, q: MHQ, *, repeats: int = 1):
         """(ids, scores, seconds) numpy — one warm ``execute``, then the mean
@@ -314,15 +561,30 @@ class BoomHQ:
 
     def insert(self, vectors: list, scalars: np.ndarray, *,
                finetune: bool = True) -> dict:
-        """Data updates, the eager untiered path: append the rows, extend
-        the IVF indexes from the first new row, update the histograms,
-        extend the graphs (on the post-append columns), rebuild the
-        executor (the batched one rebuilds on its next use and sizes its
-        dispatcher by the grown ``n_rows``), then fine-tune the data encoder on the new rows when ``finetune`` is set
-        and rebuild the query encoder on the grown table. -> the encoder
-        update's metrics ({} without one). ``insert_seconds`` keeps the
-        seconds of each step (device work included)."""
+        """Data updates. Tiered (``bind_tiered``): the rows append to the
+        hot segment — visible to the next formed batch, scored exactly,
+        never a serving pause — and compaction (in the background when a
+        scheduler is attached, else on the next ``compact()``) folds them
+        cold, fine-tuning the encoder per ``finetune``; -> the tiered
+        table's insert stats.
+
+        Untiered, the eager path: append the rows, extend the IVF indexes
+        from the first new row, update the histograms, extend the graphs
+        (on the post-append columns), rebuild the executor (the batched
+        one rebuilds on its next use and sizes its dispatcher by the grown
+        ``n_rows``), then fine-tune the data encoder on the new rows when
+        ``finetune`` is set and rebuild the query encoder on the grown
+        table. -> the encoder update's metrics ({} without one).
+        ``insert_seconds`` keeps the seconds of each step (device work
+        included)."""
         from repro_torch.common.device import synchronize
+
+        if self.tiered is not None:
+            self._tiered_finetune = finetune
+            stats = self.tiered.insert(vectors, scalars)
+            if stats["needs_compaction"] and self._compactor is not None:
+                self._compactor.maybe_schedule()
+            return stats
 
         dev = self.table.device
         secs = {}
@@ -335,31 +597,32 @@ class BoomHQ:
             t0 = time.perf_counter()
 
         first_new = self.table.n_rows
-        self.table = self.table.append(vectors, scalars)
-        t = self.table
+        t = self.table.append(vectors, scalars)
         lap("append")
-        self.indexes = [ivf.extend(idx, v[first_new:], first_new)
-                        for idx, v in zip(self.indexes, t.vectors)]
+        indexes = tuple(ivf.extend(idx, v[first_new:], first_new)
+                        for idx, v in zip(self.state.indexes, t.vectors))
         lap("ivf")
-        self.hists = histogram.update(self.hists, t.scalars[first_new:])
+        hists = histogram.update(self.hists, t.scalars[first_new:])
         lap("histograms")
-        if self.graphs is not None:
+        graphs = self.graphs
+        if graphs is not None:
             # graph.extend reads the FULL post-append column (the graph
             # stores no vectors), so this must follow the table append
-            self.graphs = tuple(graph.extend(g, v, first_new)
-                                for g, v in zip(self.graphs, t.vectors))
+            graphs = tuple(graph.extend(g, v, first_new)
+                           for g, v in zip(graphs, t.vectors))
         lap("graphs")
+        self.state = ColdState(t, indexes, hists, graphs)
         # the batched executor rebuilds on its next use: its table is no
         # longer self.table (``_batched_executor``)
-        self.executor = HybridExecutor(t, self.indexes, self.engine,
-                                       graphs=self.graphs)
+        self.executor = HybridExecutor(t, list(indexes), self.engine,
+                                       graphs=graphs)
         lap("rebuild")
         out = {}
         if self.data_encoder is not None and finetune:
             out = self.data_encoder.update(t, np.arange(first_new, t.n_rows))
         lap("encoder_update")
         if self.qenc is not None:
-            self.qenc = QueryEncoder(t, self.indexes, self.hists,
+            self.qenc = QueryEncoder(t, list(indexes), hists,
                                      self.data_encoder)
         lap("rebuild")
         self.insert_seconds = secs

@@ -52,7 +52,8 @@ class QueryEncoder:
              ).astype(np.float32), device=table.device)
 
     @torch.no_grad()
-    def encode_batch(self, qv_b: tuple, pred_b, weights_b: torch.Tensor,
+    def encode_batch(self, cold, qv_b: tuple, pred_b,
+                     weights_b: torch.Tensor,
                      logk_b: torch.Tensor, rec_b: torch.Tensor, *,
                      row_scores: Optional[tuple] = None, use_de: bool = True,
                      use_stats: bool = True, use_gse: bool = True,
@@ -61,8 +62,12 @@ class QueryEncoder:
 
         ``row_scores`` — per-column (B, n) similarities from one GEMM for
         the batch — makes the pre-probe gather f32 scores instead of
-        vector tiles. The flags zero the paper's ablation feature groups."""
-        t = self.table
+        vector tiles. The flags zero the paper's ablation feature groups.
+        ``cold`` — the epoch (a ``tiered.ColdState``: table, indexes,
+        histograms) the pre-probe and the estimate read, which may be a
+        later one than the encoder was built on; the S_enc edges and the
+        data encoder stay this encoder's."""
+        t, indexes, hists = cold.table, cold.indexes, cold.hists
         b = qv_b[0].shape[0]
         n_vec = len(qv_b)
         dev = t.device
@@ -75,12 +80,12 @@ class QueryEncoder:
             for i in range(n_vec):
                 if row_scores is not None:
                     r, s = ivf.preprobe_scored(
-                        self.indexes[i], row_scores[i], t.scalars, pred_b,
+                        indexes[i], row_scores[i], t.scalars, pred_b,
                         qv_b[i], nprobe=self.probe_nprobe,
                         probe_k=self.probe_k)
                 else:
                     r, s = ivf.preprobe(
-                        self.indexes[i], t.vectors[i], t.scalars, pred_b,
+                        indexes[i], t.vectors[i], t.scalars, pred_b,
                         qv_b[i], nprobe=self.probe_nprobe,
                         probe_k=self.probe_k)
                 rates.append(r)
@@ -91,7 +96,7 @@ class QueryEncoder:
             rates = torch.full((b, n_vec), 0.5, device=dev)
             scores = torch.zeros((b, n_vec), device=dev)
         if use_gse:
-            sel = histogram.estimate_selectivity(self.hists, pred_b)
+            sel = histogram.estimate_selectivity(hists, pred_b)
         else:
             sel = torch.full((b,), 0.5, device=dev)
         enc = soft_encode(pred_b, self._edges)  # (B, M, S_ENC_BINS)

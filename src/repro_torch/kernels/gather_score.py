@@ -13,12 +13,17 @@ as the JAX package merges outside its Pallas kernel: dedup by id, then
 ``gather_score_topk`` is the entry point. A CPU tensor takes the plain
 version (``ref.gather_score_ref``); a CUDA tensor launches the CUDA kernel
 (``csrc/gather_score.cu``) or raises — there is no fallback.
-``LAUNCHES`` counts the kernel launches per variant.
+``LAUNCHES`` counts the kernel launches per variant; a thread inside
+``counted_as(counts)`` counts its launches into ``counts`` instead (the
+tiered table's compaction thread keeps its warm-up launches apart this
+way).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -27,13 +32,39 @@ from repro_torch.kernels.shapes import (
 )
 
 # kernel launches per variant ("fp32": kernel 1, "int8": kernel 2); a run
-# resets it with reset_launches() and reads it afterwards
+# resets it with reset_launches() and reads it afterwards. Two host threads
+# launch (serving and compaction), so every increment takes the lock.
 LAUNCHES = {"fp32": 0, "int8": 0}
+# launches made inside ``counted_as(PREWARM_LAUNCHES)``: the serving passes
+# compaction runs on its own thread before an epoch publish
+PREWARM_LAUNCHES = {"fp32": 0, "int8": 0}
+_count_lock = threading.Lock()
+_scope = threading.local()
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    with _count_lock:
+        for counts in (LAUNCHES, PREWARM_LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+
+
+@contextlib.contextmanager
+def counted_as(counts: dict):
+    """Count the calling thread's launches into ``counts`` (a dict with the
+    keys of ``LAUNCHES``) instead of ``LAUNCHES`` while the block runs."""
+    prev = getattr(_scope, "counts", None)
+    _scope.counts = counts
+    try:
+        yield counts
+    finally:
+        _scope.counts = prev
+
+
+def _count_launch(variant: str) -> None:
+    with _count_lock:
+        counts = getattr(_scope, "counts", None)
+        (LAUNCHES if counts is None else counts)[variant] += 1
 
 
 def _pred_fields(pred, b: int, m: int, device):
@@ -168,7 +199,7 @@ def gather_score_blocks(cand, vectors, qs, weights, scalars, lo, hi, active,
     if rc != 0:
         raise RuntimeError(f"gather_score kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES["int8" if int8 else "fp32"] += 1
+    _count_launch("int8" if int8 else "fp32")
     return out_s, out_i, out_q
 
 

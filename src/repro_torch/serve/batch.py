@@ -17,8 +17,9 @@ Port of the unsharded part of ``repro.serve.batch``:
     subset re-probes at a doubled nprobe.
 
 ``ServingEngine`` chops a request stream into batches and drives
-``BoomHQ.execute_batch``. The sharded and shard-escalation paths of the JAX
-module are not ported yet.
+``BoomHQ.execute_batch``; ``serve.queue.AsyncServingEngine`` forms batches
+from live arrivals and reports into the same ``ServeReport``. The sharded
+and shard-escalation paths of the JAX module are not ported yet.
 """
 from __future__ import annotations
 
@@ -149,6 +150,17 @@ def pad_selection(sel: np.ndarray) -> np.ndarray:
     repeating the first element (padding lanes are sliced away)."""
     bb = next_bucket(len(sel))
     return np.concatenate([sel, np.full(bb - len(sel), sel[0])])
+
+
+def warm_bucket_ladder(execute_batch, queries: list, batch_size: int) -> None:
+    """One untimed pass per power-of-two batch bucket up to
+    ``next_bucket(batch_size)``: arrival-driven serving cuts batches at many
+    sizes, and each size's first pass (allocator growth, library
+    workspaces, lazily built int8 replicas) stays out of measured serving."""
+    b = 1
+    while b <= next_bucket(batch_size) and queries:
+        execute_batch(queries[: min(b, len(queries))])
+        b <<= 1
 
 
 def compute_batch_scores(table: Table, queries: list) -> tuple:
@@ -493,19 +505,44 @@ class ServeReport:
     qps: float
     mean_recall: Optional[float] = None
     recalls: Optional[list] = None
+    # async deadline-aware serving (serve/queue.py): dispositions, latency
+    n_timed_out: int = 0
+    p50_ms: Optional[float] = None
+    p99_ms: Optional[float] = None
     # per-group scoring-path dispatch counts ({"dense": .., "candidate_local": ..})
     path_counts: Optional[dict] = None
+    # tiered streaming ingest (vectordb/tiered.py): rows inserted, hot→cold
+    # compactions completed, and the cold epoch at report time
+    n_inserted: int = 0
+    n_compactions: int = 0
+    epoch: int = 0
+    # semantic result cache (serve/semcache.py): requests resolved at
+    # submit time without execution
+    n_cache_hits: int = 0
+    # multi-tenant serving: {tenant_id: {n_queries, n_ok, n_timed_out,
+    # n_cache_hits, mean_recall, qps}}; the None key is untenanted traffic
+    tenants: Optional[dict] = None
 
     def describe(self) -> str:
         rec = f", mean recall {self.mean_recall:.3f}" \
             if self.mean_recall is not None else ""
+        lat = f", p50 {self.p50_ms:.1f}ms / p99 {self.p99_ms:.1f}ms" \
+            if self.p50_ms is not None and self.p99_ms is not None else ""
+        to = f", {self.n_timed_out} timed out" if self.n_timed_out else ""
         paths = ""
         if self.path_counts:
             paths = ", paths " + "/".join(
                 f"{name}×{cnt}" for name, cnt in sorted(
                     self.path_counts.items()))
+        ingest = f", {self.n_inserted} inserted over {self.n_compactions} " \
+            f"compactions (epoch {self.epoch})" if self.n_inserted else ""
+        cache = f", {self.n_cache_hits} cache hits" if self.n_cache_hits \
+            else ""
+        tnt = f", {len(self.tenants)} tenants" \
+            if self.tenants and len(self.tenants) > 1 else ""
         return (f"{self.n_queries} queries in {self.seconds:.2f}s over "
-                f"{self.n_batches} batches ({self.qps:.1f} QPS{rec}{paths})")
+                f"{self.n_batches} batches ({self.qps:.1f} QPS{rec}{lat}{to}"
+                f"{paths}{ingest}{cache}{tnt})")
 
 
 class ServingEngine:

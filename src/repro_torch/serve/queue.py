@@ -1,0 +1,511 @@
+"""Async deadline-aware MHQ serving: queue → batch formation → execution.
+
+Port of ``repro.serve.queue``. ``ServingEngine`` chops a PRE-COLLECTED
+query list into fixed batches; live traffic arrives one request at a time
+and each request may carry a latency budget. This module is the front half
+of the serving pipeline for that traffic:
+
+  request queue  →  deadline-aware batch formation  →  batched execution
+
+* ``BatchFormer`` is the synchronous policy core (injectable clock, so
+  tests drive it under a fake clock): a batch CUTS when ``batch_size``
+  requests are pending (cut-on-full) or when the oldest pending request has
+  waited ``max_wait`` seconds (cut-on-age). A request whose deadline passes
+  while it is queued expires — ``timed_out``, never executed. FIFO order
+  holds within every batch.
+* ``AsyncServingEngine`` is the asyncio front-end: concurrent ``submit()``
+  callers share formed batches; one drainer task cuts batches and runs each
+  through ``BoomHQ.execute_batch`` on ONE worker thread, so the event loop
+  keeps accepting arrivals while a batch runs on the card. Over a tiered
+  table a ``CompactionScheduler`` compacts on a second thread.
+
+Dispositions and latency percentiles land in ``ServeReport``
+(``n_timed_out``, ``p50_ms``/``p99_ms``).
+"""
+from __future__ import annotations
+
+import asyncio
+import concurrent.futures
+import dataclasses
+import functools
+import time
+from typing import Callable, Optional
+
+import numpy as np
+
+from repro_torch.core.executor import recall_at_k
+from repro_torch.core.query import MHQ
+from repro_torch.serve.batch import ServeReport
+
+PENDING = "pending"
+OK = "ok"
+TIMED_OUT = "timed_out"
+FAILED = "failed"  # execution raised; the exception propagates to submit()
+
+_DEFAULT = object()  # sentinel: "use the engine's default timeout"
+
+
+@dataclasses.dataclass
+class ServeRequest:
+    """One enqueued query: arrival instant, optional ABSOLUTE deadline, and
+    (once resolved) disposition and result."""
+
+    query: MHQ
+    seq: int
+    arrival: float
+    deadline: Optional[float] = None  # clock instant; None = no deadline
+    status: str = PENDING  # PENDING | OK | TIMED_OUT | FAILED
+    result: Optional[tuple] = None  # (ids, scores) when status == OK
+    done: float = 0.0
+    cache_hit: bool = False  # resolved by the semantic cache, no execution
+    # tiered serving: the immutable snapshot stamped on the whole batch at
+    # CUT time, so an epoch swap between formation and execution can never
+    # mix states within a batch
+    snapshot: Optional[object] = None
+
+    @property
+    def latency(self) -> float:
+        """Queue wait + execution for OK; time-to-expiry for TIMED_OUT."""
+        return self.done - self.arrival
+
+
+class BatchFormer:
+    """Deadline-aware batch formation over a FIFO request queue.
+
+    Synchronous policy core with an injectable ``clock``: the async engine
+    drives it with wall time, tests with a fake clock."""
+
+    def __init__(self, *, batch_size: int = 32, max_wait: float = 0.05,
+                 clock: Callable[[], float] = time.monotonic,
+                 snapshot_fn: Optional[Callable[[], object]] = None):
+        if batch_size < 1 or max_wait < 0.0:
+            raise ValueError(f"batch_size {batch_size} < 1 or max_wait "
+                             f"{max_wait} < 0")
+        self.batch_size = batch_size
+        self.max_wait = max_wait
+        self.clock = clock
+        # tiered serving: called ONCE per cut; the snapshot it returns is
+        # stamped on every request of the formed batch
+        self.snapshot_fn = snapshot_fn
+        self._pending: list = []
+        self._seq = 0
+
+    def __len__(self) -> int:
+        return len(self._pending)
+
+    def admit(self, query: MHQ, *, timeout: Optional[float] = None,
+              now: Optional[float] = None) -> ServeRequest:
+        """Stamp (but do NOT enqueue) the next request — sequence number,
+        arrival instant and absolute deadline. A front-end that resolves a
+        request without a batch (a semantic-cache hit) uses this, so the
+        request still holds its place in the serve order."""
+        now = self.clock() if now is None else now
+        r = ServeRequest(
+            query=query, seq=self._seq, arrival=now,
+            deadline=None if timeout is None else now + timeout)
+        self._seq += 1
+        return r
+
+    def submit(self, query: MHQ, *, timeout: Optional[float] = None,
+               now: Optional[float] = None) -> ServeRequest:
+        """Enqueue one request; ``timeout`` (seconds from now) sets its
+        absolute deadline."""
+        r = self.admit(query, timeout=timeout, now=now)
+        self._pending.append(r)
+        return r
+
+    def expire(self, now: Optional[float] = None) -> list:
+        """Remove (and mark ``timed_out``) every pending request whose
+        deadline has passed (strictly: ``now > deadline``)."""
+        now = self.clock() if now is None else now
+        dead = [r for r in self._pending
+                if r.deadline is not None and now > r.deadline]
+        if dead:
+            gone = {r.seq for r in dead}
+            self._pending = [r for r in self._pending if r.seq not in gone]
+            for r in dead:
+                r.status = TIMED_OUT
+                r.done = now
+        return dead
+
+    def poll(self, now: Optional[float] = None, *, flush: bool = False
+             ) -> tuple:
+        """-> (batch | None, expired).
+
+        Expiry runs first (expired requests never enter a batch); then a
+        batch of the OLDEST ≤ ``batch_size`` requests cuts when the queue
+        is full, the oldest request has waited ``max_wait``, or ``flush``
+        forces the remainder out."""
+        now = self.clock() if now is None else now
+        expired = self.expire(now)
+        batch = None
+        if self._pending and (
+                len(self._pending) >= self.batch_size
+                or now - self._pending[0].arrival >= self.max_wait
+                or flush):
+            batch = self._pending[: self.batch_size]
+            self._pending = self._pending[self.batch_size:]
+            if self.snapshot_fn is not None:
+                snap = self.snapshot_fn()  # snapshot-at-cut: one per batch
+                for r in batch:
+                    r.snapshot = snap
+        return batch, expired
+
+    def drain(self) -> list:
+        """Remove and return every pending request (engine shutdown)."""
+        out, self._pending = self._pending, []
+        return out
+
+    def next_event(self, now: Optional[float] = None) -> Optional[float]:
+        """Earliest instant a poll could act — the oldest request's
+        cut-on-age instant or the soonest deadline — or None when idle."""
+        if not self._pending:
+            return None
+        t = self._pending[0].arrival + self.max_wait
+        for r in self._pending:
+            if r.deadline is not None:
+                t = min(t, r.deadline)
+        return t
+
+
+class CompactionScheduler:
+    """Background hot→cold compaction on its OWN single worker thread, so no
+    batch waits in line behind a compaction (the two still share the
+    interpreter lock and the card). At most one runs at a time;
+    ``maybe_schedule()`` is cheap and safe from any thread (ingest calls it
+    on every insert that fills the hot segment, the drainer between
+    batches)."""
+
+    def __init__(self, tiered):
+        self.tiered = tiered
+        self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        self._inflight: Optional[concurrent.futures.Future] = None
+        self.n_scheduled = 0
+
+    def maybe_schedule(self) -> bool:
+        """Submit one compaction if the hot segment needs it and none is in
+        flight. -> whether one was submitted."""
+        if self._inflight is not None and not self._inflight.done():
+            return False
+        if not self.tiered.needs_compaction():
+            return False
+        self._inflight = self._pool.submit(self.tiered.compact)
+        self.n_scheduled += 1
+        return True
+
+    def drain(self) -> None:
+        """Wait out the in-flight compaction and stop the worker."""
+        if self._inflight is not None:
+            self._inflight.result()
+            self._inflight = None
+        self._pool.shutdown(wait=True)
+
+
+class AsyncServingEngine:
+    """Asyncio deployment front-end over a fitted ``BoomHQ``.
+
+    ``submit()`` coroutines from any number of callers enqueue into one
+    ``BatchFormer``; a single drainer task cuts batches and executes each
+    through ``BoomHQ.execute_batch`` on one worker thread, so arrivals keep
+    landing while a batch runs. Expired requests resolve ``timed_out`` and
+    are never executed. With a ``semcache`` (``serve.semcache``), a fresh
+    repeat resolves at submit and a miss populates after its batch, stamped
+    with the batch snapshot's token."""
+
+    def __init__(self, boomhq, *, batch_size: int = 32,
+                 max_wait: float = 0.05,
+                 default_timeout: Optional[float] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 semcache=None):
+        self.bq = boomhq
+        self.former = BatchFormer(batch_size=batch_size, max_wait=max_wait,
+                                  clock=clock)
+        self.semcache = semcache
+        self.default_timeout = default_timeout
+        self.clock = clock
+        self._futures: dict = {}
+        self._event: Optional[asyncio.Event] = None
+        self._task: Optional[asyncio.Task] = None
+        self._served: list = []
+        self._n_batches = 0
+        self._t0: Optional[float] = None
+        self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        self._compactor: Optional[CompactionScheduler] = None
+
+    # -- lifecycle ---------------------------------------------------------
+
+    async def start(self) -> "AsyncServingEngine":
+        if self._task is None:
+            self._event = asyncio.Event()
+            # ONE worker thread: batches execute strictly in formation
+            # order, and a late stop() flush can never race the drainer
+            # into two concurrent execute_batch calls
+            self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+            if getattr(self.bq, "tiered", None) is not None:
+                # snapshot-at-cut, and compaction on its own worker
+                self.former.snapshot_fn = self.bq.tiered.snapshot
+                self._compactor = CompactionScheduler(self.bq.tiered)
+                self.bq._compactor = self._compactor
+            self._task = asyncio.get_running_loop().create_task(self._drain())
+        return self
+
+    async def stop(self, *, flush: bool = True) -> None:
+        """Serve (or expire) everything still queued, then stop the drainer
+        and tear down the worker threads."""
+        if self._task is None:
+            return
+        while flush and (len(self.former) or not self._all_resolved()):
+            self._event.set()
+            await asyncio.sleep(1e-3)
+            batch, expired = self.former.poll(flush=True)
+            self._resolve_expired(expired)
+            if batch:
+                await self._execute(batch)
+        self._task.cancel()
+        try:
+            await self._task
+        except asyncio.CancelledError:
+            pass
+        self._task = None
+        # flush=False: fail everything never formed into a batch (and any
+        # straggler future) so no submit() caller is left hanging; the
+        # in-flight batch's futures were failed by _execute's cancellation
+        # branch
+        for r in self.former.drain():
+            r.status = FAILED
+            r.done = self.clock()
+            self._finish(r, exc=asyncio.CancelledError("engine stopped"))
+        for seq in list(self._futures):
+            fut = self._futures.pop(seq)
+            if not fut.done():
+                fut.set_exception(asyncio.CancelledError("engine stopped"))
+        # wait=False: do not block the event loop on a discarded batch
+        self._pool.shutdown(wait=False, cancel_futures=True)
+        self._pool = None
+        if self._compactor is not None:
+            # let the in-flight compaction land (it owns published state)
+            await asyncio.get_running_loop().run_in_executor(
+                None, self._compactor.drain)
+            if getattr(self.bq, "_compactor", None) is self._compactor:
+                self.bq._compactor = None
+            self._compactor = None
+
+    async def __aenter__(self) -> "AsyncServingEngine":
+        return await self.start()
+
+    async def __aexit__(self, *exc) -> None:
+        await self.stop()
+
+    def _all_resolved(self) -> bool:
+        return not self._futures
+
+    # -- request path ------------------------------------------------------
+
+    def _cache_token(self) -> tuple:
+        """The CURRENT freshness token: ``(epoch, n_rows)`` of the tiered
+        snapshot (an epoch bump or any hot insert changes it), or
+        ``(0, table.n_rows)`` untiered. One snapshot pointer read."""
+        tiered = getattr(self.bq, "tiered", None)
+        if tiered is not None:
+            snap = tiered.snapshot()
+            return (snap.epoch, snap.n_rows)
+        return (0, self.bq.table.n_rows)
+
+    async def submit(self, query: MHQ, *, timeout=_DEFAULT) -> ServeRequest:
+        """Enqueue one query and await its disposition: the resolved
+        ``ServeRequest`` (``status`` ``"ok"`` with ``result`` set, or
+        ``"timed_out"`` with ``result`` None; a failed batch re-raises
+        here). With a semantic cache, a fresh repeat resolves here —
+        never queued, never executed, ``cache_hit`` set."""
+        await self.start()
+        tmo = self.default_timeout if timeout is _DEFAULT else timeout
+        # fold the tenant namespace BEFORE the cache key is computed, so
+        # the implicit conjunct is part of the predicate signature
+        if getattr(query, "tenant_id", None) is not None and \
+                hasattr(self.bq, "resolve_tenant"):
+            query = self.bq.resolve_tenant(query)
+        if self.semcache is not None:
+            cached = self.semcache.lookup(query, self._cache_token())
+            if cached is not None:
+                r = self.former.admit(query, timeout=tmo)
+                if self._t0 is None:
+                    self._t0 = r.arrival
+                r.status = OK
+                r.result = cached
+                r.cache_hit = True
+                r.done = self.clock()
+                self._served.append(r)
+                return r
+        r = self.former.submit(query, timeout=tmo)
+        if self._t0 is None:
+            self._t0 = r.arrival
+        fut = asyncio.get_running_loop().create_future()
+        self._futures[r.seq] = fut
+        self._event.set()
+        await fut
+        return r
+
+    async def _drain(self) -> None:
+        while True:
+            if self._compactor is not None:
+                self._compactor.maybe_schedule()
+            batch, expired = self.former.poll()
+            self._resolve_expired(expired)
+            if batch:
+                await self._execute(batch)
+                continue  # the queue may already hold the next full batch
+            nxt = self.former.next_event()
+            try:
+                wait = None if nxt is None \
+                    else max(1e-4, nxt - self.clock())
+                await asyncio.wait_for(self._event.wait(), wait)
+            except asyncio.TimeoutError:
+                pass
+            self._event.clear()
+
+    async def _execute(self, batch: list) -> None:
+        # deadline enforcement does not stop at cut time: a request whose
+        # deadline passed while its batch waited behind an in-flight one
+        # resolves timed_out here (the same strict `now > deadline` rule
+        # as BatchFormer.expire)
+        now = self.clock()
+        late = [r for r in batch
+                if r.deadline is not None and now > r.deadline]
+        if late:
+            for r in late:
+                r.status = TIMED_OUT
+                r.done = now
+                self._finish(r)
+            batch = [r for r in batch if r.status == PENDING]
+            if not batch:
+                return
+        loop = asyncio.get_running_loop()
+        queries = [r.query for r in batch]
+        if batch[0].snapshot is not None:
+            # the whole batch shares the snapshot stamped at cut time
+            run = functools.partial(
+                self.bq.execute_batch, queries, snapshot=batch[0].snapshot)
+        else:
+            run = functools.partial(self.bq.execute_batch, queries)
+        exec_fut = loop.run_in_executor(self._pool, run)
+        try:
+            results = await asyncio.shield(exec_fut)
+        except asyncio.CancelledError:
+            # stop(flush=False) cancelled the drainer mid-batch: fail the
+            # in-flight batch's futures, swallow the worker's eventual
+            # outcome, finish cancelling
+            exec_fut.add_done_callback(
+                lambda f: f.cancelled() or f.exception())
+            now = self.clock()
+            for r in batch:
+                r.status = FAILED
+                r.done = now
+                self._finish(r, exc=asyncio.CancelledError("engine stopped"))
+            raise
+        except Exception as exc:  # noqa: BLE001 — a failed batch fails ITS
+            # requests (submit() re-raises) and never kills the drainer,
+            # which would strand every later future
+            now = self.clock()
+            self._n_batches += 1
+            for r in batch:
+                r.status = FAILED
+                r.done = now
+                self._finish(r, exc=exc)
+            return
+        now = self.clock()
+        self._n_batches += 1
+        token = None
+        if self.semcache is not None:
+            snap = batch[0].snapshot
+            # the token of the state the batch executed under (its
+            # cut-time snapshot), not the current one: an epoch swap
+            # mid-flight leaves these entries born stale
+            token = (snap.epoch, snap.n_rows) if snap is not None \
+                else (0, self.bq.table.n_rows)
+        for r, res in zip(batch, results):
+            r.status = OK
+            r.result = res
+            r.done = now
+            if token is not None:
+                self.semcache.insert(r.query, token, res[0], res[1])
+            self._finish(r)
+
+    def _resolve_expired(self, expired: list) -> None:
+        for r in expired:
+            self._finish(r)
+
+    def _finish(self, r: ServeRequest, *, exc: Optional[BaseException] = None
+                ) -> None:
+        self._served.append(r)
+        fut = self._futures.pop(r.seq, None)
+        if fut is not None and not fut.done():
+            if exc is not None:
+                fut.set_exception(exc)
+            else:
+                fut.set_result(r)
+
+    # -- accounting --------------------------------------------------------
+
+    def report(self, *, gt_ids: Optional[dict] = None) -> ServeReport:
+        """Dispositions and latency over everything served so far.
+        ``gt_ids``: optional ``{seq: ground-truth id array}`` for recall
+        over the OK requests."""
+        served = sorted(self._served, key=lambda r: r.seq)
+        ok = [r for r in served if r.status == OK]
+        lats = np.asarray([r.latency for r in ok], np.float64)
+        t_end = max((r.done for r in served), default=0.0)
+        seconds = max(t_end - (self._t0 or 0.0), 1e-9) if served else 0.0
+        recalls = None
+        if gt_ids is not None:
+            recalls = [recall_at_k(r.result[0], gt_ids[r.seq])
+                       for r in ok if r.seq in gt_ids]
+        tiered = getattr(self.bq, "tiered", None)
+        tenants: dict = {}
+        for r in served:
+            t = getattr(r.query, "tenant_id", None)
+            d = tenants.setdefault(t, {
+                "n_queries": 0, "n_ok": 0, "n_timed_out": 0,
+                "n_cache_hits": 0, "recalls": []})
+            d["n_queries"] += 1
+            d["n_ok"] += r.status == OK
+            d["n_timed_out"] += r.status == TIMED_OUT
+            d["n_cache_hits"] += r.cache_hit
+            if r.status == OK and gt_ids is not None and r.seq in gt_ids:
+                d["recalls"].append(recall_at_k(r.result[0], gt_ids[r.seq]))
+        for d in tenants.values():
+            rs = d.pop("recalls")
+            d["mean_recall"] = sum(rs) / len(rs) if rs else None
+            d["qps"] = d["n_ok"] / seconds if served else 0.0
+        return ServeReport(
+            n_queries=len(served),
+            n_batches=self._n_batches,
+            seconds=seconds,
+            qps=len(ok) / seconds if served else 0.0,
+            mean_recall=float(np.mean(recalls)) if recalls else None,
+            recalls=recalls,
+            n_timed_out=sum(r.status == TIMED_OUT for r in served),
+            p50_ms=float(np.percentile(lats, 50) * 1e3) if len(lats) else None,
+            p99_ms=float(np.percentile(lats, 99) * 1e3) if len(lats) else None,
+            n_inserted=0 if tiered is None else tiered.n_inserted,
+            n_compactions=0 if tiered is None else tiered.n_compactions,
+            epoch=0 if tiered is None else tiered.epoch,
+            n_cache_hits=sum(r.cache_hit for r in served),
+            tenants=tenants or None,
+        )
+
+
+async def serve_stream(engine: AsyncServingEngine, queries: list, *,
+                       arrival_gaps: Optional[list] = None,
+                       timeout=_DEFAULT) -> list:
+    """Submit a query stream with the given inter-arrival gaps (seconds;
+    None = all at once) and await every disposition. -> the resolved
+    requests in submission order (the open-loop submitter for Poisson
+    traffic)."""
+    async with engine:
+        tasks = []
+        for i, q in enumerate(queries):
+            if arrival_gaps is not None and i > 0:
+                await asyncio.sleep(arrival_gaps[i - 1])
+            tasks.append(asyncio.ensure_future(
+                engine.submit(q, timeout=timeout)))
+        return list(await asyncio.gather(*tasks))

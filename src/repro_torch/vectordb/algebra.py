@@ -244,6 +244,20 @@ def _resolve(clauses: list, schema, m: int | None) -> tuple:
     return out, m
 
 
+def constrain(pred, cond: Cond, schema=None, *, m: int | None = None):
+    """Fold an atomic condition conjunctively into EVERY clause of an
+    already-compiled predicate (``Predicates`` or ``PredicateSet``) — the
+    compile step of implicit constraints such as tenant namespaces. The
+    column resolves as in :func:`compile` (a name against
+    ``schema.scalar_cols`` or an index against ``m``)."""
+    from repro_torch.vectordb.predicates import fold_conjunct
+
+    resolved, _ = _resolve([{cond.col: (cond.lo, cond.hi)}], schema,
+                           m if m is not None else pred.active.shape[-1])
+    ((idx, (lo, hi)),) = resolved[0].items()
+    return fold_conjunct(pred, idx, lo, hi)
+
+
 def compile(expr: Expr, schema=None, *, m: int | None = None,
             n_clauses: int | None = None, device=None) -> PredicateSet:
     """Compile an expression tree to a ``PredicateSet`` (see module doc)."""

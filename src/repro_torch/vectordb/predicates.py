@@ -198,6 +198,29 @@ def take(pred: PredicateLike, idx) -> PredicateLike:
                  for f in dataclasses.fields(pred)})
 
 
+def fold_conjunct(pred: PredicateLike, col_idx: int, lo: float,
+                  hi: float) -> PredicateLike:
+    """Intersect ``[lo, hi]`` on column ``col_idx`` into EVERY clause.
+
+    How an implicit constraint (a tenant namespace) compiles into an
+    existing predicate: the clause count, bucket and ``clause_valid`` stay
+    as they are, so batched group keys do not change. A clause whose
+    intersection is empty ends with ``lo > hi`` on an active column, which
+    :func:`eval_mask` evaluates as matching nothing. Idempotent. Works on
+    any leading (batch) dims; returns new tensors of the same type."""
+    active = pred.active.clone()
+    los = pred.lo.to(torch.float32).clone()
+    his = pred.hi.to(torch.float32).clone()
+    active[..., col_idx] = True
+    los[..., col_idx] = torch.clamp(los[..., col_idx],
+                                    min=float(np.float32(lo)))
+    his[..., col_idx] = torch.clamp(his[..., col_idx],
+                                    max=float(np.float32(hi)))
+    if isinstance(pred, PredicateSet):
+        return PredicateSet(active, los, his, pred.clause_valid)
+    return Predicates(active, los, his)
+
+
 def eval_mask(pred: PredicateLike, scalars: torch.Tensor) -> torch.Tensor:
     """DNF mask. ``scalars`` is ``(n, M)`` shared by every query, or
     ``(..., n, M)`` with the predicate's leading (batch) dims — e.g. each

@@ -104,8 +104,8 @@ def test_fused_features_match_jax(pair):
     jbq, tbq, jtest, ttest, _ = pair
     for qj, qt in zip(jtest, ttest):
         np.testing.assert_allclose(
-            tbq._features_batch([qt])[0].numpy(), jbq._features(qj),
-            atol=1e-4)
+            tbq._features_batch([qt], tbq.state)[0].numpy(),
+            jbq._features(qj), atol=1e-4)
 
 
 def test_optimize_batch_gives_the_same_plans(pair):

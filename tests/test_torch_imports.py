@@ -53,7 +53,8 @@ def test_port_covers_the_slice_layout():
                 "core/query_encoder.py", "core/rewriter.py",
                 "core/boomhq.py", "serve/batch.py", "common/nn.py",
                 "train/optimizer.py", "bench/augment.py",
-                "bench/datasets.py", "bench/queries.py"):
+                "bench/datasets.py", "bench/queries.py",
+                "vectordb/tiered.py", "serve/queue.py", "serve/semcache.py"):
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
 

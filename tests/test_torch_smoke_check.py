@@ -6,6 +6,7 @@ untied ids of a result and requires the check to refuse it. The plain
 result here is ``ref.masked_topk_ref`` over a small table whose rows 0 and
 1 are equal, so their scores are a real tie.
 """
+import dataclasses
 import importlib.util
 import pathlib
 
@@ -337,3 +338,208 @@ def test_search_check_refuses_a_wrong_result(smoke, sift_search):
         with pytest.raises(AssertionError, match="does not tie"):
             smoke._held_to_plain(name, scores, bad, plain[1], plain[0],
                                  rescore)
+
+
+# ---------------------------------------------------------------------------
+# phase 9's checks (tiers, tenants, the cache)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tenant_part(smoke):
+    """(300-row ``part`` with the tenant column, 32 tenanted queries)."""
+    from repro_torch.bench import datasets, queries as qgen
+
+    t = smoke.tenant_table(datasets.make("part", rows=300, seed=0,
+                                         device="cpu"))
+    wl = qgen.gen_workload(t, smoke.BATCH, n_vec_used=2, seed=3)
+    return t, [dataclasses.replace(q, tenant_id=i % smoke.TENANTS)
+               for i, q in enumerate(wl)]
+
+
+def test_tenant_table_is_the_benchmark_s(smoke, tenant_part):
+    """run_semcache's tenant column (its generator's first draw), the
+    base columns shared, and the trace its generator draws next."""
+    t, _ = tenant_part
+    rng = np.random.default_rng(11)
+    want = rng.integers(0, 3, 300).astype(np.float32)
+    np.testing.assert_array_equal(t.scalars[:, -1].numpy(), want)
+    assert t.schema.scalar_cols[-1].name == "tenant" and t.schema.n_scalar == 5
+    trace = list(range(16)) + list(rng.integers(0, 16, 64))
+    assert smoke.semcache_draws(300)[1] == trace
+
+
+def test_hot_case_is_what_hot_topk_launches(smoke, tenant_part,
+                                           monkeypatch):
+    """Phase 3's hot case holds exactly the arguments ``tiered._hot_topk``
+    passes the gather kernel for the same view and queries."""
+    from repro_torch.core.executor import K_BUCKET_FLOOR, next_bucket
+    from repro_torch.kernels import gather_score as gs
+    from repro_torch.vectordb import predicates, tiered
+
+    t, qs = tenant_part
+    ((label, variant, a),) = smoke.hot_case(t, qs, "cpu")
+    assert variant == "fp32" and "S=2048" in label
+    seen = {}
+    monkeypatch.setattr(gs, "gather_score_topk", lambda *args, **kw: (
+        seen.update(args=args, kw=kw)
+        or (torch.zeros((32, kw["k"]), dtype=torch.int32),) * 3))
+    view = tiered.HotView(
+        tuple(v.numpy() for v in a["vectors"]), a["scalars"].numpy(),
+        smoke.HOT_CASE_ROWS, t.n_rows, "cpu")
+    tiered._hot_topk(tiered.view_args(view), a["qs"], a["w"], a["pred"],
+                     k=next_bucket(10, K_BUCKET_FLOOR), metric="dot")
+    cand, vecs, q_b, w, scal, pred = seen["args"]
+    assert torch.equal(cand, a["cand"]) and torch.equal(scal, a["scalars"])
+    assert (cand[:, smoke.HOT_CASE_ROWS:] == -1).all()
+    assert (cand[:, :smoke.HOT_CASE_ROWS] >= 0).all()
+    for x, y in zip(vecs + q_b, a["vectors"] + a["qs"]):
+        assert torch.equal(x, y)
+    assert torch.equal(w, a["w"]) and seen["kw"]["k"] == a["k"] == 16
+    for f in ("active", "lo", "hi"):
+        assert torch.equal(getattr(pred, f), getattr(a["pred"], f))
+    # the tenant equality is folded into every clause: a row qualifies
+    # iff it passes the query's own predicate and holds its tenant
+    assert predicates.as_set(a["pred"]).active[..., -1].all()
+    got = predicates.eval_mask(a["pred"], t.scalars)
+    for j, q in enumerate(qs[:32]):
+        own = predicates.eval_mask(q.predicates, t.scalars)
+        assert torch.equal(got[j], own & (t.scalars[:, -1] == q.tenant_id))
+
+
+def _audited(smoke):
+    from repro_torch.serve.semcache import SemanticCache
+
+    cache = SemanticCache(eps=0.0)
+    return cache, smoke.audit_cache(cache)
+
+
+def _cq(tenant=0, vec=(0.0, 1.0)):
+    from repro_torch.core.query import MHQ
+    from repro_torch.vectordb.predicates import Predicates
+
+    return MHQ((torch.tensor(vec),), (1.0,),
+               Predicates.from_conditions(2, {0: (0.0, 1.0)}, device="cpu"),
+               k=3, tenant_id=tenant)
+
+
+@pytest.mark.parametrize("fault", [None, "stale_epoch", "stale_hot_insert",
+                                   "wrong_replay", "other_query"])
+def test_cache_event_check(smoke, fault):
+    cache, events = _audited(smoke)
+    q = _cq()
+    cache.insert(q, (0, 100), np.arange(3), np.zeros(3, np.float32))
+    assert cache.lookup(q, (0, 100)) is not None
+    assert cache.lookup(_cq(vec=(1.0, 0.0)), (0, 100)) is None
+    if fault is None:
+        assert smoke.check_cache_events(events, "x") == 1
+        return
+    kind, eq, token, res = events[1]
+    if fault == "stale_epoch":  # the hit served under the next epoch
+        events[1] = (kind, eq, (1, 100), res)
+    elif fault == "stale_hot_insert":  # ... or after one hot row
+        events[1] = (kind, eq, (0, 101), res)
+    elif fault == "wrong_replay":
+        events[1] = (kind, eq, token, (res[0][::-1].copy(), res[1]))
+    else:  # a hit for a query no miss stored
+        events[1] = (kind, _cq(vec=(1.0, 0.0)), token, res)
+    with pytest.raises(AssertionError,
+                       match="replay" if fault == "wrong_replay" else "stale"):
+        smoke.check_cache_events(events, "x")
+
+
+def test_tenant_id_check_refuses_another_tenant_s_row(smoke):
+    tcol = np.array([0, 1, 2, 0, 1, 2], np.float32)
+    good = [(np.array([0, 3, -1]), None), (np.array([4, 1]), None)]
+    smoke.check_tenant_ids(good, [0, 1], tcol, "x")
+    smoke.check_tenant_ids([(np.array([5]), None)], [None], tcol, "x")
+    for bad in ([(np.array([0, 4]), None)], [(np.array([0, 6]), None)]):
+        with pytest.raises(AssertionError, match="another tenant"):
+            smoke.check_tenant_ids(bad, [0], tcol, "x")
+
+
+def test_missed_hot_row_check(smoke):
+    oracle_i = np.array([12, 3, 11, 5])
+    oracle_s = np.array([9.0, 8.0, 7.0, 6.0], np.float32)
+    served = (np.array([12, 3, 11, 5]), oracle_s)
+    assert smoke.missed_hot_rows(*served, oracle_i, oracle_s, 10) == []
+    # hot row 11 dropped for a cold row: refused
+    got = (np.array([12, 3, 5, 4]), np.array([9, 8, 6, 5.5], np.float32))
+    assert smoke.missed_hot_rows(*got, oracle_i, oracle_s, 10) == [11]
+    # a cold row dropped is no hot miss
+    got = (np.array([12, 3, 11, 7]), np.array([9, 8, 7, 5.9], np.float32))
+    assert smoke.missed_hot_rows(*got, oracle_i, oracle_s, 10) == []
+    # hot row 11 tied with the served k-th: the merge may keep the other
+    got = (np.array([12, 3, 5, 4]), np.array([9, 8, 6, 7.0], np.float32))
+    assert smoke.missed_hot_rows(*got, oracle_i, oracle_s, 10) == []
+
+
+def test_snapshot_topk_is_the_tiered_oracle(smoke, tenant_part):
+    """``snapshot_topk`` over a snapshot with two hot views against
+    ``tests/oracle.tiered_brute_force_topk`` (float64)."""
+    from oracle import tiered_brute_force_topk
+
+    from repro_torch.vectordb import histogram, ivf
+    from repro_torch.vectordb.predicates import fold_conjunct
+    from repro_torch.vectordb.tiered import TieredTable
+
+    t, qs = tenant_part
+    tt = TieredTable(t, [ivf.build(v, 4) for v in t.vectors],
+                     histogram.build(t.scalars), hot_capacity=40)
+    tt.insert(*smoke.tenant_skewed_insert(t, 50, 5))  # sealed + active
+    snap = tt.snapshot()
+    assert len(snap.hot_views) == 2 and snap.n_rows == 350
+    folded = [dataclasses.replace(q, predicates=fold_conjunct(
+        q.predicates, 4, float(q.tenant_id), float(q.tenant_id)))
+        for q in qs[:20]]
+    ids, scores = smoke.snapshot_topk(snap, folded)
+    segs = [([v.numpy() for v in t.vectors], t.scalars.numpy())] + [
+        ([b[: v.count] for b in v.np_vectors], v.np_scalars[: v.count])
+        for v in snap.hot_views]
+    hot_seen = 0
+    for q, i, s in zip(folded, ids, scores):
+        want_i, want_s, _ = tiered_brute_force_topk(
+            segs, "dot", [x.numpy() for x in q.query_vectors], q.weights,
+            q.predicates, q.k)
+        np.testing.assert_array_equal(i, want_i)
+        live = want_i >= 0
+        np.testing.assert_allclose(s[live], want_s[live], rtol=1e-5,
+                                   atol=1e-4)
+        hot_seen += int((i >= 300).sum())
+    assert hot_seen > 0
+
+
+@pytest.mark.parametrize("epochs,final,ok", [
+    ([0, 0, 1, 4, 9], 9, True),
+    ([3, 9], 9, True),
+    ([0, 0, 0], 0, False),  # the stream never crossed a swap
+    ([0, 1], 9, False),  # no batch ran on the final epoch
+])
+def test_epochs_served_check(smoke, epochs, final, ok):
+    if ok:
+        smoke.check_epochs_served(epochs, final, "x")
+    else:
+        with pytest.raises(AssertionError, match="across a swap"):
+            smoke.check_epochs_served(epochs, final, "x")
+
+
+def test_count_launches_counts_only_its_window(smoke):
+    """Launches before a window are not counted, each window's add up,
+    and the compaction warm-up's go apart."""
+    from repro_torch.kernels import gather_score as gs
+
+    def serve(n_fp32, n_prewarm):
+        for _ in range(n_fp32):
+            gs._count_launch("fp32")
+        with gs.counted_as(gs.PREWARM_LAUNCHES):
+            for _ in range(n_prewarm):
+                gs._count_launch("fp32")
+        gs._count_launch("int8")
+        return "done"
+
+    counts = {n: {"fp32": 0, "int8": 0} for n in ("serving", "prewarm")}
+    serve(5, 5)  # a comparison before the window
+    assert smoke.count_launches(lambda: serve(3, 1), counts) == "done"
+    serve(7, 0)  # and one between the windows
+    smoke.count_launches(lambda: serve(2, 4), counts)
+    assert counts == {"serving": {"fp32": 5, "int8": 2},
+                      "prewarm": {"fp32": 5, "int8": 0}}

@@ -24,6 +24,8 @@ State is built by the JAX package, carried across with
   ``tests/test_core.py`` floor (recall >= 0.5 after 100 inserted rows) on
   the port's own fit, graphs included.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -434,11 +436,13 @@ def test_insert_grows_every_structure_as_jax(inserted):
 def test_batched_executor_of_the_old_table_is_rebuilt(inserted):
     _, tbq, *_ = inserted
     stale = tbq._batched_executor()
-    tbq.table = Table(tbq.table.schema, tbq.table.vectors, tbq.table.scalars)
+    state = tbq.state
+    tbq.state = dataclasses.replace(state, table=Table(
+        state.table.schema, state.table.vectors, state.table.scalars))
     try:
         assert tbq._batched_executor() is not stale
     finally:
-        tbq.table = stale.table
+        tbq.state = state
         tbq._batched = stale
 
 
