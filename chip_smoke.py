@@ -36,10 +36,15 @@ Phases (any failure raises and exits non-zero):
      hot view as ``tiered._hot_topk`` scores it (B=32, S=2,048 slots
      with the 548 past the view's 1,500 rows at -1, rows from the view's
      own buffer, both columns weighted, predicates folded on a fifth
-     scalar column, the tenant, k=16). Full-table scans of column 0: ``ops.masked_topk`` (dot, l2)
-     and ``ops.int8_masked_topk`` on ``table.quantized(0)``, k ∈ {10, 128},
-     conjunctive predicates at ≈1%, ≈10% and 100% selectivity and one over
-     all M columns (≈12.5%);
+     scalar column, the tenant, k=16), and the per-shard probe of
+     ``distributed.sharded_ivf_topk`` (B=32 queries × 4 logical shards
+     folded into 128 rows, each row the 2,048 slots
+     ``legalize_for_shard(max_scan=8192, n_shards=4)`` gives, probed in
+     its own shard's 32-cluster index and globalized, both columns
+     weighted, a one-clause DNF, k=32). Full-table scans of column 0:
+     ``ops.masked_topk`` (dot, l2) and ``ops.int8_masked_topk`` on
+     ``table.quantized(0)``, k ∈ {10, 128}, conjunctive predicates at
+     ≈1%, ≈10% and 100% selectivity and one over all M columns (≈12.5%);
   4. the main path: fit BoomHQ (default graph tier, the quickstart's
      encoder and rewriter step budgets, labels without the per-column trim
      as in the tests' fitted fixture) on a mixed conjunctive + DNF
@@ -132,10 +137,28 @@ Phases (any failure raises and exits non-zero):
      and read after each serving run (the engine runs of (a), and (b)'s
      pass before the stream, the stream and the pass after it); the
      compaction thread's warm-up launches are counted apart, and the
-     oracle and ``default_plan`` comparisons are not counted.
+     oracle and ``default_plan`` comparisons are not counted;
+ 10. logical shards, run after phase 6 and before phase 7 on phase 4's
+     instance: for S ∈ {1, 2, 4} (``bind_shards(S)``; S=1 is the
+     unsharded path) the 256 serving queries through
+     ``ServingEngine(batch_size=32)`` under the default cost model and
+     ``CostModel(force=...)`` "candidate_local" (index groups probe per
+     shard), "dense" (the exact sharded scan) and "single_device", then
+     a fixed-plan pass (``default_plan`` without re-expansion, every index
+     group forced to per-shard probing) through ``execute_batch_sharded``
+     of an executor over S shards: QPS, recall@10, routes, escalated
+     queries, gather launches per probing chunk, one batch's device-busy
+     ms, and each S's ``ShardedIVF`` build seconds. Fails unless every
+     served id is distinct, in range, satisfies its predicate and carries
+     its row's plain score; every query on an exact route equals its
+     exact filtered top-k (ties aside); the forced S=1 pass equals phase
+     4's forced pass bit for bit, and the fixed-plan S=1 pass the same
+     plan on one device wherever it did not escalate; every probing chunk
+     launches the fp32 kernel once per probed column plus once (never the
+     int8 stage), whatever S; and the forced S=2, 4 passes launch it.
 
 The ``launches`` of the kernel report sum the main paths' counts (phase 4,
-7 and 9's serving passes, phase 8's searches for the gather kernels;
+7, 9 and 10's serving passes, phase 8's searches for the gather kernels;
 phase 5 for the scans); ``chip_smoke.json`` keeps each phase's apart.
 
 The line before the last is the JSON kernel report; the last line is
@@ -188,6 +211,10 @@ MIXED_TAIL, MIXED_MAX = 2 * MIXED_BATCH, 16384
 MIXED_UTILIZATION = 0.6
 MIXED_INSERT_RATIO, MIXED_CHUNKS = 0.1, 8
 PAUSE_SLACK = 0.25  # run_mixed's slack for asyncio scheduling jitter
+# phase 10: logical shard counts served, and phase 3's sharded probe shape
+# (S=4 shards of the table, a global max_scan of 8192 split over them)
+SHARD_COUNTS = (1, 2, 4)
+SHARD_PROBE, SHARD_MAX_SCAN = 4, 8192
 T0 = time.perf_counter()
 
 
@@ -553,6 +580,50 @@ def hot_case(table, queries, device, count: int = HOT_CASE_ROWS) -> list:
                   scalars=view.scalars))]
 
 
+def sharded_case(table, queries, device) -> list:
+    """Phase 3's sharded probe shape, the arguments
+    ``distributed.sharded_ivf_topk`` gives ``gather_score_topk`` for one
+    probed column, with every column weighted: the first ``BATCH`` queries
+    × ``SHARD_PROBE`` shards folded into ``SHARD_PROBE · BATCH`` rows, each
+    row the slots of ``legalize_for_shard(k_i=20, nprobe=2,
+    max_scan=SHARD_MAX_SCAN)`` (2,048) probed in its own shard's index of
+    column 0 (a ``ShardedIVF`` of 32 clusters a shard) and globalized, a
+    one-clause DNF per query, k the probe width. -> one ``check_kernels``
+    case."""
+    from repro_torch.core.executor import legalize_for_shard, subquery_width
+    from repro_torch.vectordb import distributed, predicates
+
+    rng = np.random.default_rng(1)
+    qs = queries[:BATCH]
+    metric = table.schema.metric
+    sivf = distributed.build_sharded_ivf(table.vectors[0], SHARD_PROBE,
+                                         n_clusters=32, seed=0,
+                                         metric=metric)
+    k_s, np_s, ms_s = legalize_for_shard(
+        20, 2, SHARD_MAX_SCAN, n_shards=SHARD_PROBE,
+        shard_len=sivf.shard_len, n_clusters=sivf.n_clusters)
+    if ms_s != min(sivf.shard_len, SHARD_MAX_SCAN // SHARD_PROBE):
+        raise AssertionError(f"per-shard slot budget {ms_s}")
+    qcols = tuple(torch.stack([q.query_vectors[i] for q in qs])
+                  for i in range(table.schema.n_vec))
+    cand = distributed.probe_shards(
+        sivf.centroids, sivf.sorted_rows, sivf.offsets, qcols[0],
+        sivf.shard_len, metric=metric, nprobe=np_s, max_scan=ms_s)
+    fold = np.tile(np.arange(len(qs)), SHARD_PROBE)
+    pred = predicates.take(_random_dnf(table.schema.n_scalar, 1, len(qs),
+                                       table.scalars.cpu().numpy(), rng,
+                                       device), fold)
+    w = torch.as_tensor(np.asarray([q.weights for q in qs], np.float32),
+                        device=device)
+    return [(f"sharded S={SHARD_PROBE}x{len(qs)} slots={ms_s} C=1 "
+             f"{table.schema.n_vec} cols", "fp32",
+             dict(cand=cand, vectors=tuple(table.vectors),
+                  qs=tuple(q.repeat(SHARD_PROBE, 1) for q in qcols),
+                  w=w.repeat(SHARD_PROBE, 1), pred=pred,
+                  k=subquery_width(k_s, ms_s), metric=metric,
+                  scales=None))]
+
+
 def check_kernels(table, cases, device) -> list:
     """Gather-score kernel vs plain version on ``cases`` ((label, variant,
     arguments of ``gather_score_topk``), as ``gather_cases`` gives them;
@@ -562,11 +633,11 @@ def check_kernels(table, cases, device) -> list:
     from repro_torch.kernels.ref import gather_score_ref, gather_scores_ref
     from repro_torch.vectordb import predicates
 
-    b = BATCH
     out = []
     for label, variant, a in cases:
         scal = a.get("scalars", table.scalars)
         m = scal.shape[1]
+        b = a["cand"].shape[0]
 
         def kern(a=a, scal=scal):
             return gs.gather_score_topk(a["cand"], a["vectors"], a["qs"],
@@ -904,9 +975,10 @@ def scan_pass(table, queries) -> dict:
     return out
 
 
-def profile_batch(run) -> dict:
+def profile_batch(run, top: int = 8) -> dict:
     """Device time by kernel (and copy) over one batch; their sum over the
-    batch's wall time is the device's busy share."""
+    batch's wall time is the device's busy share. Prints the ``top``
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -928,7 +1000,7 @@ def profile_batch(run) -> dict:
     device_ms = sum(r[1] for r in rows)
     log(f"  profile: wall {wall_ms:.2f} ms, device busy {device_ms:.2f} ms "
         f"({100 * device_ms / max(wall_ms, 1e-9):.1f}%)")
-    for key, ms, cnt in rows[:8]:
+    for key, ms, cnt in rows[:top]:
         print(f"    {ms:9.3f} ms  x{cnt:<5d} {key[:90]}")
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 top=[dict(kernel=k, ms=ms, count=c) for k, ms, c in rows[:12]])
@@ -1984,6 +2056,299 @@ def tiered_phase(ttable, graphs, fit_wl, stream_wl, device) -> dict:
                 prewarm_launches=launches["prewarm"])
 
 
+# ---------------------------------------------------------------------------
+# phase 10: logical shards
+# ---------------------------------------------------------------------------
+
+def _query_fields(table, queries):
+    """(queries (tuple of (Q, d_i)), weights (Q, N), predicate fields) of a
+    query list, as ``gather_score_topk`` takes them."""
+    from repro_torch.kernels import gather_score as gs
+    from repro_torch.vectordb import predicates
+
+    dev = table.device
+    qs = tuple(torch.stack([q.query_vectors[i] for q in queries])
+               for i in range(table.schema.n_vec))
+    w = torch.as_tensor(np.asarray([q.weights for q in queries], np.float32),
+                        device=dev)
+    fields = gs._pred_fields(predicates.stack([q.predicates for q in queries]),
+                             len(queries), table.schema.n_scalar, dev)
+    return qs, w, fields
+
+
+def check_served(table, queries, results, label: str) -> float:
+    """Every served result: ids distinct and in range, each live row
+    satisfying its query's predicate and scored as the plain formula scores
+    it (``ref.gather_scores_ref``, within the phase-3 tolerance), each -1
+    slot at NEG. -> max |score error| over live slots."""
+    from repro_torch.kernels.ref import gather_scores_ref
+    from repro_torch.kernels.shapes import NEG
+
+    dev = table.device
+    ids = torch.as_tensor(np.stack([np.asarray(r[0]) for r in results]),
+                          device=dev).to(torch.int32)
+    sc = torch.as_tensor(np.stack([np.asarray(r[1], np.float32)
+                                   for r in results]), device=dev)
+    if bool((ids >= table.n_rows).any()) or bool((ids < -1).any()):
+        raise AssertionError(f"{label}: a served id is out of range")
+    srt = ids.sort(dim=1).values
+    if bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()):
+        raise AssertionError(f"{label}: a row is served twice")
+    qs, w, fields = _query_fields(table, queries)
+    redo = gather_scores_ref(ids, tuple(table.vectors), qs, w, table.scalars,
+                             *fields, metric=table.schema.metric)[0]
+    live = ids >= 0
+    if bool((live & (redo <= NEG / 2)).any()):
+        raise AssertionError(f"{label}: a served row fails its predicate")
+    if bool((~live & (sc > NEG / 2)).any()):
+        raise AssertionError(f"{label}: an empty slot carries a score")
+    err = (sc - redo).abs()
+    if bool((live & (err > ATOL + RTOL * redo.abs())).any()):
+        raise AssertionError(f"{label}: a served score is not its row's")
+    return float(err[live].max()) if bool(live.any()) else 0.0
+
+
+def check_exact(table, queries, results, label: str) -> int:
+    """Each result equals its query's exact filtered top-k
+    (``flat.ground_truth``) under ``_held_to_plain``: scores within the
+    phase-3 tolerance, ids equal except between ties. -> id swaps."""
+    from repro_torch.kernels.ref import gather_scores_ref
+    from repro_torch.vectordb import flat
+
+    dev = table.device
+    swaps = 0
+    for q, (ids, scores) in zip(queries, results):
+        gt_i, gt_s = flat.ground_truth(table, list(q.query_vectors),
+                                       list(q.weights), q.predicates, q.k)
+        qs, w, fields = _query_fields(table, [q])
+
+        def rescore(got, qs=qs, w=w, fields=fields):
+            return gather_scores_ref(got.to(torch.int32), tuple(table.vectors),
+                                     qs, w, table.scalars, *fields,
+                                     metric=table.schema.metric)[0]
+
+        swaps += _held_to_plain(
+            label, torch.as_tensor(np.asarray(scores, np.float32),
+                                   device=dev)[None],
+            torch.as_tensor(np.asarray(ids), device=dev)[None],
+            gt_s[None], gt_i[None], rescore)[1]
+    return swaps
+
+
+def check_same_results(results, base, label: str) -> None:
+    """``results`` equal ``base`` bit for bit, ids and scores."""
+    if len(results) != len(base):
+        raise AssertionError(f"{label}: {len(results)} results, "
+                             f"{len(base)} expected")
+    for j, ((i1, s1), (i0, s0)) in enumerate(zip(results, base)):
+        if not (np.array_equal(i1, i0) and np.array_equal(s1, s0)):
+            raise AssertionError(f"{label}: query {j} differs from the "
+                                 f"unsharded pass")
+
+
+def check_shard_launches(chunks, label: str) -> None:
+    """Each per-shard probing chunk launched the fp32 gather kernel once per
+    probed column and once for its rerank, whatever its shard count, and
+    never the int8 stage."""
+    for c in chunks:
+        if c["fp32"] != c["cols"] + 1 or c["int8"]:
+            raise AssertionError(
+                f"{label}: a chunk of {c['cols']} probed columns over "
+                f"{c['shards']} shards launched {c['fp32']} fp32 and "
+                f"{c['int8']} int8 gathers, expected {c['cols'] + 1} and 0")
+
+
+def fixed_plan(n_vec: int, engine):
+    """``default_plan`` without iterative re-expansion (per-shard probing
+    has none): k_i = 4k, nprobe 16, max_scan 131,072 before the split."""
+    from repro_torch.core.query import default_plan
+
+    plan = default_plan(n_vec, engine)
+    return dataclasses.replace(plan, subqueries=tuple(
+        dataclasses.replace(sp, iterative=False) for sp in plan.subqueries))
+
+
+def fixed_plan_pass(bq, queries, gt, s: int, chunks: list, launches: dict,
+                    base: list) -> dict:
+    """``queries`` through ``execute_batch_sharded`` of an executor over
+    ``s`` logical shards of the instance's table, every index group forced
+    to per-shard probing under ``fixed_plan``, batch by batch after one
+    warm-up batch; ``chunks`` collects the probing chunks (phase 10's
+    wrapper). Every chunk must launch the fp32 kernel once per probed
+    column plus once; with one shard every query that did not escalate
+    must equal ``base`` (the same plan on one device) bit for bit."""
+    from repro_torch.core.executor import recall_at_k
+    from repro_torch.kernels import gather_score as gs
+    from repro_torch.serve.batch import (
+        SHARDED_LOCAL, BatchedHybridExecutor, CostModel,
+    )
+
+    label = f"S={s} fixed plan"
+    bx = BatchedHybridExecutor(bq.table, bq.indexes, bq.engine, n_shards=s,
+                               hists=bq.hists, graphs=bq.graphs,
+                               cost_model=CostModel(force=SHARDED_LOCAL))
+    plans = [fixed_plan(q.n_vec, bq.engine) for q in queries]
+    before = dict(gs.LAUNCHES)
+    bx.execute_batch_sharded(queries[:BATCH], plans[:BATCH])
+    bx.dispatcher.take()
+    chunks.clear()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    results, escalated = [], []
+    for b0 in range(0, len(queries), BATCH):
+        bx.escalated.clear()
+        results.extend(bx.execute_batch_sharded(queries[b0: b0 + BATCH],
+                                                plans[b0: b0 + BATCH]))
+        escalated.extend(b0 + j for j in bx.escalated)
+    seconds = time.perf_counter() - t
+    lc = {k: gs.LAUNCHES[k] - before[k] for k in gs.LAUNCHES}
+    for k in launches:
+        launches[k] += lc[k]
+    counts = bx.dispatcher.take()[0]
+    _check_results(results, label)
+    err = check_served(bq.table, queries, results, label)
+    if not chunks:
+        raise AssertionError(f"{label}: no per-shard probing chunk ran")
+    check_shard_launches(chunks, label)
+    if s == 1:
+        kept = [j for j in range(len(queries)) if j not in set(escalated)]
+        check_same_results([results[j] for j in kept],
+                           [base[j] for j in kept], label)
+    recall = float(np.mean([recall_at_k(ids, g)
+                            for (ids, _), g in zip(results, gt)]))
+    base_recall = float(np.mean([recall_at_k(ids, g)
+                                 for (ids, _), g in zip(base, gt)]))
+    per_chunk = sorted({(c["cols"], c["fp32"]) for c in chunks})
+    out = dict(shards=s, route="fixed plan, forced sharded_local",
+               qps=len(queries) / seconds, seconds=seconds,
+               mean_recall=recall, one_device_recall=base_recall,
+               path_counts=counts, launches=lc, probe_chunks=len(chunks),
+               probe_fp32_launches=sum(c["fp32"] for c in chunks),
+               launches_per_probe_chunk=per_chunk,
+               escalated=len(escalated), max_abs_err=err)
+    log(f"  serve[{label}]: {len(queries)} queries in {seconds:.2f}s "
+        f"({out['qps']:.1f} QPS, mean recall {recall:.4f} against "
+        f"{base_recall:.4f} on one device), paths {counts}, launches {lc}; "
+        f"{len(chunks)} probing chunks ((cols, fp32 launches) {per_chunk}), "
+        f"{len(escalated)} escalated; max|err| {err:.3g}")
+    return out
+
+
+def shard_phase(bq, queries, gt, unsharded, device) -> dict:
+    """Phase 10: the fitted instance bound to S ∈ ``SHARD_COUNTS`` logical
+    shards, serving ``queries`` at batch ``BATCH`` under the default cost
+    model and forced to per-shard probing (``candidate_local`` routes index
+    groups ``sharded_local``), to the exact sharded scan (``dense``) and to
+    no fan-out (``single_device``). ``unsharded``: phase 4's forced
+    candidate-local (results, report). ``bind_shards()`` restores the
+    instance. -> the passes' report and launches."""
+    from repro_torch.kernels import gather_score as gs
+    from repro_torch.serve.batch import (
+        CANDIDATE_LOCAL, DENSE, SINGLE_DEVICE, BatchedHybridExecutor,
+        CostModel, ServingEngine,
+    )
+    from repro_torch.vectordb import distributed
+
+    routes = (("default", None),
+              ("sharded_local", CostModel(force=CANDIDATE_LOCAL)),
+              ("dense", CostModel(force=DENSE)),
+              ("single_device", CostModel(force=SINGLE_DEVICE)))
+    chunks, exact_ids = [], set()
+    probe_chunk = BatchedHybridExecutor._run_chunk_sharded_ivf
+    exact_chunk = BatchedHybridExecutor._run_chunk_sharded
+
+    def counted_probe(self, key, qs, part, out, *, bucket_cap):
+        before, kept = dict(gs.LAUNCHES), set(self.escalated)
+        self.escalated.clear()
+        probe_chunk(self, key, qs, part, out, bucket_cap=bucket_cap)
+        chunks.append(dict(shards=self.n_shards, cols=len(key[3]),
+                           queries=len(qs), escalated=len(self.escalated),
+                           **{k: gs.LAUNCHES[k] - before[k]
+                              for k in gs.LAUNCHES}))
+        self.escalated |= kept
+
+    def counted_exact(self, qs, part, out, **kw):
+        exact_ids.update(id(q) for q in qs)
+        return exact_chunk(self, qs, part, out, **kw)
+
+    launches = {"fp32": 0, "int8": 0}
+    out = dict(build_s={}, passes={}, launches=launches,
+               unsharded_candidate_local_recall=unsharded[1].mean_recall)
+    # the fixed plan on one device, candidate-local: the one-shard probing
+    # pass must equal it wherever it did not escalate
+    base_fixed = BatchedHybridExecutor(
+        bq.table, bq.indexes, bq.engine, hists=bq.hists, graphs=bq.graphs,
+        cost_model=CostModel(force=CANDIDATE_LOCAL)).execute_batch(
+        queries, [fixed_plan(q.n_vec, bq.engine) for q in queries])
+    BatchedHybridExecutor._run_chunk_sharded_ivf = counted_probe
+    BatchedHybridExecutor._run_chunk_sharded = counted_exact
+    try:
+        for s in SHARD_COUNTS:
+            if s > 1:
+                # the per-shard indexes the probing route builds on its
+                # first chunk, timed alone
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for c, idx in enumerate(bq.indexes):
+                    distributed.build_sharded_ivf(
+                        bq.table.vectors[c], s, n_clusters=idx.n_clusters,
+                        seed=c, metric=bq.table.schema.metric)
+                torch.cuda.synchronize()
+                out["build_s"][s] = time.perf_counter() - t
+                log(f"  S={s}: ShardedIVFs of {bq.table.schema.n_vec} "
+                    f"columns built in {out['build_s'][s]:.3f} s")
+            for name, cm in routes:
+                label = f"S={s} {name}"
+                bq.bind_shards(s).bind_cost_model(cm)
+                before = dict(gs.LAUNCHES)
+                engine = ServingEngine(bq, batch_size=BATCH)
+                engine.warmup(queries)
+                chunks.clear()
+                exact_ids.clear()
+                results, rep = engine.serve(queries, gt_ids=gt)
+                lc = {k: gs.LAUNCHES[k] - before[k] for k in gs.LAUNCHES}
+                for k in launches:
+                    launches[k] += lc[k]
+                _check_results(results, label)
+                err = check_served(bq.table, queries, results, label)
+                exact = [j for j, q in enumerate(queries)
+                         if id(q) in exact_ids]
+                swaps = check_exact(bq.table, [queries[j] for j in exact],
+                                    [results[j] for j in exact], label)
+                check_shard_launches(chunks, label)
+                if s == 1 and name == "sharded_local":
+                    check_same_results(results, unsharded[0], label)
+                if s > 1 and name == "sharded_local" and lc["fp32"] <= 0:
+                    raise AssertionError(f"{label}: the pass never launched "
+                                         f"the fp32 kernel")
+                prof = profile_batch(
+                    lambda: bq.execute_batch(queries[:BATCH]), top=0)
+                per_chunk = sorted({(c["cols"], c["fp32"]) for c in chunks})
+                out["passes"][label] = dict(
+                    shards=s, route=name, qps=rep.qps, seconds=rep.seconds,
+                    mean_recall=rep.mean_recall, path_counts=rep.path_counts,
+                    launches=lc, probe_chunks=len(chunks),
+                    probe_fp32_launches=sum(c["fp32"] for c in chunks),
+                    launches_per_probe_chunk=per_chunk,
+                    escalated=sum(c["escalated"] for c in chunks),
+                    exact_route_queries=len(exact), exact_tie_swaps=swaps,
+                    max_abs_err=err, batch_wall_ms=prof["wall_ms"],
+                    batch_device_ms=prof["device_ms"])
+                log(f"  serve[{label}]: {rep.describe()}; launches {lc}; "
+                    f"{len(chunks)} probing chunks ((cols, fp32 launches) "
+                    f"{per_chunk}), {out['passes'][label]['escalated']} "
+                    f"escalated; {len(exact)} queries on the exact route "
+                    f"({swaps} tie swaps); max|err| {err:.3g}")
+            bq.bind_shards().bind_cost_model()
+            out["passes"][f"S={s} fixed plan"] = fixed_plan_pass(
+                bq, queries, gt, s, chunks, launches, base_fixed)
+    finally:
+        BatchedHybridExecutor._run_chunk_sharded_ivf = probe_chunk
+        BatchedHybridExecutor._run_chunk_sharded = exact_chunk
+        bq.bind_shards().bind_cost_model()
+    return out
+
+
 def _kernel_entry(name, source, replaces, rows, main, launches) -> dict:
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches,
@@ -2043,7 +2408,8 @@ def main() -> int:
     # phase 3
     rows = check_kernels(table, gather_cases(table, bq.indexes[0], graphs[0],
                                              serve_wl, dev)
-                         + hot_case(ttable, t_serve_wl, dev), dev)
+                         + hot_case(ttable, t_serve_wl, dev)
+                         + sharded_case(table, serve_wl, dev), dev)
     scan_rows = check_scans(table, serve_wl, dev)
 
     # phase 4 — launch counts cover exactly this run
@@ -2064,7 +2430,7 @@ def main() -> int:
     passes = {}
     rep_d, l_d, _ = serve_pass(bq, serve_wl, gt, "default")
     bq.bind_cost_model(CostModel(force=CANDIDATE_LOCAL))
-    rep_c, l_c, _ = serve_pass(bq, serve_wl, gt, "candidate_local")
+    rep_c, l_c, res_c = serve_pass(bq, serve_wl, gt, "candidate_local")
     bq.bind_cost_model()
     gpass = graph_pass(bq, serve_wl, gt, graph_plan(table.schema.n_vec),
                        "graph plan beam 8, 4 hops")
@@ -2132,6 +2498,9 @@ def main() -> int:
         raise AssertionError(f"scoring paths disagree: {rep_d.mean_recall} "
                              f"vs {rep_c.mean_recall}")
 
+    # phase 10 — logical shards on phase 4's instance, before phase 7's
+    # inserts grow the table; its serving passes' counts
+    shards = shard_phase(bq, serve_wl, gt, (res_c, rep_c), dev)
     # phase 7 — updates on the served instance, the serving passes' counts
     upd = update_phase(bq, serve_wl, dev)
     # phase 8 — a vector->scalar set at d=128, its search pass's counts
@@ -2141,7 +2510,8 @@ def main() -> int:
     launches_by_phase = {"4": launches, "5": spass["launches"],
                          "7": upd["launches"], "8": sift["launches"],
                          "9": tier["launches"],
-                         "9 compaction warm-up": tier["prewarm_launches"]}
+                         "9 compaction warm-up": tier["prewarm_launches"],
+                         "10": shards["launches"]}
 
     kernels = []
     for variant in ("fp32", "int8"):
@@ -2154,7 +2524,8 @@ def main() -> int:
             f"gather_score_{variant}", "src/repro_torch/csrc/gather_score.cu",
             "src/repro/kernels/gather_score.py:88", checked, vrows[0],
             launches[variant] + upd["launches"][variant]
-            + sift["launches"][variant] + tier["launches"][variant]))
+            + sift["launches"][variant] + tier["launches"][variant]
+            + shards["launches"][variant]))
     for name, variant, replaces in (
             ("masked_topk_fp32", "dot", "src/repro/kernels/masked_topk.py:28"),
             ("int8_scan", "int8", "src/repro/kernels/int8_scan.py:28")):
@@ -2175,7 +2546,7 @@ def main() -> int:
         plan_mix=plan_mix, scan_pass=spass, fit=metrics, profile=prof,
         profile_graph=prof_graph, launches=launches,
         launches_by_phase=launches_by_phase, updates=upd["inserts"],
-        sift=sift, tiered=tier,
+        sift=sift, tiered=tier, shards=shards,
         default_plan_recall=robust_recall, recall_target=target,
         seconds=time.perf_counter() - T0), indent=1))
     log(f"done in {time.perf_counter() - T0:.1f} s")

@@ -9,7 +9,8 @@ Covered: ``IVFIndex``, ``GraphIndex``, ``Histograms``, ``DataEncoder``
 parameters and bin edges, ``MHQRewriter`` parameters and the query
 encoder's S_enc edges — and ``boomhq``, which assembles a fitted ``BoomHQ``
 from all of them; ``cold_state`` and ``tiered_snapshot`` carry a tiered
-table's epoch (cold state and hot buffers) across mid-stream.
+table's epoch (cold state and hot buffers) across mid-stream;
+``sharded_ivf`` carries a ``ShardedIVF`` (per-shard indexes) across.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from repro_torch.core.executor import PGVECTOR
 from repro_torch.core.query_encoder import QueryEncoder
 from repro_torch.core.rewriter import MHQRewriter
 from repro_torch.vectordb.graph import GraphIndex
+from repro_torch.vectordb.distributed import ShardedIVF
 from repro_torch.vectordb.histogram import Histograms
 from repro_torch.vectordb.ivf import IVFIndex
 from repro_torch.vectordb.table import Table
@@ -40,6 +42,17 @@ def ivf_index(centroids, sorted_rows, offsets, metric: str, *,
     return IVFIndex(centroids=_t(centroids, dev),
                     sorted_rows=_t(sorted_rows, dev, torch.int32),
                     offsets=_t(offsets, dev, torch.int32), metric=metric)
+
+
+def sharded_ivf(centroids, sorted_rows, offsets, metric: str, *,
+                device=None) -> ShardedIVF:
+    """A JAX ``ShardedIVF`` (per-shard ``centroids`` (S, C, d), local
+    ``sorted_rows`` (S, shard_len) and ``offsets`` (S, C+1)) as the
+    port's: the same arrays give the same per-shard probes."""
+    dev = resolve_device(device)
+    return ShardedIVF(centroids=_t(centroids, dev),
+                      sorted_rows=_t(sorted_rows, dev, torch.int32),
+                      offsets=_t(offsets, dev, torch.int32), metric=metric)
 
 
 def graph_index(neighbors, entry_points, metric: str, *,

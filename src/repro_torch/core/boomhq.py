@@ -21,8 +21,10 @@ Port of ``repro.core.boomhq`` for an unsharded table:
                     (``vectordb.tiered``).
   bind_tenants():   namespaces: a query's ``tenant_id`` folds into its
                     predicate as an implicit equality (``resolve_tenant``).
-
-Sharding (``bind_shards``) is not ported yet.
+  bind_shards():    serve over logical shards of the table on one device
+                    (``serve.batch.BatchedHybridExecutor
+                    .execute_batch_sharded``); a ``mesh`` raises
+                    ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,7 +39,9 @@ import torch
 
 from repro_torch.core.data_encoder import DataEncoder, DataEncoderConfig
 from repro_torch.core.executor import EngineCaps, HybridExecutor, PGVECTOR
-from repro_torch.core.query import ExecutionPlan, MHQ, default_plan
+from repro_torch.core.query import (
+    ExecutionPlan, MHQ, SubqueryParams, default_plan,
+)
 from repro_torch.core.query_encoder import QueryEncoder
 from repro_torch.core.rewriter import MHQRewriter, RewriterConfig, generate_label
 from repro_torch.vectordb import flat, graph, histogram, ivf, predicates
@@ -111,6 +115,7 @@ class BoomHQ:
         self.rewriter: Optional[MHQRewriter] = None
         self._fitted = False
         self.cost_model = None  # scoring-dispatch override (bind_cost_model)
+        self.n_shards = 1  # logical shards served (bind_shards)
         self._batched = None
         self.insert_seconds: dict = {}  # the last insert's seconds by step
         self.tiered = None  # streaming-ingest state (bind_tiered)
@@ -140,7 +145,14 @@ class BoomHQ:
 
     # -- offline -------------------------------------------------------------
 
-    def fit(self, workload: list, *, verbose: bool = False) -> dict:
+    def fit(self, workload: list, *, verbose: bool = False,
+            label_timer=None) -> dict:
+        """Train the encoders and the rewriter on ``workload``.
+        ``label_timer(executor, q, plan)`` -> (ids, scores, cost) prices
+        the labelling grid: wall-clock by default, ``rewriter.work_timer``
+        for labels that do not depend on the host's load."""
+        from repro_torch.core.rewriter import wall_timer
+
         metrics = {}
         t0 = time.perf_counter()
         if self.data_encoder is not None:
@@ -156,7 +168,8 @@ class BoomHQ:
                          .cpu().numpy())
             labels.append(generate_label(
                 self.executor, q, gt_ids.cpu().numpy(),
-                refine_columns=self.cfg.rewriter.refine_columns))
+                refine_columns=self.cfg.rewriter.refine_columns,
+                timer=label_timer or wall_timer))
             if verbose and (qi + 1) % 50 == 0:
                 print(f"  labeled {qi + 1}/{len(workload)} queries")
         X = np.stack(feats)
@@ -292,6 +305,24 @@ class BoomHQ:
         restores the default."""
         self.cost_model = cost_model
         self._batched = None
+        return self
+
+    def bind_shards(self, n_shards: int = 1, *, mesh=None) -> "BoomHQ":
+        """Serve over a SHARDED table: later ``execute_batch`` calls plan
+        the batch with the learned optimizer and fan each execution group
+        out over ``n_shards`` contiguous logical shards of the table on its
+        device. Index groups are cost-model routed to per-shard IVF probing
+        (each shard probes its own index with the group's shard-legalized
+        knobs and reranks inside the shard), the exact per-shard scan, or
+        the single-device path when shards are small; filter_first groups
+        keep the exact scan. ``mesh`` (the reference's ``shard_map`` path)
+        raises ``NotImplementedError``. ``bind_shards()`` restores
+        single-shard serving."""
+        if mesh is not None:
+            from repro_torch.vectordb.distributed import MESH_QUEUED
+            raise NotImplementedError(MESH_QUEUED)
+        self.n_shards = max(1, int(n_shards))
+        self._batched = None  # rebuild the executor with the shard config
         return self
 
     # -- tiered streaming ingest ---------------------------------------------
@@ -430,7 +461,12 @@ class BoomHQ:
         time, else taken here: the cold side runs the plan-driven paths on
         the snapshot's epoch and the hot views merge in as one more exact
         candidate source (``_merge_hot``). Only calls without a
-        ``snapshot`` are recorded as recent traffic."""
+        ``snapshot`` are recorded as recent traffic.
+
+        Over a sharded table (``bind_shards``) the learned plans fan out
+        across the shards (``_execute_batch_sharded``), with per-shard
+        escalation inside the probing route and a global underfill
+        cross-check on top."""
         if not queries:
             return []
         queries = [self.resolve_tenant(q) for q in queries]
@@ -465,23 +501,55 @@ class BoomHQ:
         plan_local = self._plan_local(len(queries), cold)
         scores_b = None if plan_local else compute_batch_scores(t, queries)
         bx = self._batched_executor(cold)
-        plans = self.optimize_batch(queries, scores_b=scores_b,
-                                    dense=not plan_local, cold=cold)
-        results = bx.execute_batch(queries, plans, scores_b=scores_b)
-        under = [j for j, (ids, _) in enumerate(results)
-                 if _n_valid(ids) < queries[j].k]
-        if under:
-            sub = torch.as_tensor(under, device=t.device)
-            retry = bx.execute_batch(
-                [queries[j] for j in under],
-                [default_plan(queries[j].n_vec, self.engine) for j in under],
-                scores_b=tuple(s[sub] for s in scores_b)
-                if scores_b is not None else None)
-            for j, (ids2, s2) in zip(under, retry):
-                if _n_valid(ids2) > _n_valid(results[j][0]):
-                    results[j] = (ids2, s2)
+        if self.n_shards > 1:
+            results = self._execute_batch_sharded(queries, bx, scores_b,
+                                                  cold=cold)
+        else:
+            plans = self.optimize_batch(queries, scores_b=scores_b,
+                                        dense=not plan_local, cold=cold)
+            results = bx.execute_batch(queries, plans, scores_b=scores_b)
+            self._retry_underfilled(
+                results, queries, bx, scores_b,
+                lambda q: default_plan(q.n_vec, self.engine))
         if snap is not None and snap.hot_views:
             results = self._merge_hot(results, queries, snap)
+        return results
+
+    @staticmethod
+    def _retry_underfilled(results: list, queries: list, bx, scores_b,
+                           plan_of) -> None:
+        """Re-run the queries that returned fewer than k valid ids under
+        ``plan_of(q)`` as one grouped pass; the better-filled result wins
+        (in place)."""
+        under = [j for j, (ids, _) in enumerate(results)
+                 if _n_valid(ids) < queries[j].k]
+        if not under:
+            return
+        sub = torch.as_tensor(under, device=bx.table.device)
+        retry = bx.execute_batch(
+            [queries[j] for j in under], [plan_of(queries[j]) for j in under],
+            scores_b=tuple(s[sub] for s in scores_b)
+            if scores_b is not None else None)
+        for j, (ids2, s2) in zip(under, retry):
+            if _n_valid(ids2) > _n_valid(results[j][0]):
+                results[j] = (ids2, s2)
+
+    def _execute_batch_sharded(self, queries: list, bx, scores_b,
+                               cold: ColdState) -> list:
+        """Plan-driven cross-shard execution: the batch is planned as on
+        one shard, then ``bx.execute_batch_sharded`` routes every group
+        (per-shard probing with per-shard escalation / exact sharded scan
+        / single device). Any query still under k valid ids re-runs
+        through the exact ``filter_first`` over the whole table, and the
+        better-filled result wins."""
+        n = cold.table.n_rows
+        plans = self.optimize_batch(queries, scores_b=scores_b, cold=cold)
+        results = bx.execute_batch_sharded(queries, plans, scores_b=scores_b)
+        self._retry_underfilled(
+            results, queries, bx, scores_b,
+            lambda q: ExecutionPlan("filter_first", tuple(
+                SubqueryParams() for _ in range(q.n_vec)),
+                max_candidates=n))
         return results
 
     def _merge_hot(self, results, queries: list, snap) -> list:
@@ -523,7 +591,7 @@ class BoomHQ:
 
     def _batched_executor(self, cold: Optional[ColdState] = None):
         """The batched executor bound to an epoch — ``cold``, else the
-        façade's ``state`` — and the cost model. A
+        façade's ``state`` — the cost model and the shard config. A
         single-slot cache keyed on table identity: batches execute in
         formation order, so an epoch swap rebuilds once (the compacting
         thread's warm-up usually did it already). The slot is read once,
@@ -536,8 +604,8 @@ class BoomHQ:
         if bx is None or bx.table is not cold.table:
             bx = BatchedHybridExecutor(
                 cold.table, list(cold.indexes), self.engine,
-                cost_model=self.cost_model, hists=cold.hists,
-                graphs=cold.graphs)
+                n_shards=self.n_shards, cost_model=self.cost_model,
+                hists=cold.hists, graphs=cold.graphs)
             self._batched = bx
         return bx
 

@@ -14,6 +14,8 @@ Port of ``repro.core.executor``:
 Without bound graphs ``legalize`` rewrites graph plans to ``index_scan``.
 ``iterative`` is pgvector's iterative_scan: nprobe doubling while the
 filtered result underfills k (one host sync per round).
+``legalize_for_shard`` splits a subquery's budget across logical shards
+(``serve.batch``'s sharded probing path).
 """
 from __future__ import annotations
 
@@ -179,6 +181,17 @@ def rrf_extras(lists, *, kis, n_extra, rrf_k=RRF_K):
                                          dtype=out.dtype, device=out.device)],
                         dim=1)
     return out.to(torch.int32)
+
+
+def legalize_for_shard(k_i: int, nprobe: int, max_scan: int, *,
+                       n_shards: int, shard_len: int,
+                       n_clusters: int) -> tuple:
+    """Split one subquery's GLOBAL probing budget across ``n_shards``: the
+    scan budget divides ceil-wise (floored at the per-shard candidate
+    count, capped at the shard), nprobe clamps to the per-shard cluster
+    count. -> the per-shard ``(k_i, nprobe, max_scan)``."""
+    ms = min(shard_len, max(1, min(k_i, shard_len), -(-max_scan // n_shards)))
+    return min(k_i, ms), max(1, min(nprobe, n_clusters)), ms
 
 
 def plan_columns(q: MHQ, plan: ExecutionPlan) -> tuple:

@@ -8,7 +8,10 @@ precision head and the graph beam/hop head.
 
 Labels are self-supervised: execute each workload query under a grid of
 candidate configurations, measure (latency, recall) and pick the cheapest
-configuration that meets the query's recall target plus a margin.
+configuration that meets the query's recall target plus a margin. The
+latency is wall-clock by default (``HybridExecutor.execute_timed``);
+``work_timer`` gives a deterministic cost instead, the elements a plan
+reads (``plan_work``), so a fit does not move with the host's load.
 """
 from __future__ import annotations
 
@@ -20,12 +23,16 @@ import torch
 from torch import nn
 
 from repro_torch.common.nn import MLP
-from repro_torch.core.executor import HybridExecutor, recall_at_k
+from repro_torch.core.executor import (
+    HybridExecutor, plan_columns, recall_at_k,
+)
 from repro_torch.core.query import (
     BEAM_GRID, ExecutionPlan, HOP_GRID, KMULT_GRID, MAX_SCAN_GRID, MHQ,
     NPROBE_GRID, PRECISION_GRID, STRATEGIES, SubqueryParams,
 )
+from repro_torch.kernels.shapes import GRAPH_ENTRY_POINTS, GRAPH_SEED_FACTOR
 from repro_torch.train import optimizer
+from repro_torch.vectordb import ivf, predicates
 from repro_torch.train.optimizer import AdamWConfig
 
 N_NP, N_MS, N_KM = len(NPROBE_GRID), len(MAX_SCAN_GRID), len(KMULT_GRID)
@@ -250,16 +257,86 @@ def plan_to_label(plan: ExecutionPlan, latency: float, recall: float
 LABEL_RECALL_MARGIN = 0.05  # labels aim slightly above E_rec
 
 
+def plan_work(executor: HybridExecutor, q: MHQ, plan: ExecutionPlan
+              ) -> float:
+    """The values the sequential executor's static-shape program reads for
+    one plan and query (a vector element or a scalar counts one, at any
+    precision): filter_first evaluates every row's scalars and scores its
+    ``max_candidates`` slots over every column; each round of an IVF
+    subquery scores the column's centroids and the vector and scalars of
+    its ``max_scan`` slots (and at int8 reranks the survivors), with
+    iterative re-expansion counted round by round; a graph subquery reads
+    the vector and scalars of every row its walk may visit; the rerank
+    scores the union's slots over every column."""
+    from repro_torch.core.executor import rrf_union_total, subquery_width
+    from repro_torch.kernels.gather_score import RERANK_MULT
+    from repro_torch.kernels.shapes import MAX_TOPK
+
+    plan = executor.legalize(plan)
+    t = executor.table
+    n, m = t.n_rows, t.schema.n_scalar
+    dims = [int(v.shape[1]) for v in t.vectors]
+    if plan.strategy == "filter_first":
+        return float(n * m + plan.max_candidates * sum(dims))
+    cols = plan_columns(q, plan)
+    work = union = 0
+    for i in cols:
+        sp = plan.subqueries[i]
+        k_i = min(sp.k_mult * q.k, n)
+        union += k_i
+        if plan.strategy == "graph":
+            visited = GRAPH_ENTRY_POINTS + GRAPH_SEED_FACTOR * plan.beam_width \
+                + plan.n_hops * plan.beam_width * executor.graphs[i].degree
+            work += min(visited, n) * (dims[i] + m)
+            continue
+        index = executor.indexes[i]
+        cap = min(index.n_clusters, executor.engine.nprobe_cap)
+        max_scan = min(sp.max_scan, n)
+        kw = subquery_width(k_i, max_scan) if len(cols) > 1 else k_i
+        nprobe = sp.nprobe
+        while True:
+            nprobe = min(nprobe, cap)
+            work += index.n_clusters * dims[i] + max_scan * (dims[i] + m)
+            if plan.precision == "int8":
+                work += max(kw, min(RERANK_MULT * kw, MAX_TOPK)) * dims[i]
+            if not sp.iterative:
+                break
+            rows, valid = ivf.probe_slots(index, q.query_vectors[i],
+                                          nprobe=nprobe, max_scan=max_scan)
+            n_qual = int((predicates.eval_mask(q.predicates, t.scalars[rows])
+                          & valid).sum())
+            if n_qual >= k_i or nprobe >= cap:
+                break
+            nprobe *= 2
+    if len(cols) > 1:
+        union = rrf_union_total(union)
+    return float(work + union * sum(dims))
+
+
+def wall_timer(executor: HybridExecutor, q: MHQ, plan: ExecutionPlan):
+    """-> (ids, scores, seconds): the plan's measured wall-clock time."""
+    return executor.execute_timed(q, plan)
+
+
+def work_timer(executor: HybridExecutor, q: MHQ, plan: ExecutionPlan):
+    """-> (ids, scores, ``plan_work``): a deterministic label cost."""
+    ids, scores = executor.execute(q, plan)
+    return ids.cpu().numpy(), scores.cpu().numpy(), \
+        plan_work(executor, q, plan)
+
+
 def generate_label(executor: HybridExecutor, q: MHQ, gt_ids,
-                   *, refine_columns: bool = True) -> PlanLabel:
+                   *, refine_columns: bool = True,
+                   timer=wall_timer) -> PlanLabel:
     """Execute the candidate grid; label = cheapest plan meeting the target
     (+ margin), else the highest-recall plan. Then, for multi-column plans,
-    greedily trim each column's k_mult / nprobe while the target holds."""
+    greedily trim each column's k_mult / nprobe while the target holds.
+    ``timer(executor, q, plan)`` -> (ids, scores, cost) prices each plan."""
     target = min(1.0, q.recall_target + LABEL_RECALL_MARGIN)
     best, best_any = None, None
     has_graphs = getattr(executor, "graphs", None) is not None
     for plan in candidate_plans(q.n_vec, q.weights, graphs=has_graphs):
-        ids, _, dt = executor.execute_timed(q, plan)
+        ids, _, dt = timer(executor, q, plan)
         rec = recall_at_k(ids, gt_ids)
         entry = (dt, rec, plan)
         if best_any is None or rec > best_any[1] + 1e-9 or \
@@ -286,7 +363,7 @@ def generate_label(executor: HybridExecutor, q: MHQ, gt_ids,
                     trial_plan = dataclasses.replace(
                         plan, subqueries=tuple(subs[:i] + [trial]
                                                + subs[i + 1:]))
-                    ids, _, dt_t = executor.execute_timed(q, trial_plan)
+                    ids, _, dt_t = timer(executor, q, trial_plan)
                     if recall_at_k(ids, gt_ids) >= target:
                         subs[i] = trial
                         plan, dt, rec = trial_plan, dt_t, recall_at_k(

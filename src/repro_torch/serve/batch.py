@@ -16,10 +16,18 @@ Port of the unsharded part of ``repro.serve.batch``:
     group's qualified counts each round and only the still-underfilled
     subset re-probes at a doubled nprobe.
 
+  * over logical shards (``n_shards > 1``) ``execute_batch_sharded`` fans
+    each group out: index groups route three ways (``choose_sharded``) —
+    plan-driven per-shard IVF probing (``vectordb.distributed``) with
+    per-shard boundary escalation, the exact per-shard scan, or the plain
+    single-device chunk — filter_first groups take the exact scan and
+    graph groups the single-device walk.
+
 ``ServingEngine`` chops a request stream into batches and drives
 ``BoomHQ.execute_batch``; ``serve.queue.AsyncServingEngine`` forms batches
-from live arrivals and reports into the same ``ServeReport``. The sharded
-and shard-escalation paths of the JAX module are not ported yet.
+from live arrivals and reports into the same ``ServeReport``. The
+reference's ``shard_map`` (mesh) branches are not ported: a ``mesh``
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -33,14 +41,21 @@ import torch
 
 from repro_torch.common.device import synchronize
 from repro_torch.core.executor import (
-    CANDIDATE_PAD_FLOOR, EngineCaps, HybridExecutor, PGVECTOR, next_bucket,
-    plan_columns, pow2_at_most, recall_at_k, rerank_scored, rrf_extras,
-    rrf_union_total, subquery_width,
+    CANDIDATE_PAD_FLOOR, EngineCaps, HybridExecutor, PGVECTOR,
+    legalize_for_shard, next_bucket, plan_columns, pow2_at_most, recall_at_k,
+    rerank_scored, rrf_extras, rrf_union_total, subquery_width,
 )
 from repro_torch.core.query import ExecutionPlan, MHQ
-from repro_torch.kernels.gather_score import gather_score_topk
-from repro_torch.kernels.shapes import GRAPH_ENTRY_POINTS, GRAPH_SEED_FACTOR
-from repro_torch.vectordb import flat, graph, ivf, predicates
+from repro_torch.kernels.gather_score import gather_score_topk, \
+    merge_topk_unique
+from repro_torch.kernels.shapes import (
+    GRAPH_ENTRY_POINTS, GRAPH_SEED_FACTOR, NEG,
+)
+from repro_torch.vectordb import flat, graph, histogram, ivf, predicates
+from repro_torch.vectordb.distributed import (
+    MESH_QUEUED, build_sharded_ivf, sharded_ivf_topk, sharded_topk_ref,
+)
+from repro_torch.vectordb.flat import nonzero_fixed, topk_stable
 from repro_torch.vectordb.table import Table, similarity_batch
 
 # Dense-score budget: chunks are sized so batch · n_rows stays under this
@@ -50,17 +65,34 @@ MAX_BATCH_KERNEL = 64  # widest batched execution chunk
 
 DENSE = "dense"
 CANDIDATE_LOCAL = "candidate_local"
+# sharded-group routes: plan-driven per-shard IVF probing, or no fan-out
+# (the plain single-device chunk, when shards are too small to amortize
+# the merge)
+SHARDED_LOCAL = "sharded_local"
+SINGLE_DEVICE = "single_device"
+
+# histogram-estimated static gather caps of the exact sharded scan:
+# cap = next_bucket(margin · estimated max + slack); queries whose true
+# qualifying count overflows the cap re-run at their exact width
+CAP_MARGIN = 1.5
+CAP_SLACK = 32
 
 
 @dataclasses.dataclass(frozen=True)
 class CostModel:
-    """Scoring-path cost model: dense vs candidate-local.
+    """Scoring-path cost model: dense vs candidate-local, plus the sharded
+    three-way route.
 
     Candidate-local wins when ``batch · scan + overhead ≤ crossover ·
     n_rows``. The constants are the JAX package's, fitted on a CPU
     container; they are placeholders on the H100 until re-fitted there.
     The crossover is per precision (``crossover_int8`` for the int8
-    tier). ``force`` pins every group to one path."""
+    tier). ``choose_sharded`` routes a sharded group to per-shard probing
+    (``SHARDED_LOCAL``) when the same inequality holds at the global
+    scale, the exact per-shard scan (``DENSE``) otherwise, and to no
+    fan-out (``SINGLE_DEVICE``) when shards hold fewer than
+    ``min_shard_rows`` rows. ``force`` pins every group to one path:
+    local-flavoured forces pin the context's local path."""
 
     crossover: float = 0.136
     overhead: float = 2048.0  # per-batch fixed cost, in gathered-row units
@@ -70,6 +102,7 @@ class CostModel:
     # per-batch fixed cost of the walk's n_hops sequential hop steps
     graph_row_cost: float = 0.216
     overhead_graph: float = 328.3
+    min_shard_rows: int = 4096
     force: Optional[str] = None
 
     def constants(self, precision: str = "fp32") -> tuple:
@@ -94,12 +127,24 @@ class CostModel:
     def choose(self, *, batch: int, scan: int, n_rows: int,
                precision: str = "fp32") -> str:
         if self.force is not None:
-            return CANDIDATE_LOCAL if self.force == CANDIDATE_LOCAL \
-                else DENSE
+            return CANDIDATE_LOCAL \
+                if self.force in (CANDIDATE_LOCAL, SHARDED_LOCAL) else DENSE
         xo, oh = self.constants(precision)
         if batch * scan + oh <= xo * n_rows:
             return CANDIDATE_LOCAL
         return DENSE
+
+    def choose_sharded(self, *, batch: int, scan: int, n_rows: int,
+                       n_shards: int) -> str:
+        if self.force is not None:
+            if self.force in (CANDIDATE_LOCAL, SHARDED_LOCAL):
+                return SHARDED_LOCAL
+            return self.force  # DENSE or SINGLE_DEVICE
+        if n_rows // max(1, n_shards) < self.min_shard_rows:
+            return SINGLE_DEVICE
+        return SHARDED_LOCAL if self.choose(
+            batch=batch, scan=scan, n_rows=n_rows) == CANDIDATE_LOCAL \
+            else DENSE
 
 
 class ScoringDispatcher:
@@ -134,6 +179,23 @@ class ScoringDispatcher:
                                           precision=precision)
         self.decisions.append({"group": group, "batch": batch, "scan": scan,
                                "path": path, "precision": precision})
+        self.counts[path] = self.counts.get(path, 0) + 1
+        return path
+
+    def choose_sharded(self, *, batch: int, scan: int, n_shards: int,
+                       group=None, prefer_dense: bool = False) -> str:
+        """Route one sharded plan-driven group: per-shard IVF probing, the
+        exact per-shard scan, or no fan-out (``SINGLE_DEVICE`` delegates
+        to the plain chunk, which logs its own decision). The paid-for-GEMM
+        rule applies here too."""
+        if self.pins_dense(prefer_dense):
+            path = DENSE
+        else:
+            path = self.cost_model.choose_sharded(
+                batch=batch, scan=scan, n_rows=self.n_rows,
+                n_shards=n_shards)
+        self.decisions.append({"group": group, "batch": batch, "scan": scan,
+                               "path": path})
         self.counts[path] = self.counts.get(path, 0) + 1
         return path
 
@@ -198,6 +260,58 @@ def _gather_rerank_batch(rows_b, vectors, q_b, w_b, scalars, *, k, metric):
                              k=k, metric=metric)
 
 
+def _eval_mask_batch(pred_b, scalars):
+    """(B,) stacked predicates × (n, M) scalars -> (B, n) bool masks."""
+    return predicates.eval_mask(pred_b, scalars)
+
+
+def _selectivity_batch(hists, pred_b):
+    """(B,) histogram selectivity estimates of a stacked predicate batch:
+    statistics only, no table read."""
+    return histogram.estimate_selectivity(hists, pred_b)
+
+
+def _qualifying_rows_batch(mask_b, *, size):
+    """(B, n) bool masks -> (B, size) qualifying row ids, -1 padded."""
+    return nonzero_fixed(mask_b, size, -1).to(torch.int32)
+
+
+def _sharded_exact_retry(vectors, scalars, pred_b, q_b, w_b, need_b, *,
+                         shard_len, k, metric):
+    """Exact weighted filtered top-k over each query's flagged shards: one
+    ``torch.matmul`` per column scores the retry subset against the table,
+    the predicate mask is ANDed with the per-query shard-allow mask (rows
+    of other shards contribute nothing), then one top-k.
+    -> (ids (B, k) int32, scores (B, k))."""
+    n = scalars.shape[0]
+    ws = torch.zeros((w_b.shape[0], n), device=scalars.device)
+    for i, v in enumerate(vectors):
+        ws = ws + w_b[:, i, None] * similarity_batch(q_b[i], v, metric)
+    shard_of = torch.clamp(
+        torch.arange(n, device=scalars.device) // shard_len,
+        max=need_b.shape[1] - 1)
+    mask = _eval_mask_batch(pred_b, scalars) & need_b[:, shard_of]
+    top_s, top_i = topk_stable(torch.where(mask, ws, torch.full_like(ws, NEG)),
+                               k)
+    ids = torch.where(top_s > NEG / 2, top_i, torch.full_like(top_i, -1))
+    return ids.to(torch.int32), top_s
+
+
+def _to_host(*tensors) -> list:
+    """Read (B, ·) int32 / float32 tensors back in ONE transfer (floats
+    travel as their bits). -> numpy arrays in the same order and dtypes."""
+    parts = [t.to(torch.int32) if t.dtype != torch.float32
+             else t.view(torch.int32) for t in tensors]
+    host = torch.cat(parts, dim=1).cpu().numpy()
+    out, c = [], 0
+    for t in tensors:
+        a = host[:, c: c + t.shape[1]]
+        a = np.ascontiguousarray(a)
+        out.append(a.view(np.float32) if t.dtype == torch.float32 else a)
+        c += t.shape[1]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # batched executor
 # ---------------------------------------------------------------------------
@@ -205,18 +319,34 @@ def _gather_rerank_batch(rows_b, vectors, q_b, w_b, scalars, *, k, metric):
 class BatchedHybridExecutor:
     """Executes a list of (MHQ, ExecutionPlan) pairs group by group.
     Produces per-query results matching ``HybridExecutor`` up to float
-    reduction order and near-exact ties."""
+    reduction order and near-exact ties.
+
+    With ``n_shards > 1`` the executor also serves the CROSS-SHARD paths
+    over contiguous logical shards of the table
+    (:meth:`execute_batch_sharded`). A ``mesh`` raises
+    ``NotImplementedError``: the ``shard_map`` path is not ported."""
 
     def __init__(self, table: Table, indexes: list,
-                 engine: EngineCaps = PGVECTOR, *,
-                 cost_model: Optional[CostModel] = None, hists=None,
+                 engine: EngineCaps = PGVECTOR, *, n_shards: int = 1,
+                 mesh=None, cost_model: Optional[CostModel] = None, hists=None,
                  graphs=None):
+        if mesh is not None:
+            raise NotImplementedError(MESH_QUEUED)
         self.table = table
         self.indexes = indexes
         self.engine = engine
         self.hists = hists
         self.graphs = tuple(graphs) if graphs is not None else None
         self.dispatcher = ScoringDispatcher(table.n_rows, cost_model)
+        self.n_shards = max(1, int(n_shards))
+        # this executor's table only: an epoch swap builds a new executor,
+        # so per-shard indexes never outlive the epoch they were built on
+        self._sivf: dict = {}  # col -> ShardedIVF (lazy)
+        self._sivf_fns: dict = {}  # (group key, act) -> probing search
+        # positions (in the last execute_batch_sharded call) of queries
+        # whose probed result took the exact shard-subset retry; callers
+        # may clear it
+        self.escalated: set = set()
         self._seq = HybridExecutor(table, indexes, engine, graphs=graphs)
 
     def legalize(self, plan: ExecutionPlan) -> ExecutionPlan:
@@ -287,6 +417,265 @@ class BatchedHybridExecutor:
                 self._run_chunk(key, [queries[j] for j in part], part, out,
                                 bucket_cap=chunk, scores_b=scores_b)
         return out
+
+    # -- cross-shard execution ---------------------------------------------
+
+    def execute_batch_sharded(self, queries: list,
+                              plans: Optional[list] = None, *,
+                              scores_b: Optional[tuple] = None) -> list:
+        """Cross-shard fan-out of a formed batch. -> one (ids (k,), scores
+        (k,)) numpy pair per query, in order.
+
+        Without ``plans`` (the exact mode) queries group by (clause bucket,
+        k) and every group runs the EXACT sharded scan. With ``plans``
+        groups form as in ``execute_batch``: filter_first groups take the
+        exact sharded scan, graph groups the single-device walk, and index
+        groups are routed by ``ScoringDispatcher.choose_sharded`` to
+        per-shard IVF probing (``SHARDED_LOCAL``), the exact sharded scan
+        (``DENSE``) or the plain chunk (``SINGLE_DEVICE``)."""
+        out: list = [None] * len(queries)
+        chunk = pow2_at_most(max(1, min(
+            MAX_BATCH_KERNEL, SLOT_BUDGET // max(self.table.n_rows, 1))))
+        if plans is None:
+            groups: dict = {}
+            for j, q in enumerate(queries):
+                groups.setdefault(
+                    (predicates.clause_bucket(q.predicates), q.k),
+                    []).append(j)
+            for (_, k), idxs in groups.items():
+                for s in range(0, len(idxs), chunk):
+                    part = idxs[s: s + chunk]
+                    self._run_chunk_sharded(
+                        [queries[j] for j in part], part, out, k=k,
+                        bucket_cap=chunk, scores_b=scores_b)
+            return out
+        if len(plans) != len(queries):
+            raise ValueError(f"{len(queries)} queries, {len(plans)} plans")
+        plans = [self.legalize(p) for p in plans]
+        groups = {}
+        for j, (q, p) in enumerate(zip(queries, plans)):
+            groups.setdefault(self._group_key(q, p), []).append(j)
+        for key, idxs in groups.items():
+            for s in range(0, len(idxs), chunk):
+                part = idxs[s: s + chunk]
+                qs = [queries[j] for j in part]
+                if key[0] == "ff":
+                    self._run_chunk_sharded(qs, part, out, k=key[2],
+                                            bucket_cap=chunk,
+                                            scores_b=scores_b)
+                    continue
+                if key[0] == "gr":
+                    # the graph is one whole-table adjacency, not a
+                    # per-shard structure: the single-device walk
+                    self._run_chunk(key, qs, part, out, bucket_cap=chunk,
+                                    scores_b=scores_b)
+                    continue
+                bb = min(next_bucket(len(part)), chunk)
+                path = self.dispatcher.choose_sharded(
+                    batch=bb, scan=self._group_scan(key),
+                    n_shards=self.n_shards,
+                    group=("sharded-ivf",) + key[:3],
+                    prefer_dense=scores_b is not None)
+                if path == SINGLE_DEVICE:
+                    self._run_chunk(key, qs, part, out, bucket_cap=chunk,
+                                    scores_b=scores_b)
+                elif path == SHARDED_LOCAL:
+                    self._run_chunk_sharded_ivf(key, qs, part, out,
+                                                bucket_cap=chunk)
+                else:
+                    self._run_chunk_sharded(qs, part, out, k=key[2],
+                                            bucket_cap=chunk,
+                                            scores_b=scores_b)
+        return out
+
+    # -- plan-driven per-shard IVF probing ----------------------------------
+
+    def _sivf_col(self, col: int):
+        """This executor's per-shard IVF of one column (built on first
+        use). Each shard keeps the bound index's FULL cluster count — the
+        per-shard slot budget is the global ``max_scan`` split S ways, and
+        finer clusters target those fewer slots better. One shard reuses
+        the bound index verbatim."""
+        if col not in self._sivf:
+            base = self.indexes[col]
+            self._sivf[col] = build_sharded_ivf(
+                self.table.vectors[col], self.n_shards,
+                n_clusters=base.n_clusters, seed=col,
+                metric=self.table.schema.metric, base_index=base)
+        return self._sivf[col]
+
+    def _sivf_fn(self, key, act: tuple):
+        """The per-shard probing search of one (group key, active-column
+        set), its plan params shard-legalized."""
+        fkey = (key, act)
+        if fkey not in self._sivf_fns:
+            k, subs = key[2], key[3]
+            shard_subs, total = [], 0
+            for (col, k_i, np0, ms, _it) in subs:
+                sivf = self._sivf_col(col)
+                k_s, np_s, ms_s = legalize_for_shard(
+                    k_i, np0, ms, n_shards=self.n_shards,
+                    shard_len=sivf.shard_len, n_clusters=sivf.n_clusters)
+                shard_subs.append((act.index(col), k_s,
+                                   subquery_width(k_s, ms_s), np_s, ms_s))
+                total += k_s
+            pad_total = (rrf_union_total(total) if len(shard_subs) > 1
+                         else next_bucket(total, CANDIDATE_PAD_FLOOR))
+            self._sivf_fns[fkey] = sharded_ivf_topk(
+                self.n_shards, subs=tuple(shard_subs), k=k,
+                metric=self.table.schema.metric, pad_total=pad_total)
+        return self._sivf_fns[fkey]
+
+    def _run_chunk_sharded_ivf(self, key, qs: list, part: list, out: list,
+                               *, bucket_cap: int):
+        """One plan-driven sharded group chunk: per-shard IVF probing with
+        the group's shard-legalized knobs, the candidate-local rerank
+        inside each shard and one O(shards · k) merge — no dense score
+        matrix. An int8-precision group scores fp32 here.
+
+        Then per-shard BOUNDARY escalation: on a full merge, a shard whose
+        weakest kept score reaches the merged k-th (its probing budget, not
+        the data, bound what it surfaced) is flagged; on a merged underfill
+        every shard that kept fewer than k is flagged. Flagged shards
+        re-run exactly for their queries only (``_escalate_shards``); with
+        one shard the boundary carries no signal and is not read."""
+        t = self.table
+        k, subs = key[2], key[3]
+        bb = min(next_bucket(len(qs)), bucket_cap)
+        pred_b, qv_b, w_b = self._stack_inputs(qs, bb)
+        vecs, qsb, wsub, act = self._active_columns(qs, qv_b, w_b)
+        sivfs = [self._sivf_col(col) for (col, *_r) in subs]
+        ids, scores, fill, bnd = self._sivf_fn(key, act)(
+            tuple(s.centroids for s in sivfs),
+            tuple(s.sorted_rows for s in sivfs),
+            tuple(s.offsets for s in sivfs),
+            vecs, t.scalars, pred_b, qsb, wsub)
+        # fill, boundary and the merged result in one transfer
+        ids_np, sc_np, fill_np, bnd_np = _to_host(ids, scores, fill, bnd)
+        under = (ids_np >= 0).sum(axis=1) < k  # (bb,) merged underfill
+        kth = sc_np[:, -1]  # merged k-th score (NEG when underfilled)
+        need = under[:, None] & (fill_np < k)
+        if fill_np.shape[1] > 1:
+            need |= ~under[:, None] & (bnd_np >= kth[:, None])
+        need[len(qs):] = False  # padding queries never escalate
+        self.escalated.update(part[j] for j in np.flatnonzero(
+            need.any(axis=1)))
+        if need.any():
+            ids, scores = self._escalate_shards(
+                ids, scores, need, k=k, pred_b=pred_b, vecs=vecs, qsb=qsb,
+                wsub=wsub)
+            ids_np, sc_np = _to_host(ids, scores)
+        for pos, j in enumerate(part):
+            out[j] = (ids_np[pos], sc_np[pos])
+
+    def _escalate_shards(self, ids, scores, need: np.ndarray, *, k: int,
+                         pred_b, vecs: tuple, qsb: tuple, wsub):
+        """Exact retry on the flagged shard-subset: the escalated queries
+        re-run as one dense masked top-k restricted to their flagged
+        shards' rows (``_sharded_exact_retry``), and a dedup-by-id merge
+        folds the retry into the probed results. Probe-found rows keep
+        their probed scores (first occurrence wins), so escalation only
+        ADDS rows."""
+        t = self.table
+        dev = t.device
+        shard_len = -(-t.n_rows // need.shape[1])
+        sel = np.flatnonzero(need.any(axis=1))
+        sel_p = pad_selection(sel)
+        sel_pt = torch.as_tensor(sel_p, device=dev)
+        need_p = np.array(need[sel_p])
+        need_p[len(sel):] = False  # padding rows draw nothing
+        e_ids, e_sc = _sharded_exact_retry(
+            vecs, t.scalars, predicates.take(pred_b, sel_p),
+            tuple(q[sel_pt] for q in qsb), wsub[sel_pt],
+            torch.as_tensor(need_p, device=dev),
+            shard_len=min(shard_len, t.n_rows), k=k,
+            metric=t.schema.metric)
+        cur_ids, cur_sc = merge_topk_unique(
+            torch.cat([ids[sel_pt], e_ids], dim=1),
+            torch.cat([scores[sel_pt], e_sc], dim=1), k)
+        sel_t = torch.as_tensor(sel, device=dev)
+        ids, scores = ids.clone(), scores.clone()
+        ids[sel_t] = cur_ids[: len(sel)]
+        scores[sel_t] = cur_sc[: len(sel)]
+        return ids, scores
+
+    def _run_chunk_sharded(self, qs: list, part: list, out: list, *, k: int,
+                           bucket_cap: int,
+                           scores_b: Optional[tuple] = None):
+        """One EXACT sharded group chunk, dispatcher-routed.
+
+        The candidate budget is the chunk's qualifying-row count: when it
+        clears the crossover, the chunk gathers and scores only the
+        qualifying rows through the fused kernel instead of scanning the
+        dense (bb, n) weighted scores. With histograms the gather width is
+        a static cap from the selectivity estimates (one scalar read), and
+        a query whose true count overflows it re-runs at its exact width
+        (``_regather_overflow``); without them one read of the counts sizes
+        the gather. Otherwise the per-shard scan over the dense scores
+        (``sharded_topk_ref``)."""
+        t = self.table
+        bb = min(next_bucket(len(qs)), bucket_cap)
+        pred_b, qv_b, w_b = self._stack_inputs(qs, bb)
+        mask = _eval_mask_batch(pred_b, t.scalars)
+        prefer_dense = scores_b is not None
+        n_qual = None
+        estimated = False
+        cap = next_bucket(t.n_rows)
+        if self.dispatcher.pins_dense(prefer_dense):
+            mc = t.n_rows  # candidate-local impossible: skip the read
+        elif self.hists is not None:
+            est = float(_selectivity_batch(self.hists, pred_b).max()) \
+                * t.n_rows
+            mc = min(next_bucket(max(int(np.ceil(est * CAP_MARGIN))
+                                     + CAP_SLACK, k, 1)), cap)
+            estimated = mc < cap
+        else:
+            n_qual = mask.sum(dim=1).cpu().numpy()
+            mc = min(next_bucket(max(int(n_qual.max()), k, 1)), cap)
+        path = self.dispatcher.choose(batch=bb, scan=mc,
+                                      group=("sharded", k),
+                                      prefer_dense=prefer_dense)
+        if path == CANDIDATE_LOCAL:
+            vecs, qsb, wsub, _ = self._active_columns(qs, qv_b, w_b)
+            out_ids, out_scores, _ = _gather_rerank_batch(
+                _qualifying_rows_batch(mask, size=mc), vecs, qsb, wsub,
+                t.scalars, k=k, metric=t.schema.metric)
+            if estimated:
+                if n_qual is None:
+                    n_qual = mask.sum(dim=1).cpu().numpy()
+                over = np.flatnonzero(n_qual[: len(qs)] > mc)
+                if over.size:
+                    out_ids, out_scores = self._regather_overflow(
+                        mask, n_qual, over, out_ids, out_scores, vecs, qsb,
+                        wsub, k=k)
+        else:
+            _, weighted_scores = self._chunk_scores(qs, part, bb, qv_b, w_b,
+                                                    scores_b)
+            out_ids, out_scores = sharded_topk_ref(
+                weighted_scores(), mask, k=k, n_shards=self.n_shards)
+        ids_np, scores_np = _to_host(out_ids, out_scores)
+        for pos, j in enumerate(part):
+            out[j] = (ids_np[pos], scores_np[pos])
+
+    def _regather_overflow(self, mask, n_qual: np.ndarray, over: np.ndarray,
+                           out_ids, out_scores, vecs, qsb, wsub, *, k: int):
+        """Overflow escalation of the histogram-capped exact gather: the
+        queries whose true qualifying count exceeded the cap re-run at
+        their exact width, so an under-shooting estimate never drops
+        rows."""
+        t = self.table
+        sel_pt = torch.as_tensor(pad_selection(over), device=t.device)
+        mc2 = min(next_bucket(max(int(n_qual[over].max()), k, 1)),
+                  next_bucket(t.n_rows))
+        ids2, sc2, _ = _gather_rerank_batch(
+            _qualifying_rows_batch(mask[sel_pt], size=mc2), vecs,
+            tuple(q[sel_pt] for q in qsb), wsub[sel_pt], t.scalars, k=k,
+            metric=t.schema.metric)
+        sel_t = torch.as_tensor(over, device=t.device)
+        out_ids, out_scores = out_ids.clone(), out_scores.clone()
+        out_ids[sel_t] = ids2[: len(over)]
+        out_scores[sel_t] = sc2[: len(over)]
+        return out_ids, out_scores
 
     def _stack_inputs(self, qs: list, bb: int):
         """Batch inputs padded (by repeating the first query) to bucket bb."""

@@ -54,7 +54,8 @@ def test_port_covers_the_slice_layout():
                 "core/boomhq.py", "serve/batch.py", "common/nn.py",
                 "train/optimizer.py", "bench/augment.py",
                 "bench/datasets.py", "bench/queries.py",
-                "vectordb/tiered.py", "serve/queue.py", "serve/semcache.py"):
+                "vectordb/tiered.py", "serve/queue.py", "serve/semcache.py",
+                "vectordb/distributed.py"):
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
 
@@ -110,6 +111,9 @@ def _entry_points():
         "convert.ivf_index": lambda **kw: convert.ivf_index(
             np.zeros((2, 4)), np.arange(3), np.asarray([0, 1, 3]), "dot",
             **kw),
+        "convert.sharded_ivf": lambda **kw: convert.sharded_ivf(
+            np.zeros((2, 2, 4)), np.asarray([[0, 1], [0, 0]]),
+            np.asarray([[0, 1, 2], [0, 1, 1]]), "dot", **kw),
         "convert.graph_index": lambda **kw: convert.graph_index(
             np.asarray([[1, -1], [0, 2], [1, -1]]), np.asarray([0, 2]), "l2",
             **kw),
@@ -158,4 +162,23 @@ def test_cpu_tensors_take_the_plain_version_without_building():
     out = gs.gather_score_topk(cand, vec, (torch.ones(1, 4),),
                                torch.ones(1, 1), torch.zeros(3, 1), k=2)
     assert out[0].tolist() == [[0, 1]]
+    assert gs.LAUNCHES == {"fp32": 0, "int8": 0}
+
+
+def test_sharded_executor_follows_its_table():
+    """The per-shard indexes a sharded executor builds lie on its table's
+    device, and a sharded serving pass over CPU tensors launches nothing."""
+    from repro_torch.bench import datasets
+    from repro_torch.kernels import gather_score as gs
+    from repro_torch.vectordb import distributed
+
+    table = datasets.make("part", rows=64, device="cpu")
+    sivf = distributed.build_sharded_ivf(table.vectors[0], 3, n_clusters=4)
+    assert sivf.centroids.device.type == "cpu"
+    assert (sivf.n_shards, sivf.shard_len) == (3, 22)
+    gs.reset_launches()
+    ids, _ = distributed.sharded_topk_ref(
+        torch.zeros((2, 64)), torch.ones((2, 64), dtype=torch.bool), k=4,
+        n_shards=3)
+    assert ids.device.type == "cpu" and ids.tolist()[0] == [0, 1, 2, 3]
     assert gs.LAUNCHES == {"fp32": 0, "int8": 0}

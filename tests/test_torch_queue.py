@@ -13,6 +13,8 @@ JAX package.
   no caller, a deadline passing between cut and dispatch times the request
   out (and exactly-at-deadline still serves), a zero budget never
   executes, and a stream keeps submission order with its report.
+* The engine over a ``bind_shards(3)`` port ``BoomHQ`` with the exact
+  sharded scan pinned serves the ground truth's scores.
 """
 import asyncio
 import time
@@ -292,3 +294,41 @@ def test_serve_stream_keeps_order_and_reports():
     assert rep.p99_ms >= rep.p50_ms and rep.mean_recall == 1.0
     assert rep.tenants[None]["n_ok"] == 9
     assert "p50" in rep.describe()
+
+
+def test_async_engine_serves_a_sharded_stream():
+    """The sharded case of ``tests/test_queue.py``: the engine over an
+    unfitted port ``BoomHQ`` (900-row ``part``) bound to 3 logical shards
+    with the exact sharded scan pinned (``CostModel(force=DENSE)``) —
+    every request served in order with the ground truth's scores
+    (``atol=1e-4``)."""
+    from repro_torch.bench import datasets, queries
+    from repro_torch.core.boomhq import BoomHQ, BoomHQConfig
+    from repro_torch.core.rewriter import RewriterConfig
+    from repro_torch.serve.batch import DENSE, CostModel
+    from repro_torch.vectordb import flat
+
+    table = datasets.make("part", rows=900, seed=4, device="cpu")
+    bq = BoomHQ(table, BoomHQConfig(
+        n_clusters=8, use_de=False, graph_degree=0,
+        rewriter=RewriterConfig(steps=10, refine_columns=False)))
+    bq.bind_shards(3).bind_cost_model(CostModel(force=DENSE))
+    wl = queries.gen_workload(table, 8, n_vec_used=2, seed=11)
+
+    async def main():
+        eng = AsyncServingEngine(bq, batch_size=3, max_wait=0.01)
+        return eng, await serve_stream(eng, wl)
+
+    eng, reqs = asyncio.run(main())
+    assert [r.query for r in reqs] == wl
+    assert all(r.status == OK for r in reqs)
+    assert bq._batched_executor().n_shards == 3
+    for r in reqs:
+        q = r.query
+        _, gt_s = flat.ground_truth(table, list(q.query_vectors),
+                                    list(q.weights), q.predicates, q.k)
+        np.testing.assert_allclose(np.asarray(r.result[1]), gt_s.numpy(),
+                                   atol=1e-4, rtol=1e-5)
+    rep = eng.report()
+    assert rep.n_queries == len(wl) and rep.n_timed_out == 0
+    assert rep.qps > 0 and rep.p99_ms >= rep.p50_ms

@@ -1,4 +1,8 @@
-"""The id check ``chip_smoke.py`` holds every kernel to, on CPU tensors.
+"""The id check ``chip_smoke.py`` holds every kernel to, on CPU tensors,
+and the later phases' checks, each refusing planted faults (phase 10: a
+served row out of range, twice, failing its predicate or misscored; a
+wrong id from the exact route; an S=1 result differing from the unsharded
+one; gather launches per probing chunk growing with the shard count).
 
 ``_held_to_plain`` lets a kernel's ids differ from the plain version's only
 where the plain version itself ties; ``_refuses_planted_ids`` swaps two
@@ -543,3 +547,169 @@ def test_count_launches_counts_only_its_window(smoke):
     smoke.count_launches(lambda: serve(2, 4), counts)
     assert counts == {"serving": {"fp32": 5, "int8": 2},
                       "prewarm": {"fp32": 5, "int8": 0}}
+
+
+# ---------------------------------------------------------------------------
+# phase 10's checks (logical shards)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def sharded(smoke):
+    """(2,000-row ``part``, its IVF indexes of 16 clusters, 32 queries, and
+    their results through ``execute_batch_sharded`` over 2 shards under
+    the exact scan and under per-shard probing)."""
+    from repro_torch.bench import datasets, queries as qgen
+    from repro_torch.core.query import ExecutionPlan, SubqueryParams
+    from repro_torch.serve.batch import (
+        DENSE, SHARDED_LOCAL, BatchedHybridExecutor, CostModel,
+    )
+    from repro_torch.vectordb import ivf
+
+    t = datasets.make("part", rows=2000, seed=0, device="cpu")
+    idx = [ivf.build(v, 16, seed=i) for i, v in enumerate(t.vectors)]
+    wl = qgen.gen_workload(t, 24, n_vec_used=2, seed=3) + \
+        qgen.gen_dnf_workload(t, 8, n_vec_used=2, seed=4)
+    exact = BatchedHybridExecutor(t, idx, n_shards=2,
+                                  cost_model=CostModel(force=DENSE)
+                                  ).execute_batch_sharded(wl)
+    plan = ExecutionPlan("index_scan", tuple(SubqueryParams(
+        k_mult=2, nprobe=2, max_scan=256, iterative=False)
+        for _ in range(2)))
+    probed = BatchedHybridExecutor(t, idx, n_shards=2,
+                                   cost_model=CostModel(force=SHARDED_LOCAL)
+                                   ).execute_batch_sharded(
+        wl, [plan] * len(wl))
+    return t, idx, wl, exact, probed
+
+
+def _plant(results, j, ids=None, scores=None):
+    out = [(i.copy(), s.copy()) for i, s in results]
+    if ids is not None:
+        out[j][0][:] = ids
+    if scores is not None:
+        out[j][1][:] = scores
+    return out
+
+
+def test_served_check_passes_both_routes(smoke, sharded):
+    t, _, wl, exact, probed = sharded
+    for res in (exact, probed):
+        assert smoke.check_served(t, wl, res, "x") <= smoke.ATOL
+
+
+@pytest.mark.parametrize("fault", ["out_of_range", "twice", "fails_pred",
+                                   "wrong_score", "empty_scored"])
+def test_served_check_refuses(smoke, sharded, fault):
+    from repro_torch.vectordb import predicates
+
+    t, _, wl, exact, _ = sharded
+    j = next(j for j, q in enumerate(wl)
+             if not predicates.eval_mask(q.predicates, t.scalars).all()
+             and (exact[j][0] >= 0).sum() >= 2)
+    ids, sc = exact[j]
+    if fault == "out_of_range":
+        bad, msg = _plant(exact, j, ids=np.where(ids == ids[0], t.n_rows,
+                                                 ids)), "out of range"
+    elif fault == "twice":
+        bad, msg = _plant(exact, j, ids=np.where(ids == ids[1], ids[0],
+                                                 ids)), "twice"
+    elif fault == "fails_pred":
+        row = int(np.flatnonzero(~predicates.eval_mask(
+            wl[j].predicates, t.scalars).numpy())[0])
+        bad, msg = _plant(exact, j, ids=np.where(ids == ids[0], row,
+                                                 ids)), "fails"
+    elif fault == "wrong_score":
+        bad, msg = _plant(exact, j, scores=sc + np.float32(0.1) * (
+            ids >= 0)), "not its row"
+    else:
+        bad, msg = _plant(exact, j), "empty slot"
+        bad[j][0][-1], bad[j][1][-1] = -1, sc[0]
+    with pytest.raises(AssertionError, match=msg):
+        smoke.check_served(t, wl, bad, "x")
+
+
+def test_exact_check_refuses_a_wrong_id_from_the_exact_route(smoke, sharded):
+    """The exact route's results pass; a row swapped for one ranked below
+    the top-k (its true score planted with it) is refused."""
+    from repro_torch.vectordb import flat
+
+    t, _, wl, exact, _ = sharded
+    assert smoke.check_exact(t, wl, exact, "x") >= 0
+    j = next(j for j, (ids, _) in enumerate(exact) if (ids >= 0).all())
+    q = wl[j]
+    ids20, s20 = flat.ground_truth(t, list(q.query_vectors), list(q.weights),
+                                   q.predicates, 20)
+    bad = _plant(exact, j)
+    bad[j][0][-1], bad[j][1][-1] = int(ids20[15]), float(s20[15])
+    with pytest.raises(AssertionError):
+        smoke.check_exact(t, wl, bad, "x")
+
+
+def test_same_results_check_refuses_a_differing_s1_result(smoke, sharded):
+    _, _, _, exact, _ = sharded
+    smoke.check_same_results(exact, _plant(exact, 0), "x")
+    ids, sc = exact[3]
+    with pytest.raises(AssertionError, match="query 3 differs"):
+        smoke.check_same_results(exact, _plant(exact, 3, ids=ids[::-1]),
+                                 "x")
+    with pytest.raises(AssertionError, match="query 3 differs"):
+        smoke.check_same_results(
+            exact, _plant(exact, 3, scores=np.nextafter(sc, np.float32(0))),
+            "x")
+
+
+def test_shard_launch_check_refuses_launches_growing_with_shards(smoke):
+    ok = [dict(shards=s, cols=c, fp32=c + 1, int8=0)
+          for s in (2, 4) for c in (1, 2)]
+    smoke.check_shard_launches(ok, "x")
+    for bad in (dict(shards=4, cols=2, fp32=2 * 4 + 1, int8=0),
+                dict(shards=2, cols=1, fp32=2, int8=1)):
+        with pytest.raises(AssertionError, match="expected"):
+            smoke.check_shard_launches(ok + [bad], "x")
+
+
+def test_sharded_case_is_what_the_probing_path_launches(smoke, sharded,
+                                                        monkeypatch):
+    """Phase 3's sharded case holds the candidates ``sharded_ivf_topk``
+    gives the gather kernel for its first probed column, on the same
+    per-shard index and queries: the first ``BATCH`` queries folded over
+    ``SHARD_PROBE`` shards, global ids, each row's slots in its own
+    shard."""
+    from repro_torch.core.executor import legalize_for_shard, subquery_width
+    from repro_torch.kernels import gather_score as gs
+    from repro_torch.vectordb import distributed, predicates
+
+    t, _, wl, _, _ = sharded
+    ((label, variant, a),) = smoke.sharded_case(t, wl, "cpu")
+    assert variant == "fp32" and a["cand"].shape[0] == smoke.SHARD_PROBE \
+        * smoke.BATCH
+    sivf = distributed.build_sharded_ivf(t.vectors[0], smoke.SHARD_PROBE,
+                                         n_clusters=32, seed=0)
+    k_s, np_s, ms_s = legalize_for_shard(
+        20, 2, smoke.SHARD_MAX_SCAN, n_shards=smoke.SHARD_PROBE,
+        shard_len=sivf.shard_len, n_clusters=sivf.n_clusters)
+    seen = []
+    monkeypatch.setattr(gs, "gather_score_topk", lambda cand, *args, **kw: (
+        seen.append((cand, args, kw))
+        or (torch.full((cand.shape[0], kw["k"]), -1, dtype=torch.int32),
+            torch.full((cand.shape[0], kw["k"]), NEG),
+            torch.zeros(cand.shape[0], dtype=torch.int32))))
+    fn = distributed.sharded_ivf_topk(
+        smoke.SHARD_PROBE, subs=((0, k_s, subquery_width(k_s, ms_s), np_s,
+                                  ms_s),), k=10, metric="dot", pad_total=64)
+    qs = wl[: smoke.BATCH]
+    fn((sivf.centroids,), (sivf.sorted_rows,), (sivf.offsets,),
+       (t.vectors[0],), t.scalars, predicates.take(a["pred"],
+                                                   np.arange(len(qs))),
+       (a["qs"][0][: len(qs)],), torch.ones((len(qs), 1)))
+    cand, args, kw = seen[0]
+    assert torch.equal(cand, a["cand"]) and kw["k"] == a["k"]
+    for f in ("active", "lo", "hi", "clause_valid"):
+        assert torch.equal(getattr(args[4], f), getattr(a["pred"], f))
+    shard = torch.arange(cand.shape[0]) // len(qs)
+    live = cand >= 0
+    assert (live.sum(1) > 0).all()
+    assert ((cand.long() // sivf.shard_len == shard[:, None]) | ~live).all()
+    for x, y in zip(a["qs"], [torch.stack([q.query_vectors[i] for q in qs])
+                              for i in range(2)]):
+        assert torch.equal(x, y.repeat(smoke.SHARD_PROBE, 1))

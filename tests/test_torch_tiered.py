@@ -19,7 +19,8 @@ inserts. In definition order (the tests share the two instances):
 * hot rows are filtered exactly; the ``rebuild_every`` decision is taken
   at seal time; publishing a view costs no device transfer; compaction
   runs in the background under the async engine with every request
-  served, and ``unbind_tiered`` folds leftover hot rows in.
+  served, and ``unbind_tiered`` folds leftover hot rows in;
+* under ``bind_shards(2)`` an empty hot segment still changes nothing.
 """
 import asyncio
 
@@ -214,6 +215,31 @@ def test_compaction_matches_jax_and_isolates_snapshots(pair):
     assert _union_recall(snap_a, theld[:6], r3) >= \
         _union_recall(snap_a, theld[:6], r1) - 0.02
     _same_all(tbq.execute_batch(theld[:16]), jbq.execute_batch(jheld[:16]))
+
+
+# -- 5 of tests/test_tiered.py: parity holds under bind_shards too ----------
+
+def test_sharded_empty_hot_parity(pair):
+    """After the compaction the hot segment is empty: under
+    ``bind_shards(2)`` the tiered instance serves bit for bit what the
+    untiered one serves, and the same results as JAX's (the 660-row
+    shards route index groups single-device, filter_first groups take the
+    exact sharded scan)."""
+    jbq, tbq, jheld, theld = pair
+    assert not tbq.tiered.snapshot().hot_views
+    tbq.bind_shards(2)
+    jbq.bind_shards(2)
+    try:
+        got = tbq.execute_batch(theld[:6])
+        assert tbq._batched_executor().n_shards == 2
+        _same_all(got, jbq.execute_batch(jheld[:6]))
+        tbq.unbind_tiered()
+        base = tbq.execute_batch(theld[:6])
+    finally:
+        tbq.bind_shards(1)
+        jbq.bind_shards(1)
+    for (bi, bs), (ti, ts) in zip(base, got):
+        assert np.array_equal(bi, ti) and np.array_equal(bs, ts)
 
 
 # -- 4: standalone claims of tests/test_tiered.py on the port ----------------
