@@ -74,8 +74,10 @@ Phases (any failure raises and exits non-zero):
      scan must match ``flat.ground_truth`` on that column (scores within
      the phase-3 tolerance, ids equal except between ties) and the int8
      scan must return as many valid rows; both kernels must have launched;
-  6. a profile of one candidate-local batch and of one graph batch (device
-     time by kernel);
+  6. (run after phases 10 and 11) a profile of one candidate-local batch
+     and of one graph batch (device time by kernel), then one batch of
+     each phase-10 configuration (S, route) after a warm batch, its wall
+     and device-busy ms;
   7. data updates on the served instance: column 0's int8 replica built,
      then two skewed inserts (a copy of ``benchmarks/data_updates``'s
      ``_skewed_insert``, ratios 0.1 and 0.5 of the 200,000 rows: +20,000
@@ -138,28 +140,53 @@ Phases (any failure raises and exits non-zero):
      pass before the stream, the stream and the pass after it); the
      compaction thread's warm-up launches are counted apart, and the
      oracle and ``default_plan`` comparisons are not counted;
- 10. logical shards, run after phase 6 and before phase 7 on phase 4's
-     instance: for S ∈ {1, 2, 4} (``bind_shards(S)``; S=1 is the
-     unsharded path) the 256 serving queries through
+ 10. logical shards, run after phase 5 and before phase 6's profiler
+     (once it has run, host-bound serving in the process reads slower)
+     on phase 4's instance: for S ∈ {1, 2, 4} (``bind_shards(S)``; S=1 is
+     the unsharded path) the 256 serving queries through
      ``ServingEngine(batch_size=32)`` under the default cost model and
      ``CostModel(force=...)`` "candidate_local" (index groups probe per
      shard), "dense" (the exact sharded scan) and "single_device", then
      a fixed-plan pass (``default_plan`` without re-expansion, every index
      group forced to per-shard probing) through ``execute_batch_sharded``
      of an executor over S shards: QPS, recall@10, routes, escalated
-     queries, gather launches per probing chunk, one batch's device-busy
-     ms, and each S's ``ShardedIVF`` build seconds. Fails unless every
+     queries, gather launches per probing chunk, and each S's
+     ``ShardedIVF`` build seconds (phase 6 profiles one batch of each
+     configuration). Fails unless every
      served id is distinct, in range, satisfies its predicate and carries
      its row's plain score; every query on an exact route equals its
      exact filtered top-k (ties aside); the forced S=1 pass equals phase
      4's forced pass bit for bit, and the fixed-plan S=1 pass the same
      plan on one device wherever it did not escalate; every probing chunk
      launches the fp32 kernel once per probed column plus once (never the
-     int8 stage), whatever S; and the forced S=2, 4 passes launch it.
+     int8 stage), whatever S; and the forced S=2, 4 passes launch it;
+ 11. the mesh (``torch.distributed``), right after phase 10 on the same
+     instance. (a) A one-rank NCCL world in this process and its
+     ``(data,)`` ``DeviceMesh``: ``bind_shards(mesh=)`` serves the 256
+     queries through ``ServingEngine(batch_size=32)`` under the default
+     cost model, forced candidate_local and forced dense, each with phase
+     10's checks, and every ``execute_batch_sharded`` call of each pass
+     must equal the logical one-shard executor's on the same plans and
+     dense matrices (the probing route bit for bit with the same
+     escalated queries and per-shard fill and boundary, the exact route
+     ties aside); then phase 10's fixed-plan pass on a mesh executor, bit
+     for bit phase 10's S=1 pass. (b) Four gloo ranks in their own
+     processes on the one card (a check of correctness, not of four
+     cards: gloo moves each gather through host memory), each given only
+     its 50,000 rows (its table is NaN elsewhere) and its shard of phase
+     10's S=4 indexes: the fixed-plan pass and the same plans forced
+     dense through ``BatchedHybridExecutor(mesh=)``, every rank equal to
+     the logical S=4 passes (ids, escalated queries, per-shard fill;
+     scores and boundaries within 1e-5), every rank launching the fp32
+     kernel once per probed column plus once a probing chunk. Every
+     process group has a finite timeout and is destroyed after its
+     phase.
 
 The ``launches`` of the kernel report sum the main paths' counts (phase 4,
-7, 9 and 10's serving passes, phase 8's searches for the gather kernels;
-phase 5 for the scans); ``chip_smoke.json`` keeps each phase's apart.
+7, 9, 10 and 11's serving passes, phase 11's ranks included, phase 8's
+searches for the gather kernels; phase 5 for the scans);
+``chip_smoke.json`` keeps each phase's apart. The phases run in the order
+1–5, 10, 11, 6–9.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -169,12 +196,15 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextlib
 import dataclasses
+import datetime
 import json
 import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -215,6 +245,11 @@ PAUSE_SLACK = 0.25  # run_mixed's slack for asyncio scheduling jitter
 # (S=4 shards of the table, a global max_scan of 8192 split over them)
 SHARD_COUNTS = (1, 2, 4)
 SHARD_PROBE, SHARD_MAX_SCAN = 4, 8192
+# phase 11: the gloo ranks of (b), every process group's timeout, and the
+# score tolerance of a mesh rank against the logical shards
+MESH_RANKS = 4
+MESH_TIMEOUT_S = 120
+MESH_ATOL = 1e-5
 T0 = time.perf_counter()
 
 
@@ -2112,14 +2147,24 @@ def check_exact(table, queries, results, label: str) -> int:
     """Each result equals its query's exact filtered top-k
     (``flat.ground_truth``) under ``_held_to_plain``: scores within the
     phase-3 tolerance, ids equal except between ties. -> id swaps."""
-    from repro_torch.kernels.ref import gather_scores_ref
     from repro_torch.vectordb import flat
+
+    base = [flat.ground_truth(table, list(q.query_vectors), list(q.weights),
+                              q.predicates, q.k) for q in queries]
+    return check_tied(table, queries, results, base, label)
+
+
+def check_tied(table, queries, results, base, label: str) -> int:
+    """Each result equals its ``base`` result (ids, scores) under
+    ``_held_to_plain``: scores within the phase-3 tolerance, ids equal
+    except between ties. -> id swaps."""
+    from repro_torch.kernels.ref import gather_scores_ref
 
     dev = table.device
     swaps = 0
-    for q, (ids, scores) in zip(queries, results):
-        gt_i, gt_s = flat.ground_truth(table, list(q.query_vectors),
-                                       list(q.weights), q.predicates, q.k)
+    for q, (ids, scores), (gt_i, gt_s) in zip(queries, results, base):
+        gt_i = torch.as_tensor(gt_i, device=dev)
+        gt_s = torch.as_tensor(gt_s, device=dev)
         qs, w, fields = _query_fields(table, [q])
 
         def rescore(got, qs=qs, w=w, fields=fields):
@@ -2168,31 +2213,83 @@ def fixed_plan(n_vec: int, engine):
         dataclasses.replace(sp, iterative=False) for sp in plan.subqueries))
 
 
-def fixed_plan_pass(bq, queries, gt, s: int, chunks: list, launches: dict,
-                    base: list) -> dict:
-    """``queries`` through ``execute_batch_sharded`` of an executor over
-    ``s`` logical shards of the instance's table, every index group forced
-    to per-shard probing under ``fixed_plan``, batch by batch after one
-    warm-up batch; ``chunks`` collects the probing chunks (phase 10's
-    wrapper). Every chunk must launch the fp32 kernel once per probed
-    column plus once; with one shard every query that did not escalate
-    must equal ``base`` (the same plan on one device) bit for bit."""
-    from repro_torch.core.executor import recall_at_k
+@contextlib.contextmanager
+def sharded_records():
+    """Record, while the block runs, what the executor's sharded routes do.
+    -> a dict of lists: ``chunks`` (one dict per per-shard probing chunk:
+    its shard count, probed columns, queries, escalated queries and gather
+    launches), ``exact`` (the ``id()`` of every query on the exact route),
+    ``probes`` (each probing search's gathered per-shard ``fill`` and
+    ``boundary``: on a mesh, the order the shards came in) and ``calls``
+    (each ``execute_batch_sharded`` call: its queries, plans, dense
+    matrices, results, escalated positions and probes)."""
     from repro_torch.kernels import gather_score as gs
-    from repro_torch.serve.batch import (
-        SHARDED_LOCAL, BatchedHybridExecutor, CostModel,
-    )
+    from repro_torch.serve.batch import BatchedHybridExecutor as BX
 
-    label = f"S={s} fixed plan"
-    bx = BatchedHybridExecutor(bq.table, bq.indexes, bq.engine, n_shards=s,
-                               hists=bq.hists, graphs=bq.graphs,
-                               cost_model=CostModel(force=SHARDED_LOCAL))
-    plans = [fixed_plan(q.n_vec, bq.engine) for q in queries]
-    before = dict(gs.LAUNCHES)
+    rec = dict(chunks=[], exact=set(), probes=[], calls=[])
+    orig = (BX._run_chunk_sharded_ivf, BX._run_chunk_sharded, BX._sivf_fn,
+            BX.execute_batch_sharded)
+
+    def counted_probe(self, key, qs, part, out, *, bucket_cap):
+        before, kept = dict(gs.LAUNCHES), set(self.escalated)
+        self.escalated.clear()
+        orig[0](self, key, qs, part, out, bucket_cap=bucket_cap)
+        rec["chunks"].append(dict(
+            shards=self.n_shards, cols=len(key[3]), queries=len(qs),
+            escalated=len(self.escalated),
+            **{k: gs.LAUNCHES[k] - before[k] for k in gs.LAUNCHES}))
+        self.escalated |= kept
+
+    def counted_exact(self, qs, part, out, **kw):
+        rec["exact"].update(id(q) for q in qs)
+        return orig[1](self, qs, part, out, **kw)
+
+    def recorded_search(self, key, act):
+        fn = orig[2](self, key, act)
+
+        def run(*args):
+            res = fn(*args)
+            rec["probes"].append((res[2].clone(), res[3].clone()))
+            return res
+
+        return run
+
+    def captured_call(self, queries, plans=None, *, scores_b=None):
+        kept, p0 = set(self.escalated), len(rec["probes"])
+        self.escalated.clear()
+        res = orig[3](self, queries, plans, scores_b=scores_b)
+        rec["calls"].append(dict(
+            queries=list(queries), plans=plans, scores_b=scores_b,
+            results=res, escalated=set(self.escalated),
+            probes=rec["probes"][p0:]))
+        self.escalated |= kept
+        return res
+
+    (BX._run_chunk_sharded_ivf, BX._run_chunk_sharded, BX._sivf_fn,
+     BX.execute_batch_sharded) = (counted_probe, counted_exact,
+                                  recorded_search, captured_call)
+    try:
+        yield rec
+    finally:
+        (BX._run_chunk_sharded_ivf, BX._run_chunk_sharded, BX._sivf_fn,
+         BX.execute_batch_sharded) = orig
+
+
+def _clear(rec: dict) -> None:
+    for v in rec.values():
+        v.clear()
+
+
+def fixed_batches(bx, queries, plans, rec: dict) -> tuple:
+    """``queries`` through ``bx.execute_batch_sharded`` batch by batch
+    after one warm-up batch (``rec`` cleared after it).
+    -> (results, escalated query positions, seconds)."""
+    from repro_torch.common.device import synchronize
+
     bx.execute_batch_sharded(queries[:BATCH], plans[:BATCH])
     bx.dispatcher.take()
-    chunks.clear()
-    torch.cuda.synchronize()
+    _clear(rec)
+    synchronize(bx.table.device)
     t = time.perf_counter()
     results, escalated = [], []
     for b0 in range(0, len(queries), BATCH):
@@ -2200,76 +2297,142 @@ def fixed_plan_pass(bq, queries, gt, s: int, chunks: list, launches: dict,
         results.extend(bx.execute_batch_sharded(queries[b0: b0 + BATCH],
                                                 plans[b0: b0 + BATCH]))
         escalated.extend(b0 + j for j in bx.escalated)
-    seconds = time.perf_counter() - t
+    return results, escalated, time.perf_counter() - t
+
+
+def _host_probes(probes) -> list:
+    return [(f.cpu().numpy(), b.cpu().numpy()) for f, b in probes]
+
+
+def fixed_plan_pass(bq, queries, gt, label: str, launches: dict, rec: dict,
+                    *, force: str, **shards) -> tuple:
+    """``queries`` through ``execute_batch_sharded`` of an executor over the
+    instance's table and ``shards`` (``n_shards=`` logical shards or a
+    ``mesh=``), every index group forced to ``force`` under ``fixed_plan``,
+    batch by batch after one warm-up batch; ``rec`` is
+    ``sharded_records``'. Every served id must be distinct, in range,
+    satisfy its predicate and carry its row's plain score. Per-shard
+    probing: every chunk must launch the fp32 kernel once per probed
+    column plus once. The exact scan: every result the exact filtered
+    top-k, ties aside. -> (report, dict(results, escalated, probes,
+    sivf: the executor's per-shard indexes))."""
+    from repro_torch.core.executor import recall_at_k
+    from repro_torch.kernels import gather_score as gs
+    from repro_torch.serve.batch import (
+        SHARDED_LOCAL, BatchedHybridExecutor, CostModel,
+    )
+
+    bx = BatchedHybridExecutor(bq.table, bq.indexes, bq.engine,
+                               hists=bq.hists, graphs=bq.graphs,
+                               cost_model=CostModel(force=force), **shards)
+    plans = [fixed_plan(q.n_vec, bq.engine) for q in queries]
+    before = dict(gs.LAUNCHES)
+    results, escalated, seconds = fixed_batches(bx, queries, plans, rec)
     lc = {k: gs.LAUNCHES[k] - before[k] for k in gs.LAUNCHES}
     for k in launches:
         launches[k] += lc[k]
     counts = bx.dispatcher.take()[0]
     _check_results(results, label)
     err = check_served(bq.table, queries, results, label)
-    if not chunks:
-        raise AssertionError(f"{label}: no per-shard probing chunk ran")
-    check_shard_launches(chunks, label)
-    if s == 1:
-        kept = [j for j in range(len(queries)) if j not in set(escalated)]
-        check_same_results([results[j] for j in kept],
-                           [base[j] for j in kept], label)
+    swaps = 0
+    if force == SHARDED_LOCAL:
+        if not rec["chunks"]:
+            raise AssertionError(f"{label}: no per-shard probing chunk ran")
+        check_shard_launches(rec["chunks"], label)
+    else:
+        swaps = check_exact(bq.table, queries, results, label)
     recall = float(np.mean([recall_at_k(ids, g)
                             for (ids, _), g in zip(results, gt)]))
-    base_recall = float(np.mean([recall_at_k(ids, g)
-                                 for (ids, _), g in zip(base, gt)]))
-    per_chunk = sorted({(c["cols"], c["fp32"]) for c in chunks})
-    out = dict(shards=s, route="fixed plan, forced sharded_local",
+    per_chunk = sorted({(c["cols"], c["fp32"]) for c in rec["chunks"]})
+    out = dict(shards=bx.n_shards, mesh=bx.mesh is not None,
+               route=f"fixed plan, forced {force}",
                qps=len(queries) / seconds, seconds=seconds,
-               mean_recall=recall, one_device_recall=base_recall,
-               path_counts=counts, launches=lc, probe_chunks=len(chunks),
+               mean_recall=recall, path_counts=counts, launches=lc,
+               probe_chunks=len(rec["chunks"]),
+               probe_fp32_launches=sum(c["fp32"] for c in rec["chunks"]),
+               launches_per_probe_chunk=per_chunk,
+               escalated=len(escalated), exact_tie_swaps=swaps,
+               max_abs_err=err)
+    log(f"  serve[{label}]: {len(queries)} queries in {seconds:.2f}s "
+        f"({out['qps']:.1f} QPS, mean recall {recall:.4f}), paths {counts}, "
+        f"launches {lc}; {len(rec['chunks'])} probing chunks ((cols, fp32 "
+        f"launches) {per_chunk}), {len(escalated)} escalated; max|err| "
+        f"{err:.3g}")
+    return out, dict(results=results, escalated=set(escalated),
+                     probes=_host_probes(rec["probes"]), sivf=dict(bx._sivf))
+
+
+def shard_pass(bq, queries, gt, label: str, launches: dict,
+               rec: dict) -> tuple:
+    """``queries`` through ``ServingEngine(batch_size=BATCH)`` on the
+    instance's bound shard config after a warm-up (``rec`` cleared after
+    it), with phase 10's checks: every served id distinct, in range,
+    satisfying its predicate and carrying its row's plain score; every
+    query on an exact route its exact filtered top-k, ties aside; every
+    probing chunk launching the fp32 kernel once per probed column plus
+    once. -> (results, the pass's report)."""
+    from repro_torch.kernels import gather_score as gs
+    from repro_torch.serve.batch import ServingEngine
+
+    before = dict(gs.LAUNCHES)
+    engine = ServingEngine(bq, batch_size=BATCH)
+    engine.warmup(queries)
+    _clear(rec)
+    results, rep = engine.serve(queries, gt_ids=gt)
+    lc = {k: gs.LAUNCHES[k] - before[k] for k in gs.LAUNCHES}
+    for k in launches:
+        launches[k] += lc[k]
+    _check_results(results, label)
+    err = check_served(bq.table, queries, results, label)
+    exact = [j for j, q in enumerate(queries) if id(q) in rec["exact"]]
+    swaps = check_exact(bq.table, [queries[j] for j in exact],
+                        [results[j] for j in exact], label)
+    chunks = rec["chunks"]
+    check_shard_launches(chunks, label)
+    per_chunk = sorted({(c["cols"], c["fp32"]) for c in chunks})
+    out = dict(qps=rep.qps, seconds=rep.seconds, mean_recall=rep.mean_recall,
+               path_counts=rep.path_counts, launches=lc,
+               probe_chunks=len(chunks),
                probe_fp32_launches=sum(c["fp32"] for c in chunks),
                launches_per_probe_chunk=per_chunk,
-               escalated=len(escalated), max_abs_err=err)
-    log(f"  serve[{label}]: {len(queries)} queries in {seconds:.2f}s "
-        f"({out['qps']:.1f} QPS, mean recall {recall:.4f} against "
-        f"{base_recall:.4f} on one device), paths {counts}, launches {lc}; "
-        f"{len(chunks)} probing chunks ((cols, fp32 launches) {per_chunk}), "
-        f"{len(escalated)} escalated; max|err| {err:.3g}")
-    return out
+               escalated=sum(c["escalated"] for c in chunks),
+               exact_route_queries=len(exact), exact_tie_swaps=swaps,
+               max_abs_err=err)
+    log(f"  serve[{label}]: {rep.describe()}; launches {lc}; {len(chunks)} "
+        f"probing chunks ((cols, fp32 launches) {per_chunk}), "
+        f"{out['escalated']} escalated; {len(exact)} queries on the exact "
+        f"route ({swaps} tie swaps); max|err| {err:.3g}")
+    return results, out
 
 
-def shard_phase(bq, queries, gt, unsharded, device) -> dict:
+SHARD_ROUTES = ("default", "sharded_local", "dense", "single_device")
+
+
+def shard_cost_model(route: str):
+    """Phase 10's cost model of a route: the default one, or every group
+    forced (``candidate_local`` routes index groups ``sharded_local``)."""
+    from repro_torch.serve.batch import (
+        CANDIDATE_LOCAL, DENSE, SINGLE_DEVICE, CostModel,
+    )
+
+    force = {"default": None, "sharded_local": CANDIDATE_LOCAL,
+             "dense": DENSE, "single_device": SINGLE_DEVICE}[route]
+    return None if force is None else CostModel(force=force)
+
+
+def shard_phase(bq, queries, gt, unsharded, device) -> tuple:
     """Phase 10: the fitted instance bound to S ∈ ``SHARD_COUNTS`` logical
     shards, serving ``queries`` at batch ``BATCH`` under the default cost
-    model and forced to per-shard probing (``candidate_local`` routes index
-    groups ``sharded_local``), to the exact sharded scan (``dense``) and to
-    no fan-out (``single_device``). ``unsharded``: phase 4's forced
-    candidate-local (results, report). ``bind_shards()`` restores the
-    instance. -> the passes' report and launches."""
-    from repro_torch.kernels import gather_score as gs
+    model and forced to per-shard probing, to the exact sharded scan and to
+    no fan-out (``SHARD_ROUTES``), then the fixed-plan pass per S.
+    ``unsharded``: phase 4's forced candidate-local (results, report).
+    ``bind_shards()`` restores the instance. -> (the passes' report and
+    launches, the fixed-plan passes' results by S for phase 11)."""
+    from repro_torch.core.executor import recall_at_k
     from repro_torch.serve.batch import (
-        CANDIDATE_LOCAL, DENSE, SINGLE_DEVICE, BatchedHybridExecutor,
-        CostModel, ServingEngine,
+        CANDIDATE_LOCAL, SHARDED_LOCAL, BatchedHybridExecutor, CostModel,
     )
     from repro_torch.vectordb import distributed
-
-    routes = (("default", None),
-              ("sharded_local", CostModel(force=CANDIDATE_LOCAL)),
-              ("dense", CostModel(force=DENSE)),
-              ("single_device", CostModel(force=SINGLE_DEVICE)))
-    chunks, exact_ids = [], set()
-    probe_chunk = BatchedHybridExecutor._run_chunk_sharded_ivf
-    exact_chunk = BatchedHybridExecutor._run_chunk_sharded
-
-    def counted_probe(self, key, qs, part, out, *, bucket_cap):
-        before, kept = dict(gs.LAUNCHES), set(self.escalated)
-        self.escalated.clear()
-        probe_chunk(self, key, qs, part, out, bucket_cap=bucket_cap)
-        chunks.append(dict(shards=self.n_shards, cols=len(key[3]),
-                           queries=len(qs), escalated=len(self.escalated),
-                           **{k: gs.LAUNCHES[k] - before[k]
-                              for k in gs.LAUNCHES}))
-        self.escalated |= kept
-
-    def counted_exact(self, qs, part, out, **kw):
-        exact_ids.update(id(q) for q in qs)
-        return exact_chunk(self, qs, part, out, **kw)
 
     launches = {"fp32": 0, "int8": 0}
     out = dict(build_s={}, passes={}, launches=launches,
@@ -2280,73 +2443,367 @@ def shard_phase(bq, queries, gt, unsharded, device) -> dict:
         bq.table, bq.indexes, bq.engine, hists=bq.hists, graphs=bq.graphs,
         cost_model=CostModel(force=CANDIDATE_LOCAL)).execute_batch(
         queries, [fixed_plan(q.n_vec, bq.engine) for q in queries])
-    BatchedHybridExecutor._run_chunk_sharded_ivf = counted_probe
-    BatchedHybridExecutor._run_chunk_sharded = counted_exact
+    base_recall = float(np.mean([recall_at_k(ids, g)
+                                 for (ids, _), g in zip(base_fixed, gt)]))
+    fixed = {}
+    with sharded_records() as rec:
+        try:
+            for s in SHARD_COUNTS:
+                if s > 1:
+                    # the per-shard indexes the probing route builds on its
+                    # first chunk, timed alone
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    for c, idx in enumerate(bq.indexes):
+                        distributed.build_sharded_ivf(
+                            bq.table.vectors[c], s,
+                            n_clusters=idx.n_clusters, seed=c,
+                            metric=bq.table.schema.metric)
+                    torch.cuda.synchronize()
+                    out["build_s"][s] = time.perf_counter() - t
+                    log(f"  S={s}: ShardedIVFs of {bq.table.schema.n_vec} "
+                        f"columns built in {out['build_s'][s]:.3f} s")
+                for name in SHARD_ROUTES:
+                    label = f"S={s} {name}"
+                    bq.bind_shards(s).bind_cost_model(shard_cost_model(name))
+                    results, p = shard_pass(bq, queries, gt, label, launches,
+                                            rec)
+                    if s == 1 and name == "sharded_local":
+                        check_same_results(results, unsharded[0], label)
+                    if s > 1 and name == "sharded_local" and \
+                            p["launches"]["fp32"] <= 0:
+                        raise AssertionError(f"{label}: the pass never "
+                                             f"launched the fp32 kernel")
+                    out["passes"][label] = dict(shards=s, route=name, **p)
+                bq.bind_shards().bind_cost_model()
+                label = f"S={s} fixed plan"
+                p, fixed[s] = fixed_plan_pass(
+                    bq, queries, gt, label, launches, rec,
+                    force=SHARDED_LOCAL, n_shards=s)
+                p["one_device_recall"] = base_recall
+                if s == 1:
+                    kept = [j for j in range(len(queries))
+                            if j not in fixed[s]["escalated"]]
+                    check_same_results([fixed[s]["results"][j] for j in kept],
+                                       [base_fixed[j] for j in kept], label)
+                out["passes"][label] = p
+        finally:
+            bq.bind_shards().bind_cost_model()
+    return out, fixed
+
+
+def shard_profiles(bq, queries, passes: dict) -> None:
+    """One profiled batch per phase-10 configuration (S, route), each after
+    one warm batch; into its pass's ``batch_wall_ms`` /
+    ``batch_device_ms``. Phase 6 runs it: once ``torch.profiler`` has run,
+    host-bound serving in the process reads slower."""
     try:
         for s in SHARD_COUNTS:
-            if s > 1:
-                # the per-shard indexes the probing route builds on its
-                # first chunk, timed alone
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                for c, idx in enumerate(bq.indexes):
-                    distributed.build_sharded_ivf(
-                        bq.table.vectors[c], s, n_clusters=idx.n_clusters,
-                        seed=c, metric=bq.table.schema.metric)
-                torch.cuda.synchronize()
-                out["build_s"][s] = time.perf_counter() - t
-                log(f"  S={s}: ShardedIVFs of {bq.table.schema.n_vec} "
-                    f"columns built in {out['build_s'][s]:.3f} s")
-            for name, cm in routes:
-                label = f"S={s} {name}"
-                bq.bind_shards(s).bind_cost_model(cm)
-                before = dict(gs.LAUNCHES)
-                engine = ServingEngine(bq, batch_size=BATCH)
-                engine.warmup(queries)
-                chunks.clear()
-                exact_ids.clear()
-                results, rep = engine.serve(queries, gt_ids=gt)
-                lc = {k: gs.LAUNCHES[k] - before[k] for k in gs.LAUNCHES}
-                for k in launches:
-                    launches[k] += lc[k]
-                _check_results(results, label)
-                err = check_served(bq.table, queries, results, label)
-                exact = [j for j, q in enumerate(queries)
-                         if id(q) in exact_ids]
-                swaps = check_exact(bq.table, [queries[j] for j in exact],
-                                    [results[j] for j in exact], label)
-                check_shard_launches(chunks, label)
-                if s == 1 and name == "sharded_local":
-                    check_same_results(results, unsharded[0], label)
-                if s > 1 and name == "sharded_local" and lc["fp32"] <= 0:
-                    raise AssertionError(f"{label}: the pass never launched "
-                                         f"the fp32 kernel")
+            for name in SHARD_ROUTES:
+                bq.bind_shards(s).bind_cost_model(shard_cost_model(name))
+                bq.execute_batch(queries[:BATCH])
+                log(f"  profile S={s} {name}:")
                 prof = profile_batch(
                     lambda: bq.execute_batch(queries[:BATCH]), top=0)
-                per_chunk = sorted({(c["cols"], c["fp32"]) for c in chunks})
-                out["passes"][label] = dict(
-                    shards=s, route=name, qps=rep.qps, seconds=rep.seconds,
-                    mean_recall=rep.mean_recall, path_counts=rep.path_counts,
-                    launches=lc, probe_chunks=len(chunks),
-                    probe_fp32_launches=sum(c["fp32"] for c in chunks),
-                    launches_per_probe_chunk=per_chunk,
-                    escalated=sum(c["escalated"] for c in chunks),
-                    exact_route_queries=len(exact), exact_tie_swaps=swaps,
-                    max_abs_err=err, batch_wall_ms=prof["wall_ms"],
+                passes[f"S={s} {name}"].update(
+                    batch_wall_ms=prof["wall_ms"],
                     batch_device_ms=prof["device_ms"])
-                log(f"  serve[{label}]: {rep.describe()}; launches {lc}; "
-                    f"{len(chunks)} probing chunks ((cols, fp32 launches) "
-                    f"{per_chunk}), {out['passes'][label]['escalated']} "
-                    f"escalated; {len(exact)} queries on the exact route "
-                    f"({swaps} tie swaps); max|err| {err:.3g}")
-            bq.bind_shards().bind_cost_model()
-            out["passes"][f"S={s} fixed plan"] = fixed_plan_pass(
-                bq, queries, gt, s, chunks, launches, base_fixed)
     finally:
-        BatchedHybridExecutor._run_chunk_sharded_ivf = probe_chunk
-        BatchedHybridExecutor._run_chunk_sharded = exact_chunk
         bq.bind_shards().bind_cost_model()
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the mesh (torch.distributed)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def process_group(backend: str, store: str, *, rank: int = 0,
+                  world: int = 1):
+    """A ``torch.distributed`` world over a ``file://`` store, with a finite
+    timeout (a rank that diverges fails instead of hanging), destroyed on
+    exit."""
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def check_mesh_pass(got: dict, want: dict, label: str, *,
+                    atol: float = MESH_ATOL) -> None:
+    """A mesh pass equals the logical shards' pass: every query's ids equal
+    and scores within ``atol``, the same escalated queries, and every
+    probing search's gathered per-shard ``fill`` equal and ``boundary``
+    within ``atol``: the shards came in shard order with global ids."""
+    if len(got["results"]) != len(want["results"]):
+        raise AssertionError(f"{label}: {len(got['results'])} results, "
+                             f"{len(want['results'])} expected")
+    for j, ((gi, gs_), (wi, ws)) in enumerate(zip(got["results"],
+                                                   want["results"])):
+        if not np.array_equal(gi, wi):
+            raise AssertionError(f"{label}: query {j}'s ids differ from the "
+                                 f"logical shards'")
+        if not np.allclose(gs_, ws, atol=atol, rtol=0):
+            raise AssertionError(f"{label}: query {j}'s scores differ from "
+                                 f"the logical shards' beyond {atol}")
+    if set(got["escalated"]) != set(want["escalated"]):
+        raise AssertionError(f"{label}: escalated {sorted(got['escalated'])},"
+                             f" the logical shards {sorted(want['escalated'])}")
+    if len(got["probes"]) != len(want["probes"]):
+        raise AssertionError(f"{label}: {len(got['probes'])} probing "
+                             f"searches, {len(want['probes'])} expected")
+    for (gf, gb), (wf, wb) in zip(got["probes"], want["probes"]):
+        # host arrays only: np.array_equal reads a CUDA tensor as unequal
+        gf, gb, wf, wb = (np.asarray(x) for x in (gf, gb, wf, wb))
+        if not np.array_equal(gf, wf):
+            raise AssertionError(f"{label}: a probing search's per-shard "
+                                 f"fill differs (shard order)")
+        if not np.allclose(gb, wb, atol=atol, rtol=0):
+            raise AssertionError(f"{label}: a probing search's per-shard "
+                                 f"boundary differs")
+
+
+def replay_logical(bq, calls: list, cost_model, rec: dict) -> list:
+    """Each captured ``execute_batch_sharded`` call again on the logical
+    one-shard executor with the same cost model, plans and dense matrices.
+    -> one dict(results, escalated, probes) per call."""
+    from repro_torch.serve.batch import BatchedHybridExecutor
+
+    lx = BatchedHybridExecutor(bq.table, bq.indexes, bq.engine, n_shards=1,
+                               hists=bq.hists, graphs=bq.graphs,
+                               cost_model=cost_model)
+    out = []
+    for c in calls:
+        p0 = len(rec["probes"])
+        lx.escalated.clear()
+        res = lx.execute_batch_sharded(c["queries"], c["plans"],
+                                       scores_b=c["scores_b"])
+        out.append(dict(results=res, escalated=set(lx.escalated),
+                        probes=_host_probes(rec["probes"][p0:])))
     return out
+
+
+def mesh_one_rank(bq, queries, gt, fixed1: dict, launches: dict) -> dict:
+    """Phase 11 (a): a one-rank NCCL mesh in this process.
+    ``bind_shards(mesh=)`` serves ``queries`` through ``ServingEngine`` under
+    the default cost model, forced per-shard probing and forced dense, each
+    pass with phase 10's checks, and every ``execute_batch_sharded`` call of
+    it must equal the logical one-shard executor's on the same plans and
+    dense matrices: the probing route's queries bit for bit, with the same
+    escalated queries and probes; the exact route's ties aside. Then the
+    fixed-plan pass on a mesh executor, bit for bit phase 10's S=1 one
+    (``fixed1``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.serve.batch import SHARDED_LOCAL
+
+    out = {}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as d, \
+            process_group("nccl", f"{d}/store"), sharded_records() as rec:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        try:
+            for name in SHARD_ROUTES[:3]:
+                label = f"mesh 1 rank {name}"
+                cm = shard_cost_model(name)
+                bq.bind_shards(mesh=mesh).bind_cost_model(cm)
+                if bq._batched_executor().mesh is not mesh:
+                    raise AssertionError(f"{label}: no mesh executor")
+                results, p = shard_pass(bq, queries, gt, label, launches, rec)
+                calls = list(rec["calls"])
+                exact = set(rec["exact"])
+                swaps = 0
+                for c, want in zip(calls, replay_logical(bq, calls, cm, rec)):
+                    routed = [id(q) in exact for q in c["queries"]]
+                    pick = [j for j, e in enumerate(routed) if not e]
+                    check_mesh_pass(
+                        dict(c, results=[c["results"][j] for j in pick],
+                             probes=_host_probes(c["probes"])),
+                        dict(want, results=[want["results"][j]
+                                            for j in pick]),
+                        label, atol=0.0)
+                    tied = [j for j, e in enumerate(routed) if e]
+                    swaps += check_tied(
+                        bq.table, [c["queries"][j] for j in tied],
+                        [c["results"][j] for j in tied],
+                        [want["results"][j] for j in tied], label)
+                p.update(mesh_calls=len(calls), mesh_vs_logical_tie_swaps=swaps)
+                out[label] = p
+                log(f"  {label}: {len(calls)} execute_batch_sharded calls "
+                    f"equal the logical one-shard executor's ({swaps} tie "
+                    f"swaps on the exact route)")
+            bq.bind_shards().bind_cost_model()
+            label = "mesh 1 rank fixed plan"
+            p, got = fixed_plan_pass(bq, queries, gt, label, launches, rec,
+                                     force=SHARDED_LOCAL, mesh=mesh)
+            check_mesh_pass(got, fixed1, label, atol=0.0)
+            out[label] = p
+        finally:
+            bq.bind_shards().bind_cost_model()
+    return out
+
+
+def _on(q, device):
+    """An MHQ with its tensors on ``device``."""
+    p = q.predicates
+    return dataclasses.replace(
+        q, query_vectors=tuple(v.to(device) for v in q.query_vectors),
+        predicates=dataclasses.replace(p, **{
+            f.name: getattr(p, f.name).to(device)
+            for f in dataclasses.fields(p)}))
+
+
+def mesh_rank(rank: int, store: str, payload: dict, out_path: str) -> None:
+    """One rank of phase 11 (b), in its own process on the shared card.
+    The rank's table holds its own rows and NaN in every other row, so a
+    sharded route that read another rank's rows would fail. It runs the
+    fixed-plan pass (per-shard probing, its shard of phase 10's S=4
+    indexes) and the same plans forced dense through
+    ``BatchedHybridExecutor(mesh=)``, and saves the results, escalated
+    queries, probes, chunks, launches and seconds of each."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels import gather_score as gs
+    from repro_torch.serve.batch import (
+        DENSE, SHARDED_LOCAL, BatchedHybridExecutor, CostModel,
+    )
+    from repro_torch.vectordb.distributed import shard_rows
+    from repro_torch.vectordb.table import Table
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    r0, r1 = payload["rows"]
+
+    def table_shaped(own):
+        x = torch.full((payload["n_rows"],) + tuple(own.shape[1:]),
+                       float("nan"), device=dev)
+        x[r0:r1] = own
+        return x
+
+    table = Table(payload["schema"],
+                  [table_shaped(v) for v in payload["vectors"]],
+                  table_shaped(payload["scalars"]))
+    queries = [_on(q, dev) for q in payload["queries"]]
+    plans = payload["plans"]
+    out = {}
+    with process_group("gloo", store, rank=rank, world=MESH_RANKS), \
+            sharded_records() as rec:
+        mesh = init_device_mesh("cpu", (MESH_RANKS,),
+                                mesh_dim_names=("data",))
+        if (r0, r1) != shard_rows(payload["n_rows"], mesh):
+            raise AssertionError(f"rank {rank}: rows {(r0, r1)} are not its "
+                                 f"shard's")
+        for name, force in (("fixed", SHARDED_LOCAL), ("dense", DENSE)):
+            bx = BatchedHybridExecutor(table, payload["indexes"],
+                                       payload["engine"], mesh=mesh,
+                                       cost_model=CostModel(force=force))
+            bx._sivf.update(payload["sivf"])
+            before = dict(gs.LAUNCHES)
+            results, escalated, seconds = fixed_batches(bx, queries, plans,
+                                                        rec)
+            out[name] = dict(
+                results=[(np.asarray(i), np.asarray(s)) for i, s in results],
+                escalated=set(escalated), probes=_host_probes(rec["probes"]),
+                chunks=list(rec["chunks"]), seconds=seconds,
+                launches={k: gs.LAUNCHES[k] - before[k] for k in gs.LAUNCHES})
+    torch.save(out, out_path)
+
+
+def mesh_four_ranks(bq, queries, gt, fixed4: dict, launches: dict) -> dict:
+    """Phase 11 (b): ``MESH_RANKS`` gloo ranks in their own processes on the
+    one card (a check of correctness: gloo moves the gathered candidates
+    through host memory, and four ranks share one card). Each rank gets
+    only its rows and its shard of phase 10's S=4 indexes (``fixed4``'s
+    executor's) and runs ``mesh_rank``. Every rank's fixed-plan pass must
+    equal phase 10's logical S=4 fixed-plan pass, and its dense pass the
+    logical S=4 executor's on the same plans (run here): ids equal, scores
+    within ``MESH_ATOL``, the same escalated queries and probes in shard
+    order. Every rank must launch the fp32 kernel on its probing chunks,
+    once per probed column plus once a chunk."""
+    from repro_torch.serve.batch import DENSE
+    from repro_torch.vectordb import distributed
+
+    with sharded_records() as rec:
+        p_dense, dense4 = fixed_plan_pass(
+            bq, queries, gt, "S=4 fixed plan, forced dense", launches, rec,
+            force=DENSE, n_shards=MESH_RANKS)
+    t = bq.table
+    per = t.n_rows // MESH_RANKS
+    ctx = torch.multiprocessing.get_context("spawn")
+    report = dict(logical_dense=p_dense, ranks={})
+    with tempfile.TemporaryDirectory() as d:
+        procs = []
+        for r in range(MESH_RANKS):
+            rows = slice(r * per, (r + 1) * per)
+            payload = dict(
+                rows=(rows.start, rows.stop), n_rows=t.n_rows,
+                schema=t.schema,
+                vectors=[v[rows].clone() for v in t.vectors],
+                scalars=t.scalars[rows].clone(), indexes=list(bq.indexes),
+                engine=bq.engine,
+                sivf={c: distributed.ShardedIVF(
+                    *(x.clone() for x in (s.centroids[r: r + 1],
+                                          s.sorted_rows[r: r + 1],
+                                          s.offsets[r: r + 1])), s.metric)
+                      for c, s in fixed4["sivf"].items()},
+                queries=[_on(q, "cpu") for q in queries],
+                plans=[fixed_plan(q.n_vec, bq.engine) for q in queries])
+            procs.append(ctx.Process(target=mesh_rank, args=(
+                r, f"{d}/store", payload, f"{d}/rank{r}.pt")))
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=3 * MESH_TIMEOUT_S)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+        wall = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"phase 11 (b): rank exit codes {codes}")
+        got = [torch.load(f"{d}/rank{r}.pt", weights_only=False)
+               for r in range(MESH_RANKS)]
+    for r, g in enumerate(got):
+        for name, want in (("fixed", fixed4), ("dense", dense4)):
+            label = f"mesh {MESH_RANKS} ranks, rank {r}, {name}"
+            check_mesh_pass(g[name], want, label)
+        check_shard_launches(g["fixed"]["chunks"], f"rank {r}")
+        if g["fixed"]["launches"]["fp32"] <= 0:
+            raise AssertionError(f"rank {r} never launched the fp32 kernel")
+        report["ranks"][r] = {name: dict(
+            qps=len(queries) / g[name]["seconds"],
+            seconds=g[name]["seconds"], launches=g[name]["launches"],
+            escalated=len(g[name]["escalated"]),
+            probe_chunks=len(g[name]["chunks"])) for name in g}
+        for k in launches:
+            launches[k] += sum(g[name]["launches"][k] for name in g)
+    check_served(t, queries, got[0]["fixed"]["results"], "mesh 4 ranks")
+    report["wall_s"] = wall
+    log(f"  mesh {MESH_RANKS} gloo ranks on one card: {wall:.1f} s with "
+        f"their start; every rank equals the logical S=4 passes; "
+        + "; ".join(f"rank {r} fixed {v['fixed']['qps']:.1f} / dense "
+                    f"{v['dense']['qps']:.1f} QPS, launches "
+                    f"{v['fixed']['launches']}"
+                    for r, v in report["ranks"].items()))
+    return report
+
+
+def mesh_phase(bq, queries, gt, fixed: dict) -> dict:
+    """Phase 11: (a) a one-rank NCCL mesh in this process, (b) four gloo
+    ranks on the one card. -> the report and its gather launches."""
+    launches = {"fp32": 0, "int8": 0}
+    one = mesh_one_rank(bq, queries, gt, fixed[1], launches)
+    four = mesh_four_ranks(bq, queries, gt, fixed[MESH_RANKS], launches)
+    return dict(one_rank=one, four_ranks=four, launches=launches)
 
 
 def _kernel_entry(name, source, replaces, rows, main, launches) -> dict:
@@ -2443,6 +2900,12 @@ def main() -> int:
     # phase 5 — the scan path, its own counts
     spass = scan_pass(table, serve_wl)
 
+    # phase 10 — logical shards on phase 4's instance, before phase 6's
+    # profiler and phase 7's inserts; its serving passes' counts
+    shards, fixed = shard_phase(bq, serve_wl, gt, (res_c, rep_c), dev)
+    # phase 11 — the mesh on the same instance, its passes' counts
+    mesh = mesh_phase(bq, serve_wl, gt, fixed)
+
     # phase 6
     bq.bind_cost_model(CostModel(force=CANDIDATE_LOCAL))
     prof = profile_batch(lambda: bq.execute_batch(serve_wl[:BATCH]))
@@ -2450,6 +2913,7 @@ def main() -> int:
     gplan = graph_plan(table.schema.n_vec)
     prof_graph = profile_batch(lambda: bq._batched_executor().execute_batch(
         serve_wl[:BATCH], [gplan] * BATCH))
+    shard_profiles(bq, serve_wl, shards["passes"])
     # reference: the robust one-size-fits-all plan on the same queries
     robust = bq._batched_executor().execute_batch(
         serve_wl, [default_plan(q.n_vec, bq.engine) for q in serve_wl])
@@ -2498,9 +2962,6 @@ def main() -> int:
         raise AssertionError(f"scoring paths disagree: {rep_d.mean_recall} "
                              f"vs {rep_c.mean_recall}")
 
-    # phase 10 — logical shards on phase 4's instance, before phase 7's
-    # inserts grow the table; its serving passes' counts
-    shards = shard_phase(bq, serve_wl, gt, (res_c, rep_c), dev)
     # phase 7 — updates on the served instance, the serving passes' counts
     upd = update_phase(bq, serve_wl, dev)
     # phase 8 — a vector->scalar set at d=128, its search pass's counts
@@ -2511,7 +2972,7 @@ def main() -> int:
                          "7": upd["launches"], "8": sift["launches"],
                          "9": tier["launches"],
                          "9 compaction warm-up": tier["prewarm_launches"],
-                         "10": shards["launches"]}
+                         "10": shards["launches"], "11": mesh["launches"]}
 
     kernels = []
     for variant in ("fp32", "int8"):
@@ -2525,7 +2986,7 @@ def main() -> int:
             "src/repro/kernels/gather_score.py:88", checked, vrows[0],
             launches[variant] + upd["launches"][variant]
             + sift["launches"][variant] + tier["launches"][variant]
-            + shards["launches"][variant]))
+            + shards["launches"][variant] + mesh["launches"][variant]))
     for name, variant, replaces in (
             ("masked_topk_fp32", "dot", "src/repro/kernels/masked_topk.py:28"),
             ("int8_scan", "int8", "src/repro/kernels/int8_scan.py:28")):
@@ -2546,7 +3007,7 @@ def main() -> int:
         plan_mix=plan_mix, scan_pass=spass, fit=metrics, profile=prof,
         profile_graph=prof_graph, launches=launches,
         launches_by_phase=launches_by_phase, updates=upd["inserts"],
-        sift=sift, tiered=tier, shards=shards,
+        sift=sift, tiered=tier, shards=shards, mesh=mesh,
         default_plan_recall=robust_recall, recall_target=target,
         seconds=time.perf_counter() - T0), indent=1))
     log(f"done in {time.perf_counter() - T0:.1f} s")

@@ -10,7 +10,8 @@ parameters and bin edges, ``MHQRewriter`` parameters and the query
 encoder's S_enc edges — and ``boomhq``, which assembles a fitted ``BoomHQ``
 from all of them; ``cold_state`` and ``tiered_snapshot`` carry a tiered
 table's epoch (cold state and hot buffers) across mid-stream;
-``sharded_ivf`` carries a ``ShardedIVF`` (per-shard indexes) across.
+``sharded_ivf`` carries a ``ShardedIVF`` (per-shard indexes), or one
+shard's slice of it for a mesh rank, across.
 """
 from __future__ import annotations
 
@@ -45,14 +46,19 @@ def ivf_index(centroids, sorted_rows, offsets, metric: str, *,
 
 
 def sharded_ivf(centroids, sorted_rows, offsets, metric: str, *,
-                device=None) -> ShardedIVF:
+                shard=None, device=None) -> ShardedIVF:
     """A JAX ``ShardedIVF`` (per-shard ``centroids`` (S, C, d), local
     ``sorted_rows`` (S, shard_len) and ``offsets`` (S, C+1)) as the
-    port's: the same arrays give the same per-shard probes."""
+    port's: the same arrays give the same per-shard probes. With ``shard``
+    only that shard's slice is carried, as a one-shard ``ShardedIVF``: the
+    index a mesh rank holding that shard probes."""
     dev = resolve_device(device)
-    return ShardedIVF(centroids=_t(centroids, dev),
-                      sorted_rows=_t(sorted_rows, dev, torch.int32),
-                      offsets=_t(offsets, dev, torch.int32), metric=metric)
+    part = slice(None) if shard is None else slice(shard, shard + 1)
+    return ShardedIVF(
+        centroids=_t(np.asarray(centroids)[part], dev),
+        sorted_rows=_t(np.asarray(sorted_rows)[part], dev, torch.int32),
+        offsets=_t(np.asarray(offsets)[part], dev, torch.int32),
+        metric=metric)
 
 
 def graph_index(neighbors, entry_points, metric: str, *,

@@ -1,6 +1,6 @@
 """BoomHQ façade: the learned optimizer wired end-to-end (paper Fig. 2).
 
-Port of ``repro.core.boomhq`` for an unsharded table:
+Port of ``repro.core.boomhq``:
 
   fit():            train the data encoder, label the training workload
                     by grid execution, train the rewriter heads (the
@@ -21,10 +21,10 @@ Port of ``repro.core.boomhq`` for an unsharded table:
                     (``vectordb.tiered``).
   bind_tenants():   namespaces: a query's ``tenant_id`` folds into its
                     predicate as an implicit equality (``resolve_tenant``).
-  bind_shards():    serve over logical shards of the table on one device
-                    (``serve.batch.BatchedHybridExecutor
-                    .execute_batch_sharded``); a ``mesh`` raises
-                    ``NotImplementedError``.
+  bind_shards():    serve over shards of the table (``serve.batch
+                    .BatchedHybridExecutor.execute_batch_sharded``):
+                    logical shards on one device, or the ranks of a
+                    ``torch.distributed`` mesh.
 """
 from __future__ import annotations
 
@@ -116,6 +116,8 @@ class BoomHQ:
         self._fitted = False
         self.cost_model = None  # scoring-dispatch override (bind_cost_model)
         self.n_shards = 1  # logical shards served (bind_shards)
+        self.shard_mesh = None  # the mesh served over (bind_shards)
+        self.shard_axes = ("data",)
         self._batched = None
         self.insert_seconds: dict = {}  # the last insert's seconds by step
         self.tiered = None  # streaming-ingest state (bind_tiered)
@@ -307,23 +309,40 @@ class BoomHQ:
         self._batched = None
         return self
 
-    def bind_shards(self, n_shards: int = 1, *, mesh=None) -> "BoomHQ":
+    def bind_shards(self, n_shards: int = 1, *, mesh=None,
+                    shard_axes=("data",)) -> "BoomHQ":
         """Serve over a SHARDED table: later ``execute_batch`` calls plan
         the batch with the learned optimizer and fan each execution group
-        out over ``n_shards`` contiguous logical shards of the table on its
-        device. Index groups are cost-model routed to per-shard IVF probing
-        (each shard probes its own index with the group's shard-legalized
-        knobs and reranks inside the shard), the exact per-shard scan, or
-        the single-device path when shards are small; filter_first groups
-        keep the exact scan. ``mesh`` (the reference's ``shard_map`` path)
-        raises ``NotImplementedError``. ``bind_shards()`` restores
-        single-shard serving."""
+        out over contiguous shards of the table. Index groups are
+        cost-model routed to per-shard IVF probing (each shard probes its
+        own index with the group's shard-legalized knobs and reranks inside
+        the shard), the exact per-shard scan, or the single-device path
+        when shards are small; filter_first groups keep the exact scan.
+
+        The shards are ``n_shards`` logical ones on the table's device, or
+        with a ``mesh`` (a ``torch.distributed`` ``DeviceMesh``) one per
+        rank over its ``shard_axes`` dimensions: every rank of the mesh
+        holds this instance and calls ``execute_batch`` with the same
+        queries; the mesh's first rank plans each batch and the others take
+        its plans. A mesh of any size, one rank too, takes the sharded
+        executor. ``bind_shards()`` restores single-shard serving."""
         if mesh is not None:
-            from repro_torch.vectordb.distributed import MESH_QUEUED
-            raise NotImplementedError(MESH_QUEUED)
+            from repro_torch.vectordb.distributed import (
+                MULTI_RANK_QUEUED, shard_rows,
+            )
+
+            shard_rows(self.table.n_rows, mesh, shard_axes)  # or raise
+            if self.tiered is not None and mesh.size() > 1:
+                raise NotImplementedError(MULTI_RANK_QUEUED)
         self.n_shards = max(1, int(n_shards))
+        self.shard_mesh = mesh
+        self.shard_axes = shard_axes
         self._batched = None  # rebuild the executor with the shard config
         return self
+
+    @property
+    def _sharded(self) -> bool:
+        return self.n_shards > 1 or self.shard_mesh is not None
 
     # -- tiered streaming ingest ---------------------------------------------
 
@@ -337,7 +356,11 @@ class BoomHQ:
         epoch-swapped snapshot (``vectordb.tiered``). ``rebuild_every=N``
         makes every Nth compaction a full re-cluster; ``finetune`` keeps
         the data encoder updating on compacted rows. ``unbind_tiered()``
-        restores build-once serving."""
+        restores build-once serving. A mesh of more than one rank is
+        refused: each rank would cut epochs by its own clock."""
+        if self.shard_mesh is not None and self.shard_mesh.size() > 1:
+            from repro_torch.vectordb.distributed import MULTI_RANK_QUEUED
+            raise NotImplementedError(MULTI_RANK_QUEUED)
         self._tiered_finetune = finetune
         self.tiered = TieredTable(
             self.table, self.state.indexes, self.hists,
@@ -501,7 +524,7 @@ class BoomHQ:
         plan_local = self._plan_local(len(queries), cold)
         scores_b = None if plan_local else compute_batch_scores(t, queries)
         bx = self._batched_executor(cold)
-        if self.n_shards > 1:
+        if self._sharded:
             results = self._execute_batch_sharded(queries, bx, scores_b,
                                                   cold=cold)
         else:
@@ -541,9 +564,22 @@ class BoomHQ:
         (per-shard probing with per-shard escalation / exact sharded scan
         / single device). Any query still under k valid ids re-runs
         through the exact ``filter_first`` over the whole table, and the
-        better-filled result wins."""
+        better-filled result wins.
+
+        On a mesh of more than one rank the first rank's plans go to every
+        rank (one broadcast), so all ranks form the same groups in the
+        same order and meet in the same collectives."""
         n = cold.table.n_rows
-        plans = self.optimize_batch(queries, scores_b=scores_b, cold=cold)
+        mesh = self.shard_mesh
+        if mesh is None or mesh.size() == 1:
+            plans = self.optimize_batch(queries, scores_b=scores_b, cold=cold)
+        else:
+            from repro_torch.vectordb.distributed import broadcast_from_first
+
+            first = not any(mesh.get_coordinate())
+            plans = broadcast_from_first(
+                self.optimize_batch(queries, scores_b=scores_b, cold=cold)
+                if first else None, mesh)
         results = bx.execute_batch_sharded(queries, plans, scores_b=scores_b)
         self._retry_underfilled(
             results, queries, bx, scores_b,
@@ -604,7 +640,8 @@ class BoomHQ:
         if bx is None or bx.table is not cold.table:
             bx = BatchedHybridExecutor(
                 cold.table, list(cold.indexes), self.engine,
-                n_shards=self.n_shards, cost_model=self.cost_model,
+                n_shards=self.n_shards, mesh=self.shard_mesh,
+                shard_axes=self.shard_axes, cost_model=self.cost_model,
                 hists=cold.hists, graphs=cold.graphs)
             self._batched = bx
         return bx

@@ -16,18 +16,19 @@ Port of the unsharded part of ``repro.serve.batch``:
     group's qualified counts each round and only the still-underfilled
     subset re-probes at a doubled nprobe.
 
-  * over logical shards (``n_shards > 1``) ``execute_batch_sharded`` fans
-    each group out: index groups route three ways (``choose_sharded``) —
-    plan-driven per-shard IVF probing (``vectordb.distributed``) with
-    per-shard boundary escalation, the exact per-shard scan, or the plain
-    single-device chunk — filter_first groups take the exact scan and
-    graph groups the single-device walk.
+  * over shards ``execute_batch_sharded`` fans each group out: index
+    groups route three ways (``choose_sharded``) — plan-driven per-shard
+    IVF probing (``vectordb.distributed``) with per-shard boundary
+    escalation, the exact per-shard scan, or the plain single-device
+    chunk — filter_first groups take the exact scan and graph groups the
+    single-device walk. The shards are logical ones on one device
+    (``n_shards``), or a ``torch.distributed`` mesh (``mesh``): one rank
+    per shard, every rank running the same batch, each sharded route
+    reading only the rank's rows and merging with one gather.
 
 ``ServingEngine`` chops a request stream into batches and drives
 ``BoomHQ.execute_batch``; ``serve.queue.AsyncServingEngine`` forms batches
-from live arrivals and reports into the same ``ServeReport``. The
-reference's ``shard_map`` (mesh) branches are not ported: a ``mesh``
-raises ``NotImplementedError``.
+from live arrivals and reports into the same ``ServeReport``.
 """
 from __future__ import annotations
 
@@ -53,7 +54,8 @@ from repro_torch.kernels.shapes import (
 )
 from repro_torch.vectordb import flat, graph, histogram, ivf, predicates
 from repro_torch.vectordb.distributed import (
-    MESH_QUEUED, build_sharded_ivf, sharded_ivf_topk, sharded_topk_ref,
+    build_sharded_ivf, mesh_shard, mesh_topk, shard_rows, sharded_batch_topk,
+    sharded_ivf_topk, sharded_topk_ref,
 )
 from repro_torch.vectordb.flat import nonzero_fixed, topk_stable
 from repro_torch.vectordb.table import Table, similarity_batch
@@ -276,23 +278,30 @@ def _qualifying_rows_batch(mask_b, *, size):
     return nonzero_fixed(mask_b, size, -1).to(torch.int32)
 
 
-def _sharded_exact_retry(vectors, scalars, pred_b, q_b, w_b, need_b, *,
-                         shard_len, k, metric):
-    """Exact weighted filtered top-k over each query's flagged shards: one
-    ``torch.matmul`` per column scores the retry subset against the table,
-    the predicate mask is ANDed with the per-query shard-allow mask (rows
-    of other shards contribute nothing), then one top-k.
-    -> (ids (B, k) int32, scores (B, k))."""
-    n = scalars.shape[0]
-    ws = torch.zeros((w_b.shape[0], n), device=scalars.device)
+def _allowed_scores(vectors, scalars, pred_b, q_b, w_b, allow, *, metric):
+    """(B, n) weighted scores of the rows against a query batch (one
+    ``torch.matmul`` per column), NEG where the predicate or the (B, n)
+    ``allow`` mask excludes the row."""
+    ws = torch.zeros((w_b.shape[0], scalars.shape[0]), device=scalars.device)
     for i, v in enumerate(vectors):
         ws = ws + w_b[:, i, None] * similarity_batch(q_b[i], v, metric)
+    mask = _eval_mask_batch(pred_b, scalars) & allow
+    return torch.where(mask, ws, torch.full_like(ws, NEG))
+
+
+def _sharded_exact_retry(vectors, scalars, pred_b, q_b, w_b, need_b, *,
+                         shard_len, k, metric):
+    """Exact weighted filtered top-k over each query's flagged shards: the
+    retry subset scored against the table, the predicate mask ANDed with
+    the per-query shard-allow mask (rows of other shards contribute
+    nothing), then one top-k. -> (ids (B, k) int32, scores (B, k))."""
+    n = scalars.shape[0]
     shard_of = torch.clamp(
         torch.arange(n, device=scalars.device) // shard_len,
         max=need_b.shape[1] - 1)
-    mask = _eval_mask_batch(pred_b, scalars) & need_b[:, shard_of]
-    top_s, top_i = topk_stable(torch.where(mask, ws, torch.full_like(ws, NEG)),
-                               k)
+    top_s, top_i = topk_stable(_allowed_scores(
+        vectors, scalars, pred_b, q_b, w_b, need_b[:, shard_of],
+        metric=metric), k)
     ids = torch.where(top_s > NEG / 2, top_i, torch.full_like(top_i, -1))
     return ids.to(torch.int32), top_s
 
@@ -323,15 +332,25 @@ class BatchedHybridExecutor:
 
     With ``n_shards > 1`` the executor also serves the CROSS-SHARD paths
     over contiguous logical shards of the table
-    (:meth:`execute_batch_sharded`). A ``mesh`` raises
-    ``NotImplementedError``: the ``shard_map`` path is not ported."""
+    (:meth:`execute_batch_sharded`). With a ``mesh`` (a ``DeviceMesh``
+    whose ``shard_axes`` dimensions give the shard count) it runs on every
+    rank of the mesh: each rank holds the table, the sharded routes read
+    only its rows ``[r·n/S, (r+1)·n/S)`` and merge the shards with one
+    gather, and the other routes run on every rank alike, so every rank
+    returns the same results. Every rank must then call it with the same
+    queries and plans."""
 
     def __init__(self, table: Table, indexes: list,
                  engine: EngineCaps = PGVECTOR, *, n_shards: int = 1,
-                 mesh=None, cost_model: Optional[CostModel] = None, hists=None,
+                 mesh=None, shard_axes=("data",),
+                 cost_model: Optional[CostModel] = None, hists=None,
                  graphs=None):
+        self.mesh = mesh
+        self.shard_axes = shard_axes if isinstance(shard_axes, tuple) \
+            else (shard_axes,)
         if mesh is not None:
-            raise NotImplementedError(MESH_QUEUED)
+            n_shards, self.shard = mesh_shard(mesh, self.shard_axes)
+            self.rows = shard_rows(table.n_rows, mesh, self.shard_axes)
         self.table = table
         self.indexes = indexes
         self.engine = engine
@@ -341,8 +360,9 @@ class BatchedHybridExecutor:
         self.n_shards = max(1, int(n_shards))
         # this executor's table only: an epoch swap builds a new executor,
         # so per-shard indexes never outlive the epoch they were built on
-        self._sivf: dict = {}  # col -> ShardedIVF (lazy)
+        self._sivf: dict = {}  # col -> ShardedIVF (lazy; a rank's own shard)
         self._sivf_fns: dict = {}  # (group key, act) -> probing search
+        self._shard_fns: dict = {}  # k -> the mesh's exact sharded scan
         # positions (in the last execute_batch_sharded call) of queries
         # whose probed result took the exact shard-subset retry; callers
         # may clear it
@@ -490,18 +510,30 @@ class BatchedHybridExecutor:
 
     # -- plan-driven per-shard IVF probing ----------------------------------
 
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        """The rows of ``x`` this rank's shard holds (all of them off a
+        mesh): a view, never a copy."""
+        return x if self.mesh is None else x[self.rows[0]: self.rows[1]]
+
     def _sivf_col(self, col: int):
         """This executor's per-shard IVF of one column (built on first
         use). Each shard keeps the bound index's FULL cluster count — the
         per-shard slot budget is the global ``max_scan`` split S ways, and
         finer clusters target those fewer slots better. One shard reuses
-        the bound index verbatim."""
+        the bound index verbatim. On a mesh a rank builds only its own
+        shard, from its rows and with the logical path's seed
+        ``col + 7919·r``."""
         if col not in self._sivf:
             base = self.indexes[col]
+            if self.mesh is None:
+                vecs, n_sh, seed = self.table.vectors[col], self.n_shards, col
+            else:
+                vecs, n_sh = self._local(self.table.vectors[col]), 1
+                seed = col + 7919 * self.shard
             self._sivf[col] = build_sharded_ivf(
-                self.table.vectors[col], self.n_shards,
-                n_clusters=base.n_clusters, seed=col,
-                metric=self.table.schema.metric, base_index=base)
+                vecs, n_sh, n_clusters=base.n_clusters, seed=seed,
+                metric=self.table.schema.metric,
+                base_index=base if self.n_shards == 1 else None)
         return self._sivf[col]
 
     def _sivf_fn(self, key, act: tuple):
@@ -522,7 +554,8 @@ class BatchedHybridExecutor:
             pad_total = (rrf_union_total(total) if len(shard_subs) > 1
                          else next_bucket(total, CANDIDATE_PAD_FLOOR))
             self._sivf_fns[fkey] = sharded_ivf_topk(
-                self.n_shards, subs=tuple(shard_subs), k=k,
+                self.n_shards, self.mesh, self.shard_axes,
+                subs=tuple(shard_subs), k=k,
                 metric=self.table.schema.metric, pad_total=pad_total)
         return self._sivf_fns[fkey]
 
@@ -538,7 +571,9 @@ class BatchedHybridExecutor:
         the data, bound what it surfaced) is flagged; on a merged underfill
         every shard that kept fewer than k is flagged. Flagged shards
         re-run exactly for their queries only (``_escalate_shards``); with
-        one shard the boundary carries no signal and is not read."""
+        one shard the boundary carries no signal and is not read. On a
+        mesh ``fill`` and ``boundary`` are every shard's, gathered, so
+        every rank flags the same shards."""
         t = self.table
         k, subs = key[2], key[3]
         bb = min(next_bucket(len(qs)), bucket_cap)
@@ -549,7 +584,8 @@ class BatchedHybridExecutor:
             tuple(s.centroids for s in sivfs),
             tuple(s.sorted_rows for s in sivfs),
             tuple(s.offsets for s in sivfs),
-            vecs, t.scalars, pred_b, qsb, wsub)
+            tuple(self._local(v) for v in vecs), self._local(t.scalars),
+            pred_b, qsb, wsub)
         # fill, boundary and the merged result in one transfer
         ids_np, sc_np, fill_np, bnd_np = _to_host(ids, scores, fill, bnd)
         under = (ids_np >= 0).sum(axis=1) < k  # (bb,) merged underfill
@@ -575,21 +611,35 @@ class BatchedHybridExecutor:
         shards' rows (``_sharded_exact_retry``), and a dedup-by-id merge
         folds the retry into the probed results. Probe-found rows keep
         their probed scores (first occurrence wins), so escalation only
-        ADDS rows."""
+        ADDS rows.
+
+        On a mesh every rank enters the retry's gather, flagged or not: a
+        rank takes the masked top-k over its own rows of the queries that
+        flag its shard (NEG / -1 for the others), and the merge in shard
+        order gives the logical retry's top-k over the allowed rows, ties
+        to the smaller global id."""
         t = self.table
         dev = t.device
-        shard_len = -(-t.n_rows // need.shape[1])
         sel = np.flatnonzero(need.any(axis=1))
         sel_p = pad_selection(sel)
         sel_pt = torch.as_tensor(sel_p, device=dev)
         need_p = np.array(need[sel_p])
         need_p[len(sel):] = False  # padding rows draw nothing
-        e_ids, e_sc = _sharded_exact_retry(
-            vecs, t.scalars, predicates.take(pred_b, sel_p),
-            tuple(q[sel_pt] for q in qsb), wsub[sel_pt],
-            torch.as_tensor(need_p, device=dev),
-            shard_len=min(shard_len, t.n_rows), k=k,
-            metric=t.schema.metric)
+        retry = (predicates.take(pred_b, sel_p),
+                 tuple(q[sel_pt] for q in qsb), wsub[sel_pt])
+        if self.mesh is None:
+            shard_len = -(-t.n_rows // need.shape[1])
+            e_ids, e_sc = _sharded_exact_retry(
+                vecs, t.scalars, *retry, torch.as_tensor(need_p, device=dev),
+                shard_len=min(shard_len, t.n_rows), k=k,
+                metric=t.schema.metric)
+        else:
+            allow = torch.as_tensor(need_p[:, self.shard, None], device=dev)
+            e_ids, e_sc = mesh_topk(
+                _allowed_scores(tuple(self._local(v) for v in vecs),
+                                self._local(t.scalars), *retry, allow,
+                                metric=t.schema.metric),
+                self.rows[0], self.mesh, self.shard_axes, k=k)
         cur_ids, cur_sc = merge_topk_unique(
             torch.cat([ids[sel_pt], e_ids], dim=1),
             torch.cat([scores[sel_pt], e_sc], dim=1), k)
@@ -612,50 +662,69 @@ class BatchedHybridExecutor:
         a query whose true count overflows it re-runs at its exact width
         (``_regather_overflow``); without them one read of the counts sizes
         the gather. Otherwise the per-shard scan over the dense scores
-        (``sharded_topk_ref``)."""
+        (``sharded_topk_ref``).
+
+        A mesh pins the chunk to the dense scan (the fan-out is the point
+        there; the decision is still recorded): each rank weighs only its
+        (bb, n/S) block of the scores and merges through one gather."""
         t = self.table
         bb = min(next_bucket(len(qs)), bucket_cap)
         pred_b, qv_b, w_b = self._stack_inputs(qs, bb)
-        mask = _eval_mask_batch(pred_b, t.scalars)
-        prefer_dense = scores_b is not None
-        n_qual = None
-        estimated = False
-        cap = next_bucket(t.n_rows)
-        if self.dispatcher.pins_dense(prefer_dense):
-            mc = t.n_rows  # candidate-local impossible: skip the read
-        elif self.hists is not None:
-            est = float(_selectivity_batch(self.hists, pred_b).max()) \
-                * t.n_rows
-            mc = min(next_bucket(max(int(np.ceil(est * CAP_MARGIN))
-                                     + CAP_SLACK, k, 1)), cap)
-            estimated = mc < cap
+        if self.mesh is not None:
+            self.dispatcher.choose(batch=bb, scan=t.n_rows,
+                                   group=("sharded-mesh", k), force=DENSE)
+            _, weighted_scores = self._chunk_scores(
+                qs, part, bb, qv_b, w_b, scores_b, rows=self.rows)
+            out_ids, out_scores = self._shard_fn(k)(
+                weighted_scores(), self._local(t.scalars), pred_b)
         else:
-            n_qual = mask.sum(dim=1).cpu().numpy()
-            mc = min(next_bucket(max(int(n_qual.max()), k, 1)), cap)
-        path = self.dispatcher.choose(batch=bb, scan=mc,
-                                      group=("sharded", k),
-                                      prefer_dense=prefer_dense)
-        if path == CANDIDATE_LOCAL:
-            vecs, qsb, wsub, _ = self._active_columns(qs, qv_b, w_b)
-            out_ids, out_scores, _ = _gather_rerank_batch(
-                _qualifying_rows_batch(mask, size=mc), vecs, qsb, wsub,
-                t.scalars, k=k, metric=t.schema.metric)
-            if estimated:
-                if n_qual is None:
-                    n_qual = mask.sum(dim=1).cpu().numpy()
-                over = np.flatnonzero(n_qual[: len(qs)] > mc)
-                if over.size:
-                    out_ids, out_scores = self._regather_overflow(
-                        mask, n_qual, over, out_ids, out_scores, vecs, qsb,
-                        wsub, k=k)
-        else:
-            _, weighted_scores = self._chunk_scores(qs, part, bb, qv_b, w_b,
-                                                    scores_b)
-            out_ids, out_scores = sharded_topk_ref(
-                weighted_scores(), mask, k=k, n_shards=self.n_shards)
+            mask = _eval_mask_batch(pred_b, t.scalars)
+            prefer_dense = scores_b is not None
+            n_qual = None
+            estimated = False
+            cap = next_bucket(t.n_rows)
+            if self.dispatcher.pins_dense(prefer_dense):
+                mc = t.n_rows  # candidate-local impossible: skip the read
+            elif self.hists is not None:
+                est = float(_selectivity_batch(self.hists, pred_b).max()) \
+                    * t.n_rows
+                mc = min(next_bucket(max(int(np.ceil(est * CAP_MARGIN))
+                                         + CAP_SLACK, k, 1)), cap)
+                estimated = mc < cap
+            else:
+                n_qual = mask.sum(dim=1).cpu().numpy()
+                mc = min(next_bucket(max(int(n_qual.max()), k, 1)), cap)
+            path = self.dispatcher.choose(batch=bb, scan=mc,
+                                          group=("sharded", k),
+                                          prefer_dense=prefer_dense)
+            if path == CANDIDATE_LOCAL:
+                vecs, qsb, wsub, _ = self._active_columns(qs, qv_b, w_b)
+                out_ids, out_scores, _ = _gather_rerank_batch(
+                    _qualifying_rows_batch(mask, size=mc), vecs, qsb, wsub,
+                    t.scalars, k=k, metric=t.schema.metric)
+                if estimated:
+                    if n_qual is None:
+                        n_qual = mask.sum(dim=1).cpu().numpy()
+                    over = np.flatnonzero(n_qual[: len(qs)] > mc)
+                    if over.size:
+                        out_ids, out_scores = self._regather_overflow(
+                            mask, n_qual, over, out_ids, out_scores, vecs, qsb,
+                            wsub, k=k)
+            else:
+                _, weighted_scores = self._chunk_scores(qs, part, bb, qv_b, w_b,
+                                                        scores_b)
+                out_ids, out_scores = sharded_topk_ref(
+                    weighted_scores(), mask, k=k, n_shards=self.n_shards)
         ids_np, scores_np = _to_host(out_ids, out_scores)
         for pos, j in enumerate(part):
             out[j] = (ids_np[pos], scores_np[pos])
+
+    def _shard_fn(self, k: int):
+        """The mesh's exact sharded scan, one per k."""
+        if k not in self._shard_fns:
+            self._shard_fns[k] = sharded_batch_topk(
+                self.mesh, self.shard_axes, k=k)
+        return self._shard_fns[k]
 
     def _regather_overflow(self, mask, n_qual: np.ndarray, over: np.ndarray,
                            out_ids, out_scores, vecs, qsb, wsub, *, k: int):
@@ -688,10 +757,13 @@ class BatchedHybridExecutor:
         return pred_b, qv_b, w_b
 
     def _chunk_scores(self, qs: list, part: list, bb: int, qv_b: tuple, w_b,
-                      scores_b: Optional[tuple]):
+                      scores_b: Optional[tuple], rows: Optional[tuple] = None):
         """(col_scores, weighted_scores) closures for one chunk, gathering
-        rows of the whole-batch dense matrices when ``scores_b`` is given."""
+        rows of the whole-batch dense matrices when ``scores_b`` is given.
+        ``rows`` (row0, row1): score only those table rows (a mesh rank's
+        own; its columns of ``scores_b``)."""
         t = self.table
+        r0, r1 = (0, t.n_rows) if rows is None else rows
         w_np = np.asarray([q.weights for q in qs], np.float32)
         cache: dict = {}
         rows_idx = torch.as_tensor(part + [part[0]] * (bb - len(part)),
@@ -700,8 +772,9 @@ class BatchedHybridExecutor:
 
         def col_scores(i):
             if i not in cache:
-                cache[i] = scores_b[i][rows_idx] if scores_b is not None \
-                    else similarity_batch(qv_b[i], t.vectors[i],
+                cache[i] = scores_b[i][:, r0: r1][rows_idx] \
+                    if scores_b is not None \
+                    else similarity_batch(qv_b[i], t.vectors[i][r0: r1],
                                           t.schema.metric)
             return cache[i]
 
@@ -714,7 +787,7 @@ class BatchedHybridExecutor:
                 s = w_b[:, i, None] * col_scores(i)
                 ws = s if ws is None else ws + s
             return ws if ws is not None \
-                else torch.zeros((bb, t.n_rows), device=t.device)
+                else torch.zeros((bb, r1 - r0), device=t.device)
 
         return col_scores, weighted_scores
 

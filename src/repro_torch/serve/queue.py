@@ -210,13 +210,19 @@ class AsyncServingEngine:
     landing while a batch runs. Expired requests resolve ``timed_out`` and
     are never executed. With a ``semcache`` (``serve.semcache``), a fresh
     repeat resolves at submit and a miss populates after its batch, stamped
-    with the batch snapshot's token."""
+    with the batch snapshot's token. An instance bound to a mesh of more
+    than one rank is refused: each rank would cut batches by its own
+    clock."""
 
     def __init__(self, boomhq, *, batch_size: int = 32,
                  max_wait: float = 0.05,
                  default_timeout: Optional[float] = None,
                  clock: Callable[[], float] = time.monotonic,
                  semcache=None):
+        mesh = getattr(boomhq, "shard_mesh", None)
+        if mesh is not None and mesh.size() > 1:
+            from repro_torch.vectordb.distributed import MULTI_RANK_QUEUED
+            raise NotImplementedError(MULTI_RANK_QUEUED)
         self.bq = boomhq
         self.former = BatchFormer(batch_size=batch_size, max_wait=max_wait,
                                   clock=clock)

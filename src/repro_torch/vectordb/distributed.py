@@ -1,9 +1,9 @@
-"""Logical-shard MHQ search on one device.
+"""Sharded MHQ search: logical shards on one device, and a mesh of ranks.
 
-Port of the single-device part of ``repro.vectordb.distributed``. Rows
-split into ``n_shards`` contiguous ``ceil(n / n_shards)``-row shards; each
-shard keeps a local top-k and the global result is one merge of the
-O(shards · k) candidates, in shard order:
+Port of ``repro.vectordb.distributed``. Rows split into ``n_shards``
+contiguous ``ceil(n / n_shards)``-row shards; each shard keeps a local
+top-k and the global result is one merge of the O(shards · k) candidates,
+in shard order:
 
   * ``sharded_topk_ref`` is the EXACT per-shard filtered top-k over
     precomputed weighted scores;
@@ -11,19 +11,26 @@ O(shards · k) candidates, in shard order:
     shard probes its own IVF index with the plan's shard-legalized knobs
     and reranks the candidate union through the fused gather+score kernel.
 
-The shards are folded into the query axis of each kernel launch: shard
-``s``'s probed slots are globalized (``s · shard_len`` added to the local
-``sorted_rows`` entries, -1 kept for empty slots) and the S shards'
-(B, slots) candidate sets stack into one (S·B, slots) matrix over the
-whole table, so a chunk launches the gather kernel once per probed column
-and once for the rerank, whatever S is. The table is never copied into
-shard-shaped tensors. Ties break by the smaller global row id, as the
+On one device the shards are folded into the query axis of each kernel
+launch: shard ``s``'s probed slots are globalized (``s · shard_len`` added
+to the local ``sorted_rows`` entries, -1 kept for empty slots) and the S
+shards' (B, slots) candidate sets stack into one (S·B, slots) matrix over
+the whole table, so a chunk launches the gather kernel once per probed
+column and once for the rerank, whatever S is. The table is never copied
+into shard-shaped tensors. Ties break by the smaller global row id, as the
 reference's ``lax.top_k`` over shard-ordered candidates does.
 
-The ``shard_map`` builders of the reference (``sharded_masked_scan``,
-``sharded_masked_scan_batched``, ``sharded_batch_topk`` and the mesh
-branch of ``sharded_ivf_topk``) have no counterpart yet: a ``mesh`` raises
-``NotImplementedError``.
+The reference's ``shard_map`` functions (``sharded_masked_scan``,
+``sharded_masked_scan_batched``, ``sharded_batch_topk`` and the mesh branch
+of ``sharded_ivf_topk``) run here under ``torch.distributed``, one process
+per rank (SPMD, where the reference has one controller). A mesh is a
+``DeviceMesh`` and the names of its data dimensions; the shard count is
+their product and a rank's shard its row-major coordinate over them
+(``mesh_shard``). Each rank calls the built function with its own
+``n / S`` rows (``shard_rows``), and the merge is one ``all_gather`` of the
+per-shard candidates over the data dimensions, in shard order
+(``gather_shards``). Ranks that differ only on other dimensions hold the
+same shard and return the same result.
 """
 from __future__ import annotations
 
@@ -36,9 +43,98 @@ from repro_torch.kernels.shapes import NEG
 from repro_torch.vectordb import ivf as _ivf
 from repro_torch.vectordb import predicates
 from repro_torch.vectordb.flat import topk_stable
+from repro_torch.vectordb.table import similarity, similarity_batch
 
-MESH_QUEUED = ("the shard_map (mesh) path is not ported: it is queued as a "
-               "torch.distributed counterpart (ROADMAP Queue 1 item 5)")
+
+# ---------------------------------------------------------------------------
+# the mesh: shards, rows and collectives
+# ---------------------------------------------------------------------------
+
+MULTI_RANK_QUEUED = (
+    "tiered ingest and the async front-end cut epochs and batches by each "
+    "rank's own clock, so the ranks of a mesh of more than one rank would "
+    "diverge; a rank-0 front end for them is queued in ROADMAP Queue 1")
+
+
+def _axes(data_axes) -> tuple:
+    return data_axes if isinstance(data_axes, tuple) else (data_axes,)
+
+
+def mesh_shard(mesh, data_axes=("data",)) -> tuple:
+    """(shard count, this rank's shard) of a ``DeviceMesh`` over its data
+    dimensions: the product of their sizes, and the rank's row-major
+    coordinate over them (the order of the reference's tiled
+    ``all_gather`` over several axes)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"a mesh is a torch.distributed DeviceMesh, not "
+                        f"{type(mesh).__name__}")
+    names = mesh.mesh_dim_names or ()
+    missing = [a for a in _axes(data_axes) if a not in names]
+    if missing:
+        raise ValueError(f"the mesh's dimensions {names} lack {missing}")
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the mesh")
+    count, shard = 1, 0
+    for a in _axes(data_axes):
+        d = names.index(a)
+        count *= mesh.size(d)
+        shard = shard * mesh.size(d) + coord[d]
+    return count, shard
+
+
+def shard_rows(n: int, mesh, data_axes=("data",)) -> tuple:
+    """Rows ``[row0, row1)`` of an ``n``-row table that this rank holds:
+    shard ``r`` of S holds ``[r·n/S, (r+1)·n/S)``. As in the reference,
+    ``n`` must divide over the shards."""
+    count, shard = mesh_shard(mesh, data_axes)
+    if n % count:
+        raise ValueError(f"table rows {n} not divisible over {count} mesh "
+                         f"shards")
+    per = n // count
+    return shard * per, (shard + 1) * per
+
+
+def _line(mesh, d: int) -> list:
+    """Global ranks along mesh dimension ``d`` through this rank, in
+    coordinate order."""
+    idx = list(mesh.get_coordinate())
+    idx[d] = slice(None)
+    return mesh.mesh[tuple(idx)].tolist()
+
+
+def gather_shards(x: torch.Tensor, mesh, data_axes=("data",), *,
+                  dim: int = 0) -> torch.Tensor:
+    """Every shard's ``x`` concatenated along ``dim`` in shard order: one
+    ``all_gather`` along each data dimension, the last first, each
+    gathered part placed by its rank's coordinate."""
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    names = mesh.mesh_dim_names
+    for a in reversed(_axes(data_axes)):
+        d = names.index(a)
+        group = mesh.get_group(d)
+        parts = [torch.empty_like(x) for _ in range(mesh.size(d))]
+        dist.all_gather(parts, x, group=group)
+        x = torch.cat([parts[dist.get_group_rank(group, g)]
+                       for g in _line(mesh, d)], dim=dim)
+    return x
+
+
+def broadcast_from_first(obj, mesh):
+    """``obj`` as the mesh's first rank (coordinate 0 on every dimension)
+    holds it, on every rank: one broadcast along each dimension."""
+    import torch.distributed as dist
+
+    for d in range(mesh.ndim):
+        box = [obj]
+        dist.broadcast_object_list(box, src=_line(mesh, d)[0],
+                                   group=mesh.get_group(d))
+        obj = box[0]
+    return obj
 
 
 def _merge_shard_candidates(s_all: torch.Tensor, g_all: torch.Tensor, *,
@@ -81,6 +177,129 @@ def sharded_topk_ref(w_scores: torch.Tensor, mask: torch.Tensor, *, k: int,
                                    gids.reshape(q, n_shards * kk), k=k)
 
 
+def _gather_packed(tensors: tuple, mesh, data_axes) -> list:
+    """Every shard's (B, w_j) tensors in ONE ``all_gather`` per data
+    dimension (int32 bits; floats travel as their bits).
+    -> each as (B, S·w_j), in shard order."""
+    parts = [t.to(torch.int32) if t.dtype != torch.float32
+             else t.view(torch.int32) for t in tensors]
+    packed = torch.cat(parts, dim=1)
+    b, width = packed.shape
+    every = gather_shards(packed, mesh, data_axes, dim=1).reshape(b, -1,
+                                                                 width)
+    out, c = [], 0
+    for t in tensors:
+        w = t.shape[1]
+        x = every[:, :, c: c + w].reshape(b, -1)
+        out.append(x.view(torch.float32) if t.dtype == torch.float32 else x)
+        c += w
+    return out
+
+
+def mesh_topk(masked: torch.Tensor, row0: int, mesh, data_axes, *, k: int):
+    """This shard's top-min(k, n/S) of (Q, n/S) masked scores, its ids
+    globalized by ``row0``, then one gather and the merge in shard order.
+    -> (ids (Q, k) int32, scores (Q, k)), the same on every rank."""
+    s_loc, idx = topk_stable(masked, min(k, masked.shape[1]))
+    s_all, g_all = _gather_packed((s_loc, (idx + row0).to(torch.int32)),
+                                  mesh, data_axes)
+    return _merge_shard_candidates(s_all, g_all, k=k)
+
+
+def _row0(scalars: torch.Tensor, mesh, data_axes) -> int:
+    """This rank's first global row: its shard times its row count."""
+    return mesh_shard(mesh, data_axes)[1] * scalars.shape[0]
+
+
+def sharded_masked_scan(mesh, data_axes=("data",), *, k: int, n_vec: int,
+                        metric: str = "dot"):
+    """Build the sharded filtered top-k of one query.
+
+    Returned fn, called by every rank with its own rows:
+      fn(vectors tuple[(n/S, d_i)], scalars (n/S, M), pred,
+         qs tuple[(d_i,)], w (N,)) -> (ids (k,) int32, scores (k,))
+    Row ids are global; every rank returns the same result."""
+
+    def run(vectors, scalars, pred, qs, w):
+        total = torch.zeros(scalars.shape[0], device=scalars.device)
+        for i in range(n_vec):
+            total = total + w[i] * similarity(qs[i], vectors[i], metric)
+        masked = torch.where(predicates.eval_mask(pred, scalars), total,
+                             torch.full_like(total, NEG))
+        ids, scores = mesh_topk(masked[None],
+                                 _row0(scalars, mesh, data_axes), mesh,
+                                 data_axes, k=k)
+        return ids[0], scores[0]
+
+    return run
+
+
+def quantize_queries(q: torch.Tensor) -> tuple:
+    """(Q, d) queries -> (int8 (Q, d), per-query scale (Q,)): the
+    reference's absmax / 127, rounded half to even and clipped to ±127."""
+    qsc = torch.clamp(q.abs().amax(dim=-1), min=1e-12) / 127.0
+    q8 = torch.clamp(torch.round(q / qsc[:, None]), -127, 127)
+    return q8.to(torch.int8), qsc
+
+
+def int8_dot(v8: torch.Tensor, q8: torch.Tensor) -> torch.Tensor:
+    """(n, d) int8 rows · (Q, d) int8 queries -> (Q, n) int32, exact: the
+    product runs in float64, where every partial sum is an integer below
+    2^53 (a library product, as the reference's ``einsum`` is)."""
+    return (q8.to(torch.float64) @ v8.to(torch.float64).T).to(torch.int32)
+
+
+def sharded_masked_scan_batched(mesh, data_axes=("data",), *, k: int,
+                                n_vec: int, metric: str = "dot",
+                                int8: bool = False):
+    """Build the sharded filtered top-k of a query batch: one pass over a
+    rank's rows serves Q queries; with ``int8`` the rows are int8 with
+    per-row scales and the queries are quantized too (``quantize_queries``,
+    ``int8_dot``: an exact integer product, scaled back in fp32).
+
+    Returned fn, called by every rank with its own rows:
+      fn(vectors, scales (int8: tuple[(n/S,)], else ignored),
+         scalars (n/S, M), preds (stacked over Q), qs tuple[(Q, d_i)],
+         w (Q, N)) -> (ids (Q, k) int32, scores (Q, k))"""
+
+    def run(vectors, scales, scalars, preds, qs, w):
+        total = torch.zeros((qs[0].shape[0], scalars.shape[0]),
+                            device=scalars.device)
+        for i in range(n_vec):
+            if int8:
+                q8, qsc = quantize_queries(qs[i])
+                s = int8_dot(vectors[i], q8).to(torch.float32) \
+                    * scales[i][None, :] * qsc[:, None]
+            else:
+                s = similarity_batch(qs[i], vectors[i], metric)
+            total = total + w[:, i][:, None] * s
+        masked = torch.where(predicates.eval_mask(preds, scalars), total,
+                             torch.full_like(total, NEG))
+        return mesh_topk(masked, _row0(scalars, mesh, data_axes),
+                          mesh, data_axes, k=k)
+
+    return run
+
+
+def sharded_batch_topk(mesh, data_axes=("data",), *, k: int):
+    """Build the cross-shard batched filtered top-k over precomputed
+    weighted scores: a rank reads only its (Q, n/S) block of the batch's
+    weighted score matrix, and the merge is one gather of O(shards · k)
+    candidates.
+
+    Returned fn, called by every rank with its own rows:
+      fn(w_scores (Q, n/S), scalars (n/S, M), preds (stacked over Q))
+        -> (ids (Q, k) int32, scores (Q, k))"""
+
+    def run(w_scores, scalars, preds):
+        masked = torch.where(predicates.eval_mask(preds, scalars), w_scores,
+                             torch.full_like(w_scores, NEG))
+        return mesh_topk(masked, _row0(scalars, mesh, data_axes),
+                          mesh, data_axes, k=k)
+
+    return run
+
+
 @dataclasses.dataclass
 class ShardedIVF:
     """Per-shard IVF indexes of ONE vector column, stacked on a leading
@@ -104,6 +323,13 @@ class ShardedIVF:
     @property
     def shard_len(self) -> int:
         return int(self.sorted_rows.shape[1])
+
+    def shard(self, s: int) -> "ShardedIVF":
+        """Shard ``s``'s index alone, as a one-shard ``ShardedIVF`` (the
+        index a mesh rank holding that shard probes)."""
+        return ShardedIVF(self.centroids[s: s + 1],
+                          self.sorted_rows[s: s + 1],
+                          self.offsets[s: s + 1], self.metric)
 
 
 def build_sharded_ivf(vectors: torch.Tensor, n_shards: int, *,
@@ -154,8 +380,8 @@ def probe_shards(cent, rows, offs, q_b: torch.Tensor, shard_len: int, *,
     return torch.cat(out, dim=0).to(torch.int32)
 
 
-def sharded_ivf_topk(n_shards: int, mesh=None, *, subs: tuple, k: int,
-                     metric: str, pad_total: int):
+def sharded_ivf_topk(n_shards: int, mesh=None, data_axes=("data",), *,
+                     subs: tuple, k: int, metric: str, pad_total: int):
     """Build the plan-driven per-shard probing search.
 
     ``subs``: one entry per probed column, ``(pos, k_i, ks, nprobe,
@@ -176,13 +402,35 @@ def sharded_ivf_topk(n_shards: int, mesh=None, *, subs: tuple, k: int,
     ``fill[:, s]`` counts shard ``s``'s kept candidates and
     ``boundary[:, s]`` is its weakest kept score (NEG when it kept none),
     which the executor's per-shard escalation compares with the merged
-    k-th. With one shard there is no fold and no merge."""
+    k-th. With one shard there is no fold and no merge.
+
+    With a ``mesh`` (``n_shards`` of its data dimensions) every rank calls
+    fn with its own rows and its own shard's one-shard ``ShardedIVF``
+    arrays: the body is the one-shard search on local ids, globalized
+    after the rerank, and one gather merges the shards in shard order.
+    Every rank returns the same four tensors."""
     from repro_torch.core.executor import rrf_extras
     from repro_torch.kernels.gather_score import gather_score_topk
 
-    if mesh is not None:
-        raise NotImplementedError(MESH_QUEUED)
     s = max(1, int(n_shards))
+    if mesh is not None:
+        local = sharded_ivf_topk(1, subs=subs, k=k, metric=metric,
+                                 pad_total=pad_total)
+
+        def run_rank(cent_t, rows_t, offs_t, vectors, scalars, pred_b, qv_t,
+                     w_b):
+            count, shard = mesh_shard(mesh, data_axes)
+            if count != s:
+                raise ValueError(f"{s} shards asked of a mesh of {count}")
+            ids, scores, fill, bnd = local(cent_t, rows_t, offs_t, vectors,
+                                           scalars, pred_b, qv_t, w_b)
+            ids = torch.where(ids >= 0, ids + shard * scalars.shape[0], ids)
+            s_all, g_all, fill, bnd = _gather_packed(
+                (scores, ids, fill, bnd), mesh, data_axes)
+            mi, ms = _merge_shard_candidates(s_all, g_all, k=k)
+            return mi, ms, fill, bnd
+
+        return run_rank
 
     def run(cent_t, rows_t, offs_t, vectors, scalars, pred_b, qv_t, w_b):
         n = scalars.shape[0]

@@ -19,7 +19,13 @@ Under ``bind_shards`` the carried fit serves the same results as JAX's on
 every route (the probing route on the reference's carried per-shard
 indexes), the exact sharded scan holds the exact floor over 2 and 4
 shards, and fixed index_scan plans through per-shard probing on the port's
-own per-shard indexes hold the single-shard mean.
+own per-shard indexes hold the single-shard mean. ``bind_shards(mesh=)``
+on a one-rank ``gloo`` mesh in this process serves what JAX's one-device
+mesh serves, and what a mesh refuses is refused. The query encoder's
+single-query probes (``encode`` under every ablation flag,
+``QueryFeatures.x_in``) match JAX on the carried state, ``x_in`` is
+``encode_batch``'s row, and ``tests/test_core.py``'s pre-probe claim holds
+on the port's own indexes.
 """
 import dataclasses
 
@@ -380,8 +386,135 @@ def test_sharded_ivf_probing_acceptance(pair, monkeypatch):
         tbq.bind_shards().bind_cost_model()
 
 
+@pytest.mark.parametrize("plans,force", [
+    ("learned", None), ("learned", DENSE), ("default_plan", SHARDED_LOCAL)])
+def test_one_rank_mesh_matches_jax_one_device_mesh(pair, monkeypatch,
+                                                   tmp_path, plans, force):
+    """``bind_shards(mesh=)`` on a one-rank ``gloo`` mesh in this process
+    against JAX's ``bind_shards(mesh=)`` on a one-device mesh: the sharded
+    executor at one shard (the exact scan through the mesh's gather, the
+    probing route on the bound index). Scores to ``atol=1e-4``, a
+    differing id only on a tie; the dispatcher's counts and the escalated
+    sets equal."""
+    from jax.sharding import Mesh
+
+    from test_torch_mesh import one_rank_mesh
+
+    jbq, tbq, jtest, ttest, _ = pair
+    if plans == "default_plan":
+        for bq, dp in ((jbq, j_default_plan), (tbq, default_plan)):
+            monkeypatch.setattr(bq, "optimize_batch", lambda qs, dp=dp, **kw:
+                                [dp(q.n_vec) for q in qs])
+    with one_rank_mesh(tmp_path) as mesh:
+        try:
+            jbq.bind_shards(mesh=Mesh(np.array(jax.devices()[:1]), ("data",))
+                            ).bind_cost_model(JCostModel(force=force))
+            tbq.bind_shards(mesh=mesh).bind_cost_model(CostModel(force=force))
+            want = jbq.execute_batch(jtest)
+            got = tbq.execute_batch(ttest)
+            tbx, jbx = tbq._batched_executor(), jbq._batched_executor()
+            assert tbx.mesh is mesh and tbx.n_shards == 1
+            assert tbx.dispatcher.take()[0] == jbx.dispatcher.take()[0]
+            assert tbx.escalated == jbx.escalated
+        finally:
+            jbq.bind_shards().bind_cost_model()
+            tbq.bind_shards().bind_cost_model()
+    assert tbq._batched_executor().mesh is None
+    _assert_results_match(got, want)
+
+
 def test_bind_shards_refuses_a_mesh(pair):
+    """What ``bind_shards(mesh=)`` refuses: an object that is not a
+    ``DeviceMesh`` (``TypeError``), rows that do not divide over its ranks
+    (``ValueError``), and, over more than one rank, tiered ingest and the
+    async front-end (queued in ROADMAP); one rank keeps them."""
+    from test_torch_mesh import fake_mesh
+
+    from repro_torch.serve.queue import AsyncServingEngine
+
     tbq = pair[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tbq.bind_shards(4, mesh=object())
-    assert tbq.n_shards == 1
+    assert tbq.n_shards == 1 and tbq.shard_mesh is None
+    with fake_mesh(3) as mesh:  # 2,000 rows over 3 ranks
+        with pytest.raises(ValueError, match="not divisible"):
+            tbq.bind_shards(mesh=mesh)
+    assert tbq.shard_mesh is None
+    with fake_mesh(4, rank=2) as mesh:
+        try:
+            tbq.bind_shards(mesh=mesh)
+            assert tbq._batched_executor().rows == (1000, 1500)
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                tbq.bind_tiered(64)
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                AsyncServingEngine(tbq)
+        finally:
+            tbq.bind_shards()
+    assert tbq.tiered is None and tbq.n_shards == 1
+
+
+# ---------------------------------------------------------------------------
+# the query encoder's single-query probes
+# ---------------------------------------------------------------------------
+
+FLAGS = ("use_de", "use_stats", "use_gse", "use_lnp")
+
+
+@pytest.mark.parametrize("off", [None, *FLAGS])
+def test_encode_matches_jax_under_each_ablation(pair, off):
+    """``QueryEncoder.encode`` on the carried state, with every feature
+    group on and with each one off: X_in to ``atol=1e-4``, and the
+    single-feature probes (``global_selectivity``, ``local_probe``,
+    ``recon_errors``) to the same tolerance."""
+    jbq, tbq, jtest, ttest, _ = pair
+    flags = {f: f != off for f in FLAGS}
+    for qj, qt in zip(jtest[:6], ttest[:6]):
+        want = jbq.qenc.encode(qj, **flags)
+        got = tbq.qenc.encode(qt, **flags)
+        np.testing.assert_allclose(got.x_in().numpy(), want.x_in(),
+                                   atol=1e-4)
+        assert got.x_in().shape == want.x_in().shape
+    qj, qt = jtest[0], ttest[0]
+    assert abs(tbq.qenc.global_selectivity(qt)
+               - jbq.qenc.global_selectivity(qj)) < 1e-6
+    for g, w in zip(tbq.qenc.local_probe(qt), jbq.qenc.local_probe(qj)):
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-4)
+    np.testing.assert_allclose(tbq.qenc.recon_errors(qt).numpy(),
+                               jbq.qenc.recon_errors(qj), atol=1e-4)
+
+
+def test_encode_x_in_is_the_encode_batch_row(pair):
+    """``encode(q).x_in()`` is ``encode_batch``'s row for the same query:
+    bit for bit in a batch of one, and within 1e-6 as a row of the whole
+    batch."""
+    _, tbq, _, ttest, _ = pair
+    rows = tbq._features_batch(ttest, tbq.state)
+    for j, q in enumerate(ttest):
+        x = tbq.qenc.encode(q).x_in()
+        assert torch.equal(x, tbq._features_batch([q], tbq.state)[0]), j
+        np.testing.assert_allclose(x.numpy(), rows[j].numpy(), atol=1e-6)
+
+
+def test_local_probe_tracks_neighborhood_density(pair):
+    """``tests/test_core.py``'s claim on the port's own indexes: a
+    predicate the row's own neighborhood satisfies rates above an
+    impossible one, and the impossible one rates 0."""
+    from repro_torch.core.query import MHQ
+    from repro_torch.core.query_encoder import QueryEncoder
+    from repro_torch.vectordb import histogram, ivf
+    from repro_torch.vectordb.predicates import Predicates
+
+    table = pair[4]
+    idxs = [ivf.build(v, 16, seed=i) for i, v in enumerate(table.vectors)]
+    qe = QueryEncoder(table, idxs, histogram.build(table.scalars), None)
+    m = table.schema.n_scalar
+    row = 17
+    qv = tuple(v[row] for v in table.vectors)
+    scal = table.scalars.numpy()
+    pred_local = Predicates.from_conditions(
+        m, {0: (float(scal[row, 0]), float(scal[row, 0]))}, device="cpu")
+    pred_none = Predicates.from_conditions(m, {2: (1e9, 2e9)}, device="cpu")
+    r1, _ = qe.local_probe(MHQ(qv, (1.0, 0.0), pred_local))
+    r2, _ = qe.local_probe(MHQ(qv, (1.0, 0.0), pred_none))
+    assert r1[0] > r2[0]
+    assert r2[0] == 0.0

@@ -18,8 +18,9 @@ with the reference's own per-shard indexes carried across
   (``tests/test_sharded_ivf.py``): the rule flags shards 0 and 1 there.
 
 Then the claims of ``tests/test_sharded_ivf.py``, ``tests/test_batch.py``
-and ``tests/test_oracle.py`` on the port's own builds, mesh cases left out,
-and the refusals of the ``mesh`` path.
+and ``tests/test_oracle.py`` on the port's own builds, and what the mesh
+path refuses. The mesh cases themselves run over four ranks in
+``tests/test_torch_mesh.py``.
 """
 import numpy as np
 import pytest
@@ -383,12 +384,29 @@ def test_boundary_escalation_flags_the_dominant_shard_only(monkeypatch):
 
 
 def test_mesh_path_is_refused(part):
+    """What the mesh path refuses: an object that is not a ``DeviceMesh``
+    (``TypeError``), rows that do not divide over the mesh's shards
+    (``ValueError``, as the reference asserts), and a shard count that is
+    not the mesh's."""
+    from test_torch_mesh import fake_mesh
+
     _, tt, idx = part
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         BatchedHybridExecutor(tt, idx, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdist.sharded_ivf_topk(2, object(), subs=((0, 10, 16, 1, 32),),
-                               k=10, metric="dot", pad_total=64)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        tdist.shard_rows(tt.n_rows, object())
+    with fake_mesh(7, rank=3) as mesh:  # 1,500 rows over 7 ranks
+        with pytest.raises(ValueError, match="not divisible"):
+            BatchedHybridExecutor(tt, idx, mesh=mesh)
+        with pytest.raises(ValueError, match="not divisible"):
+            tdist.shard_rows(tt.n_rows, mesh)
+        with pytest.raises(ValueError, match="lack"):
+            tdist.mesh_shard(mesh, ("data", "model"))
+        fn = tdist.sharded_ivf_topk(2, mesh, subs=((0, 10, 16, 1, 32),),
+                                    k=10, metric="dot", pad_total=64)
+        with pytest.raises(ValueError, match="mesh of 7"):
+            fn(*[None] * 4, tt.scalars[:10], *[None] * 3)
+        assert tdist.shard_rows(1400, mesh) == (600, 800)
 
 
 # ---------------------------------------------------------------------------

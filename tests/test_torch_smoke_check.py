@@ -2,7 +2,10 @@
 and the later phases' checks, each refusing planted faults (phase 10: a
 served row out of range, twice, failing its predicate or misscored; a
 wrong id from the exact route; an S=1 result differing from the unsharded
-one; gather launches per probing chunk growing with the shard count).
+one; gather launches per probing chunk growing with the shard count;
+phase 11: a mesh pass whose ranks were gathered in reverse order, whose
+shard left its ids local, or whose escalated queries or scores differ
+from the logical shards').
 
 ``_held_to_plain`` lets a kernel's ids differ from the plain version's only
 where the plain version itself ties; ``_refuses_planted_ids`` swaps two
@@ -713,3 +716,76 @@ def test_sharded_case_is_what_the_probing_path_launches(smoke, sharded,
     for x, y in zip(a["qs"], [torch.stack([q.query_vectors[i] for q in qs])
                               for i in range(2)]):
         assert torch.equal(x, y.repeat(smoke.SHARD_PROBE, 1))
+
+
+# ---------------------------------------------------------------------------
+# phase 11's check (the mesh against the logical shards)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def logical4(smoke, sharded):
+    """A fixed-plan pass over 4 logical shards of ``sharded``'s table,
+    recorded as phase 11 holds a mesh pass to it: results, escalated
+    queries and each probing search's per-shard fill and boundary."""
+    from repro_torch.core.query import ExecutionPlan, SubqueryParams
+    from repro_torch.serve.batch import (
+        SHARDED_LOCAL, BatchedHybridExecutor, CostModel,
+    )
+
+    t, idx, wl, _, _ = sharded
+    plan = ExecutionPlan("index_scan", tuple(SubqueryParams(
+        k_mult=2, nprobe=2, max_scan=256, iterative=False)
+        for _ in range(2)))
+    bx = BatchedHybridExecutor(t, idx, n_shards=4,
+                               cost_model=CostModel(force=SHARDED_LOCAL))
+    with smoke.sharded_records() as rec:
+        results, escalated, _ = smoke.fixed_batches(
+            bx, wl, [plan] * len(wl), rec)
+        probes = smoke._host_probes(rec["probes"])
+    assert probes and all(f.shape[1] == 4 for f, _ in probes)
+    return t, dict(results=results, escalated=set(escalated), probes=probes)
+
+
+def _copy_pass(p):
+    return dict(results=[(i.copy(), s.copy()) for i, s in p["results"]],
+                escalated=set(p["escalated"]),
+                probes=[(f.copy(), b.copy()) for f, b in p["probes"]])
+
+
+def test_mesh_check_passes_the_logical_pass(smoke, logical4):
+    _, want = logical4
+    smoke.check_mesh_pass(_copy_pass(want), want, "x")
+    smoke.check_mesh_pass(_copy_pass(want), want, "x", atol=0.0)
+
+
+@pytest.mark.parametrize("fault", ["reversed", "local_ids", "escalated",
+                                   "score"])
+def test_mesh_check_refuses(smoke, logical4, fault):
+    """Ranks gathered in reverse order (each probing search's per-shard
+    fill and boundary in reversed shard order, as such a gather returns
+    them), one shard's ids left local (shard 2's rows, less its first
+    row), query 0 escalated or not where the logical pass differs, and a
+    live score moved by 1e-4."""
+    t, want = logical4
+    got = _copy_pass(want)
+    per = t.n_rows // 4
+    if fault == "reversed":
+        got["probes"] = [(f[:, ::-1].copy(), b[:, ::-1].copy())
+                         for f, b in got["probes"]]
+        msg = "shard order"
+    elif fault == "local_ids":
+        for ids, _ in got["results"]:
+            mine = (ids >= 2 * per) & (ids < 3 * per)
+            ids[mine] -= 2 * per
+        assert any(((i >= 2 * per) & (i < 3 * per)).any()
+                   for i, _ in want["results"])
+        msg = "ids differ"
+    elif fault == "escalated":
+        got["escalated"] ^= {0}
+        msg = "escalated"
+    else:
+        j = next(j for j, (ids, _) in enumerate(got["results"]) if ids[0] >= 0)
+        got["results"][j][1][0] += np.float32(1e-4)
+        msg = "scores differ"
+    with pytest.raises(AssertionError, match=msg):
+        smoke.check_mesh_pass(got, want, "x")
