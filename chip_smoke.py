@@ -180,13 +180,32 @@ Phases (any failure raises and exits non-zero):
      scores and boundaries within 1e-5), every rank launching the fp32
      kernel once per probed column plus once a probing chunk. Every
      process group has a finite timeout and is destroyed after its
-     phase.
+     phase;
+ 12. the static checks (``repro_torch.analysis``), (a) and (b) right after
+     phase 2's build, (c) right after phase 4's counted passes. (a)
+     boomlint over ``src/repro_torch`` with level 2 on this build's
+     ``nvcc -Xptxas -v`` reports and the card's own limits
+     (``get_device_properties``): any finding beyond
+     ``boomlint_torch.baseline.json`` fails; one line per kernel:
+     registers, static and dynamic shared memory at the envelope, spills,
+     stack, resident CTAs a SM (the card's arithmetic). (b) The four
+     kernels at the declared envelope of ``kernels/shapes.py``, held to
+     their plain versions with phase 3's tolerance and tie rule and timed
+     as there: both gather kernels at B=32, S=8,192, 4 columns × 768, 16
+     scalars, a 4-clause DNF, k=128; both scans at n=200,000, d=768, a
+     conjunction of all 16 scalars, k=128. (c) One served batch of 32
+     under the default and the forced candidate-local cost model, run
+     under ``torch.cuda.set_sync_debug_mode("warn")``: its synchronizing
+     calls counted and attributed to the port's file:line; every line
+     inside a hot function must be one of (a)'s findings (suppressed or
+     baselined), or share its statement with one.
 
 The ``launches`` of the kernel report sum the main paths' counts (phase 4,
 7, 9, 10 and 11's serving passes, phase 11's ranks included, phase 8's
-searches for the gather kernels; phase 5 for the scans);
-``chip_smoke.json`` keeps each phase's apart. The phases run in the order
-1–5, 10, 11, 6–9.
+searches for the gather kernels; phase 5 for the scans); phase 12 (b)'s
+are apart, as ``envelope_launches``; ``chip_smoke.json`` keeps each
+phase's apart. The phases run in the order 1, 2, 12 (a, b), 3, 4,
+12 (c), 5, 10, 11, 6–9.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -194,6 +213,7 @@ The line before the last is the JSON kernel report; the last line is
 """
 from __future__ import annotations
 
+import ast
 import asyncio
 import concurrent.futures
 import contextlib
@@ -789,11 +809,13 @@ def _all_cols_pred(scal_np, device):
         for c in range(scal_np.shape[1])}, device=device)
 
 
-def check_scans(table, queries, device) -> list:
-    """Full-table scan kernels vs their plain versions on column 0: fp32
-    (dot, l2) and int8, k ∈ {10, 128}, ≈1%, ≈10% and 100% price ranges and
-    one conjunction over all M columns. Returns one row per (variant, k,
-    predicate)."""
+def check_scans(table, q, device, *, preds=None, ks=(10, 128),
+                variants=("dot", "l2", "int8")) -> list:
+    """Full-table scan kernels vs their plain versions on column 0 for the
+    query ``q``: fp32 (dot, l2) and int8, k ∈ {10, 128}, ≈1%, ≈10% and
+    100% price ranges and one conjunction over all M columns, unless
+    ``preds``, ``ks`` or ``variants`` name others. Returns one row per
+    (variant, k, predicate)."""
     from repro_torch.kernels import masked_topk as mt
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.shapes import SCAN_BLOCK_ROWS
@@ -803,18 +825,19 @@ def check_scans(table, queries, device) -> list:
     n, d = v0.shape
     m = table.schema.n_scalar
     vq, sc = table.quantized(0)
-    q = queries[0].query_vectors[0]
     nb = -(-n // SCAN_BLOCK_ROWS)
     out = []
-    preds = [_range_pred(scal_np, frac, device) for frac in (0.01, 0.10, 1.0)]
-    preds.append(_all_cols_pred(scal_np, device))
+    if preds is None:
+        preds = [_range_pred(scal_np, frac, device)
+                 for frac in (0.01, 0.10, 1.0)]
+        preds.append(_all_cols_pred(scal_np, device))
     for p in preds:
         lo, hi, act = (x.to(torch.float32) for x in (p.lo, p.hi, p.active))
         n_qual = int(torch.all(((table.scalars >= lo) & (table.scalars <= hi))
                                | (act < 0.5), dim=1).sum())
         n_act = int((act >= 0.5).sum())
-        for k in (10, 128):
-            for variant in ("dot", "l2", "int8"):
+        for k in ks:
+            for variant in variants:
                 int8 = variant == "int8"
                 if int8:
                     def kern(k=k, lo=lo, hi=hi, act=act):
@@ -2806,9 +2829,312 @@ def mesh_phase(bq, queries, gt, fixed: dict) -> dict:
     return dict(one_rank=one, four_ranks=four, launches=launches)
 
 
-def _kernel_entry(name, source, replaces, rows, main, launches) -> dict:
+# ---------------------------------------------------------------------------
+# phase 12: the static checks (boomlint) on this build
+# ---------------------------------------------------------------------------
+
+def card_envelope():
+    """``analysis.config.CardEnvelope`` with the limits this card reports
+    (``torch.cuda.get_device_properties``) in place of the defaults.
+    -> (envelope, the fields read from the card, the defaults kept)."""
+    from repro_torch.analysis.config import CardEnvelope
+
+    props = torch.cuda.get_device_properties(0)
+    names = dict(smem_optin="shared_memory_per_block_optin",
+                 smem_per_sm="shared_memory_per_multiprocessor",
+                 regs_per_sm="regs_per_multiprocessor",
+                 threads_per_sm="max_threads_per_multi_processor")
+    own = {k: int(getattr(props, a)) for k, a in names.items()
+           if getattr(props, a, None)}
+    kept = sorted(set(names) - set(own))
+    return dataclasses.replace(CardEnvelope(), **own), sorted(own), kept
+
+
+def lint_phase() -> dict:
+    """Phase 12 (a): boomlint over ``src/repro_torch`` with level 2, on the
+    ptxas reports of this build and the card's own limits. Any finding
+    beyond ``boomlint_torch.baseline.json`` fails. -> the kernels'
+    resources, the serving functions' host reads and every finding,
+    suppressed and baselined included (phase 12 (c) reads them)."""
+    from repro_torch.analysis.config import LintConfig
+    from repro_torch.analysis.runner import run_paths
+    from repro_torch.analysis.suppressions import Baseline
+
+    card, read, kept = card_envelope()
+    log(f"phase 12 (a): boomlint with level 2; the limits "
+        f"{dataclasses.asdict(card)}: {read} read from the card, "
+        f"{kept or 'none'} left at CardEnvelope's defaults")
+    res = run_paths(["src/repro_torch"], LintConfig(card=card))
+    active = Baseline.load(ROOT / "boomlint_torch.baseline.json").filter(
+        res["active"])
+    if active:
+        raise AssertionError("boomlint on the shipped tree: "
+                             + "; ".join(f.render() for f in active))
+    kernels = res["runtime"]["kernels"]
+    for r in kernels:
+        print(f"    {r['kernel']:40s} {r['registers']:3d} registers, "
+              f"{r['smem_static']} B static smem, "
+              f"{r['smem_dynamic_envelope']} B dynamic at the envelope "
+              f"(at most {r['smem_dynamic_max']}), spills "
+              f"{r['spill_stores']}/{r['spill_loads']} B, stack "
+              f"{r['stack']} B, {r['threads']} threads, "
+              f"{r['resident_ctas']} resident CTAs a SM")
+    reads = {k: v["host_reads"] for k, v in
+             res["runtime"]["functions"].items()}
+    log(f"  host reads by function (CM001 fixture): {reads}; "
+        f"{len(res['active'])} baselined, {len(res['suppressed'])} "
+        f"suppressed, 0 new")
+    return dict(card=dataclasses.asdict(card), card_fields_read=read,
+                card_fields_default=kept, kernels=kernels,
+                functions=res["runtime"]["functions"],
+                findings=[f.to_dict() for f in
+                          res["active"] + res["suppressed"]])
+
+
+ENV_ROWS = 200_000  # the scans' n, and the gather table's rows
+ENV_SLOTS = 8192  # the gather kernels' S at the envelope
+
+
+def envelope_table(device):
+    """A table at the declared envelope (``kernels/shapes.py``):
+    ``MAX_VEC_COLS`` columns of ``MAX_COL_DIM``, ``MAX_SCALARS`` uniform
+    scalars, ``ENV_ROWS`` rows, drawn on the card from a seed."""
+    from repro_torch.kernels.shapes import (
+        MAX_COL_DIM, MAX_SCALARS, MAX_VEC_COLS,
+    )
+    from repro_torch.vectordb.table import (
+        ScalarCol, Table, TableSchema, VectorCol,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    schema = TableSchema(
+        tuple(VectorCol(f"v{i}", MAX_COL_DIM) for i in range(MAX_VEC_COLS)),
+        tuple(ScalarCol(f"s{j}", "num") for j in range(MAX_SCALARS)))
+    return Table(schema, [torch.randn((ENV_ROWS, MAX_COL_DIM), generator=gen,
+                                      device=device)
+                          for _ in range(MAX_VEC_COLS)],
+                 torch.rand((ENV_ROWS, MAX_SCALARS), generator=gen,
+                            device=device))
+
+
+def envelope_phase(device) -> dict:
+    """Phase 12 (b): each of the four kernels at the declared envelope, held
+    to its plain version with phase 3's tolerance and tie rule and timed as
+    phase 3 times: both gather kernels at B=32, S=8,192 random rows (the
+    last 5% of each query's slots empty), every column weighted, a
+    4-clause DNF over the 16 scalars, k=128; both scans over the 200,000
+    rows of column 0 under a conjunction of all 16 columns (each its
+    central 86.6%, ≈10% of the rows), k=128. -> rows and the launches."""
+    from repro_torch.kernels import gather_score as gs
+    from repro_torch.kernels import masked_topk as mt
+    from repro_torch.kernels.shapes import (
+        MAX_COL_DIM, MAX_SCALARS, MAX_TOPK, MAX_VEC_COLS,
+    )
+    from repro_torch.vectordb.predicates import Predicates
+
+    table = envelope_table(device)
+    scal_np = table.scalars.cpu().numpy()
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device=device).manual_seed(13)
+    b = BATCH
+    cand = torch.randint(0, ENV_ROWS, (b, ENV_SLOTS), generator=gen,
+                         device=device, dtype=torch.int32)
+    cand[:, -ENV_SLOTS // 20:] = -1
+    qs = tuple(torch.randn((b, MAX_COL_DIM), generator=gen, device=device)
+               for _ in range(MAX_VEC_COLS))
+    w = torch.rand((b, MAX_VEC_COLS), generator=gen, device=device) + 0.2
+    pred = _random_dnf(MAX_SCALARS, 4, b, scal_np, rng, device)
+    quant = [table.quantized(i) for i in range(MAX_VEC_COLS)]
+    label = (f"envelope S={ENV_SLOTS} {MAX_VEC_COLS}x{MAX_COL_DIM} "
+             f"M={MAX_SCALARS} C=4 k={MAX_TOPK}")
+    cases = [(label, "fp32", dict(cand=cand, vectors=tuple(table.vectors),
+                                  qs=qs, w=w, pred=pred, k=MAX_TOPK,
+                                  metric="dot", scales=None)),
+             (label, "int8", dict(cand=cand,
+                                  vectors=tuple(v for v, _ in quant), qs=qs,
+                                  w=w, pred=pred, k=MAX_TOPK, metric="dot",
+                                  scales=tuple(sc for _, sc in quant)))]
+    before = dict(gs.LAUNCHES), dict(mt.LAUNCHES)
+    log(f"phase 12 (b): the four kernels at the declared envelope")
+    gather = check_kernels(table, cases, device)
+    every = Predicates.from_conditions(MAX_SCALARS, {
+        c: tuple(float(x) for x in np.quantile(scal_np[:, c],
+                                               [0.067, 0.933]))
+        for c in range(MAX_SCALARS)}, device=device)
+    scans = check_scans(table, qs[0][0], device, preds=[every],
+                        ks=(MAX_TOPK,), variants=("dot", "int8"))
+    launches = {f"gather_score_{v}": gs.LAUNCHES[v] - before[0][v]
+                for v in ("fp32", "int8")}
+    launches["masked_topk_fp32"] = mt.LAUNCHES["fp32"] - before[1]["fp32"]
+    launches["int8_scan"] = mt.LAUNCHES["int8"] - before[1]["int8"]
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched at the envelope")
+    log(f"  envelope launches {launches}")
+    return dict(gather=gather, scans=scans, launches=launches)
+
+
+def _stmt_spans(tree) -> list:
+    """(first, last) lines of every simple statement and of every compound
+    statement's header."""
+    spans = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.stmt):
+            continue
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body:
+            spans.append((node.lineno, body[0].lineno - 1))
+        else:
+            spans.append((node.lineno, node.end_lineno))
+    return spans
+
+
+def sync_sites(run) -> dict:
+    """{stack: syncs} of one call of ``run`` under
+    ``torch.cuda.set_sync_debug_mode("warn")``: each warning is keyed on
+    the frames of ``src/repro_torch`` on the stack when it is raised,
+    innermost first, as ((path, line, function name), ...); () when no
+    frame of the port is on it."""
+    import traceback
+    import warnings
+
+    port = str(ROOT / "src" / "repro_torch")
+    sites: dict = {}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        stack = tuple(
+            (os.path.relpath(fr.filename, ROOT).replace(os.sep, "/"),
+             fr.lineno, fr.name)
+            for fr in reversed(traceback.extract_stack())
+            if fr.filename.startswith(port))
+        sites[stack] = sites.get(stack, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+# Syncs that a hot function reaches through a helper outside the hot
+# registry, where HS001 (which reads one function at a time) cannot see
+# them: (the helper's path, its name, the hot function that reaches it)
+# -> what the helper reads. Phase 12 (c) accepts a sync raised in a helper
+# only when the hot function's call line is a static finding or the
+# helper is listed here for that hot function.
+HELPER_SYNCS = {
+    ("src/repro_torch/core/boomhq.py", "_features_batch",
+     "BoomHQ.optimize_batch"): "H2D of the batch's weights, log k and "
+                               "recall targets; three a batch, no loop",
+    ("src/repro_torch/core/boomhq.py", "_retry_underfilled",
+     "BoomHQ.execute_batch"): "H2D of the underfilled queries' index; one "
+                              "a batch, when any query underfills",
+    ("src/repro_torch/vectordb/predicates.py", "take",
+     "BatchedHybridExecutor._batched_subquery"):
+        "H2D of the re-expansion's selection; one a round, beside the "
+        "round's suppressed n_qual read",
+}
+
+
+def sync_phase(bq, queries, lint: dict) -> dict:
+    """Phase 12 (c): the synchronizing calls of one served batch (32 of the
+    serving queries on phase 4's instance, the default and the forced
+    candidate-local pass, each after a warm batch), by file:line. A sync
+    is checked at the innermost frame that lies inside a hot function of
+    ``analysis.config``: where that frame raised it, the line must be one
+    of (a)'s findings (suppressed or baselined) or share its statement
+    with one; where it called a helper that raised it, the call line must
+    be a finding or the helper one of ``HELPER_SYNCS``. A sync that passes
+    neither is an idiom the static rule misses, and fails the phase."""
+    from repro_torch.analysis.astpass import ModuleLint
+    from repro_torch.analysis.config import LintConfig
+    from repro_torch.serve.batch import CANDIDATE_LOCAL, CostModel
+
+    found: dict = {}
+    for f in lint["findings"]:
+        found.setdefault(f["path"], set()).add(f["line"])
+    parsed: dict = {}
+
+    def where(path, line):
+        """-> (the hot function the line lies in or None, accounted?)."""
+        if path not in parsed:
+            src = (ROOT / path).read_text()
+            lint_ = ModuleLint(path, src, LintConfig(runtime=False),
+                               relpath=path)
+            parsed[path] = (lint_.hot_spans(), _stmt_spans(lint_.tree))
+        hot, spans = parsed[path]
+        fn = next((qn for a, z, qn in hot if a <= line <= z), None)
+        span = min((sp for sp in spans if sp[0] <= line <= sp[1]),
+                   key=lambda sp: sp[1] - sp[0], default=(line, line))
+        lines = found.get(path, set())
+        return fn, any(span[0] <= x <= span[1] for x in lines)
+
+    def check(stack):
+        """-> (site, hot function, the hot call line or None, verdict)."""
+        if not stack:
+            return "?", None, None, "outside the port"
+        site = f"{stack[0][0]}:{stack[0][1]}"
+        for i, (path, line, _) in enumerate(stack):
+            fn, ok = where(path, line)
+            if fn is None:
+                continue
+            if i == 0:
+                return site, fn, None, "a finding" if ok else None
+            via = f"{path}:{line}"
+            if ok:
+                return site, fn, via, "a finding"
+            reason = HELPER_SYNCS.get((stack[0][0], stack[0][2], fn))
+            return site, fn, via, reason and f"listed: {reason}"
+        return site, None, None, "outside the hot functions"
+
+    batch = queries[:BATCH]
+    out, missed = {}, []
+    for label, cm in (("default", None),
+                      ("candidate_local", CostModel(force=CANDIDATE_LOCAL))):
+        bq.bind_cost_model(cm)
+        bq.execute_batch(batch)  # builds the executor, warms its buckets
+        torch.cuda.synchronize()
+        rows: dict = {}
+        for stack, n in sync_sites(lambda: bq.execute_batch(batch)).items():
+            key = check(stack)
+            rows[key] = rows.get(key, 0) + n
+        total = sum(rows.values())
+        log(f"phase 12 (c): {label} batch of {len(batch)}: {total} "
+            f"synchronizing calls at {len({k[0] for k in rows})} lines")
+        out_rows = []
+        for (site, fn, via, verdict), n in sorted(
+                rows.items(), key=lambda kv: tuple(map(str, kv[0]))):
+            out_rows.append(dict(
+                site=site, syncs=n, hot_function=fn, via=via,
+                finding=verdict == "a finding",
+                verdict=verdict or "NOT A FINDING"))
+            if verdict is None:
+                missed.append(f"{label}: {site} in {fn}"
+                              + (f" (called from {via})" if via else ""))
+            print(f"    {site:45s} {n:4d}  "
+                  + (f"hot {fn}" + (f" via {via}" if via else "") + ", "
+                     if fn else "") + (verdict or "NOT A FINDING"))
+        out[label] = dict(syncs=total, sites=out_rows)
+    bq.bind_cost_model()
+    if missed:
+        raise AssertionError("syncs inside hot functions that no static "
+                             "finding or listed helper covers (a sync "
+                             "idiom the rule misses): " + "; ".join(missed))
+    return out
+
+
+def _kernel_entry(name, source, replaces, rows, main, launches,
+                  envelope_launches) -> dict:
     return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=launches,
+                launches=launches, envelope_launches=envelope_launches,
                 max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
@@ -2843,6 +3169,9 @@ def main() -> int:
 
     # phase 2
     build_s = build_kernels()
+    # phase 12 (a), (b): the static checks on this build, the envelope
+    lint = lint_phase()
+    envelope = envelope_phase(dev)
     table = datasets.make("part", rows=ROWS, seed=0, device=dev)
     graphs, graph_s = build_graphs(table)
     fit_wl, serve_wl = smoke_workloads(table)
@@ -2867,7 +3196,7 @@ def main() -> int:
                                              serve_wl, dev)
                          + hot_case(ttable, t_serve_wl, dev)
                          + sharded_case(table, serve_wl, dev), dev)
-    scan_rows = check_scans(table, serve_wl, dev)
+    scan_rows = check_scans(table, serve_wl[0].query_vectors[0], dev)
 
     # phase 4 — launch counts cover exactly this run
     gs.reset_launches()
@@ -2896,6 +3225,8 @@ def main() -> int:
                            graph_plan(table.schema.n_vec, 16, 8, 8),
                            "graph plan beam 16, 8 hops, k_i = 8k")
     launches = dict(gs.LAUNCHES)
+    # phase 12 (c) — one served batch's syncs, outside the counted window
+    syncs = sync_phase(bq, serve_wl, lint)
 
     # phase 5 — the scan path, its own counts
     spass = scan_pass(table, serve_wl)
@@ -2986,7 +3317,8 @@ def main() -> int:
             "src/repro/kernels/gather_score.py:88", checked, vrows[0],
             launches[variant] + upd["launches"][variant]
             + sift["launches"][variant] + tier["launches"][variant]
-            + shards["launches"][variant] + mesh["launches"][variant]))
+            + shards["launches"][variant] + mesh["launches"][variant],
+            envelope["launches"][f"gather_score_{variant}"]))
     for name, variant, replaces in (
             ("masked_topk_fp32", "dot", "src/repro/kernels/masked_topk.py:28"),
             ("int8_scan", "int8", "src/repro/kernels/int8_scan.py:28")):
@@ -2998,7 +3330,8 @@ def main() -> int:
         kernels.append(_kernel_entry(
             name, "src/repro_torch/csrc/masked_topk.cu", replaces, vrows,
             main_row, spass["launches"]["int8" if variant == "int8"
-                                        else "fp32"]))
+                                        else "fp32"],
+            envelope["launches"][name]))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
@@ -3008,6 +3341,7 @@ def main() -> int:
         profile_graph=prof_graph, launches=launches,
         launches_by_phase=launches_by_phase, updates=upd["inserts"],
         sift=sift, tiered=tier, shards=shards, mesh=mesh,
+        static_checks=dict(lint=lint, envelope=envelope, syncs=syncs),
         default_plan_recall=robust_recall, recall_target=target,
         seconds=time.perf_counter() - T0), indent=1))
     log(f"done in {time.perf_counter() - T0:.1f} s")

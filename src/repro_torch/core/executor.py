@@ -333,7 +333,9 @@ class HybridExecutor:
                     k=kw)
             if not sp.iterative:
                 return ids
-            # one sync per re-expansion round is the iterative_scan contract
+            # boomlint: ignore[HS001] one sync per re-expansion round is the
+            # sequential iterative_scan contract (the batched path amortizes
+            # it per group — serve/batch._batched_subquery)
             if int(n_qual) >= k_i or nprobe >= min(self.indexes[i].n_clusters,
                                                    self.engine.nprobe_cap):
                 return ids

@@ -126,6 +126,17 @@ def _library():
     return lib
 
 
+# the most dynamic shared memory a launch may ask (gather_score_launch
+# refuses more; past 32 KB the launcher opts the kernel in to it)
+QUERY_SMEM_MAX = 48 * 1024
+
+
+def query_smem_bytes(dims) -> int:
+    """Dynamic shared memory of one launch: every column's query as f32,
+    each padded to 16 bytes (``qoff`` in ``csrc/gather_score.cu``)."""
+    return max(sum((d + 3) // 4 * 4 for d in dims), 4) * 4
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -176,7 +187,7 @@ def gather_score_blocks(cand, vectors, qs, weights, scalars, lo, hi, active,
         dims.append(int(v.shape[1]))
         if int8:
             _check(scales[i], f"scales[{i}]", torch.float32, (n,), dev)
-    if sum((d + 3) // 4 * 4 for d in dims) * 4 > 48 * 1024:
+    if query_smem_bytes(dims) > QUERY_SMEM_MAX:
         raise ValueError(f"query widths {dims} exceed the kernel's shared "
                          f"memory")
     nb = s_tot // block_s
@@ -222,7 +233,7 @@ def gather_score_topk(cand, vectors, qs, weights, scalars, pred=None, *,
 
     -> (ids (B, k) int32, scores (B, k), n_qualified (B,)). Empty slots
     carry id -1 / score NEG; ties break by smaller row id."""
-    b, s_tot = cand.shape
+    b = cand.shape[0]
     apply_pred = pred is not None
     lo, hi, act, cval = _pred_fields(pred, b, scalars.shape[1], cand.device)
     if cand.device.type == "cpu":
@@ -231,6 +242,19 @@ def gather_score_topk(cand, vectors, qs, weights, scalars, pred=None, *,
         return gather_score_ref(cand, vectors, qs, weights, scalars,
                                 lo, hi, act, cval, k=k, metric=metric,
                                 apply_pred=apply_pred, scales=scales)
+    return kernel_route(cand, vectors, qs, weights, scalars, lo, hi, act,
+                        cval, k=k, metric=metric, block_s=block_s,
+                        scales=scales, apply_pred=apply_pred)
+
+
+def kernel_route(cand, vectors, qs, weights, scalars, lo, hi, act, cval, *,
+                 k: int, metric: str, block_s: int, scales, apply_pred: bool,
+                 blocks=gather_score_blocks):
+    """``gather_score_topk``'s CUDA route past the predicate fields: pad
+    the slots to whole blocks, launch ``blocks`` (the kernel; the static
+    checks pass a plain stand-in to run this host code on the CPU), merge
+    the blocks."""
+    b, s_tot = cand.shape
     # the block/padding rule of the JAX entry point
     bs = min(block_s, _next_pow2(max(s_tot, k, 8)))
     pad = (-s_tot) % bs
@@ -240,7 +264,7 @@ def gather_score_topk(cand, vectors, qs, weights, scalars, pred=None, *,
     if pad:
         cand = torch.cat([cand, torch.full((b, pad), -1, dtype=torch.int32,
                                            device=cand.device)], dim=1)
-    out_s, out_i, out_q = gather_score_blocks(
+    out_s, out_i, out_q = blocks(
         cand.contiguous(), tuple(v.contiguous() for v in vectors),
         tuple(q.to(torch.float32).contiguous() for q in qs),
         weights.to(torch.float32).contiguous(), scalars.contiguous(),

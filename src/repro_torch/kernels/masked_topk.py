@@ -23,7 +23,16 @@ from repro_torch.kernels.shapes import MAX_SCALARS, SCAN_BLOCK_ROWS
 LAUNCHES = {"fp32": 0, "int8": 0}
 
 MAX_SLOTS = 1024  # the kernel's sort width: block_rows and k at most this
-MAX_DIM = 8 * 1024  # widest row the kernel stages the query for
+# the query the kernel stages in shared memory (kMaxQueryFloats floats in
+# csrc/masked_topk.cu): 32 KB, under the default 48 KB
+MAX_QUERY_SMEM = 32 * 1024
+MAX_DIM = MAX_QUERY_SMEM // 4  # widest row the kernel stages the query for
+
+
+def query_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one launch: the query as f32
+    (``masked_topk_launch``'s ``smem``)."""
+    return 4 * d
 
 
 def reset_launches() -> None:
@@ -62,7 +71,7 @@ def launch_blocks(q, vectors, scales, scalars, lo, hi, active, n_rows: int,
     if not 1 <= block_rows <= MAX_SLOTS or not 1 <= k <= MAX_SLOTS:
         raise ValueError(f"block_rows={block_rows} and k={k} must lie in "
                          f"[1, {MAX_SLOTS}]")
-    if m > MAX_SCALARS or not 1 <= d <= MAX_DIM:
+    if m > MAX_SCALARS or d < 1 or query_smem_bytes(d) > MAX_QUERY_SMEM:
         raise ValueError(f"M={m} > {MAX_SCALARS} or d={d} outside "
                          f"[1, {MAX_DIM}]")
     if metric not in ("dot", "l2") or (int8 and metric != "dot"):

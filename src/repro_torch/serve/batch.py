@@ -951,6 +951,10 @@ class BatchedHybridExecutor:
                               rs_b[sel_pt] if rs_b is not None else None)
             ids = ids.clone()
             ids[torch.as_tensor(sel, device=t.device)] = ids2[: len(sel)]
+            # boomlint: ignore[HS001] one sync per re-expansion round is
+            # the iterative contract (the round count is the doubling
+            # ladder, not the batch size — same shape as
+            # HybridExecutor._subquery)
             done[sel] = nq2.cpu().numpy()[: len(sel)] >= k_i
         return ids
 

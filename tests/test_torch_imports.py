@@ -55,7 +55,10 @@ def test_port_covers_the_slice_layout():
                 "train/optimizer.py", "bench/augment.py",
                 "bench/datasets.py", "bench/queries.py",
                 "vectordb/tiered.py", "serve/queue.py", "serve/semcache.py",
-                "vectordb/distributed.py"):
+                "vectordb/distributed.py", "analysis/findings.py",
+                "analysis/suppressions.py", "analysis/config.py",
+                "analysis/astpass.py", "analysis/runner.py",
+                "analysis/cli.py"):
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
 

@@ -5,7 +5,8 @@ wrong id from the exact route; an S=1 result differing from the unsharded
 one; gather launches per probing chunk growing with the shard count;
 phase 11: a mesh pass whose ranks were gathered in reverse order, whose
 shard left its ids local, or whose escalated queries or scores differ
-from the logical shards').
+from the logical shards'; phase 12 (c): a sync in a hot function that no
+static finding covers, raised there or in a helper that is not listed).
 
 ``_held_to_plain`` lets a kernel's ids differ from the plain version's only
 where the plain version itself ties; ``_refuses_planted_ids`` swaps two
@@ -789,3 +790,73 @@ def test_mesh_check_refuses(smoke, logical4, fault):
         msg = "scores differ"
     with pytest.raises(AssertionError, match=msg):
         smoke.check_mesh_pass(got, want, "x")
+
+
+# ---------------------------------------------------------------------------
+# phase 12 (c): every sync inside a hot function accounted for
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def sync_lint():
+    """(phase 12 (a)'s findings on the shipped tree, AST only; a line of
+    ``serve/batch.py`` that is a finding inside a hot function; the first
+    line of ``_batched_subquery``, inside it and no finding)."""
+    from repro_torch.analysis.astpass import ModuleLint
+    from repro_torch.analysis.config import LintConfig
+    from repro_torch.analysis.runner import run_paths
+
+    res = run_paths([str(ROOT / "src" / "repro_torch")],
+                    LintConfig(runtime=False))
+    path = "src/repro_torch/serve/batch.py"
+    findings = [dict(f.to_dict(), path=path) for f in
+                res["active"] + res["suppressed"]
+                if f.path.endswith("serve/batch.py")]
+    spans = ModuleLint(path, (ROOT / path).read_text(),
+                       LintConfig(runtime=False),
+                       relpath=path).hot_spans()
+    sub = next(a for a, _, qn in spans
+               if qn == "BatchedHybridExecutor._batched_subquery")
+    hot = next(f["line"] for f in findings
+               if any(a <= f["line"] <= z for a, z, _ in spans))
+    return dict(findings=findings), path, hot, sub
+
+
+@pytest.mark.parametrize("case,accepted", [
+    ("raised_at_a_finding", True),
+    ("raised_in_a_hot_function_off_the_findings", False),
+    ("listed_helper", True),
+    ("unlisted_helper", False),
+    ("unlisted_helper_called_at_a_finding", True),
+    ("outside_the_port", True),
+])
+def test_sync_phase_accounts_for_every_hot_sync(smoke, sync_lint,
+                                                monkeypatch, case, accepted):
+    lint, path, hot, sub = sync_lint
+    pred = "src/repro_torch/vectordb/predicates.py"
+    stack = {
+        "raised_at_a_finding": ((path, hot, "f"),),
+        "raised_in_a_hot_function_off_the_findings": ((path, sub, "f"),),
+        "listed_helper": ((pred, 1, "take"),
+                          (path, sub, "_batched_subquery")),
+        "unlisted_helper": ((pred, 1, "stack"),
+                            (path, sub, "_batched_subquery")),
+        "unlisted_helper_called_at_a_finding": ((pred, 1, "stack"),
+                                                (path, hot, "f")),
+        "outside_the_port": (),
+    }[case]
+    monkeypatch.setattr(smoke, "sync_sites", lambda run: {stack: 3})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+
+    class Served:
+        def bind_cost_model(self, cm=None):
+            pass
+
+        def execute_batch(self, batch):
+            pass
+
+    if accepted:
+        out = smoke.sync_phase(Served(), list(range(40)), lint)
+        assert out["default"]["syncs"] == 3
+    else:
+        with pytest.raises(AssertionError, match="rule misses"):
+            smoke.sync_phase(Served(), list(range(40)), lint)
