@@ -198,14 +198,35 @@ Phases (any failure raises and exits non-zero):
      under ``torch.cuda.set_sync_debug_mode("warn")``: its synchronizing
      calls counted and attributed to the port's file:line; every line
      inside a hot function must be one of (a)'s findings (suppressed or
-     baselined), or share its statement with one.
+     baselined), or share its statement with one;
+ 13. the dense language models (``repro_torch.models``; plain torch, no
+     custom kernel, so the kernel report is unchanged), after phase 9:
+     (a) ``stablelm`` and ``qwen3`` smoke configs in f32 on the card and
+     on the CPU with the same parameters — ``hidden``, the prefill's and
+     four decode steps' logits within atol and rtol 1e-4, eight greedy
+     tokens equal; (b) ``stablelm-1.6b`` at full width in f32, drawn on
+     the card from a seeded ``torch.Generator("cuda")``: its parameter
+     count less the LayerNorm biases equal to ``cfg.n_params()``, then
+     prefill of B=8 × 512 tokens and four decode steps against the full
+     forward's logits at the same positions (atol 2e-2, rtol 2e-3, TF32
+     off); (c) the same model in bf16 (its config): ``greedy_generate``
+     with B=8, a 512-token prompt and 64 steps, then the same loop timed
+     with CUDA events (prefill, each step; read after the loop), its
+     tokens equal to ``greedy_generate``'s, with peak memory and each time
+     beside its bound, the device's own time of a step and of a prefill
+     (replayed from a CUDA graph) and one profile of each; (d) ``bench.augment.lm_embed`` at full width on
+     20,000 rows of ``datasets._scalar_table`` (seq 16, batch 256, 768-d):
+     shape, finite, unit norms to 1e-3, two runs (own init, carried model)
+     equal bit for bit, rows/s beside the bound; (e)
+     ``launch.serve.main`` at ``stablelm-1.6b``'s full width (B=4, 32-token
+     prompt, 16 steps) returns its tokens on the card.
 
 The ``launches`` of the kernel report sum the main paths' counts (phase 4,
 7, 9, 10 and 11's serving passes, phase 11's ranks included, phase 8's
 searches for the gather kernels; phase 5 for the scans); phase 12 (b)'s
 are apart, as ``envelope_launches``; ``chip_smoke.json`` keeps each
 phase's apart. The phases run in the order 1, 2, 12 (a, b), 3, 4,
-12 (c), 5, 10, 11, 6–9.
+12 (c), 5, 10, 11, 6–9, 13.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -1061,6 +1082,7 @@ def profile_batch(run, top: int = 8) -> dict:
     for key, ms, cnt in rows[:top]:
         print(f"    {ms:9.3f} ms  x{cnt:<5d} {key[:90]}")
     return dict(wall_ms=wall_ms, device_ms=device_ms,
+                launches=sum(r[2] for r in rows),
                 top=[dict(kernel=k, ms=ms, count=c) for k, ms, c in rows[:12]])
 
 
@@ -3131,6 +3153,347 @@ def sync_phase(bq, queries, lint: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dense language models
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "stablelm-1.6b"  # the §4 embedder's default architecture
+LM_PARITY_ARCHS = ("stablelm-1.6b", "qwen3-14b")  # (a): smoke configs
+LM_BATCH = 8
+LM_PROMPT = 512
+LM_STEPS = 64  # (c)'s greedy steps
+LM_CHECK_STEPS = 4  # (b)'s decode steps held to the full forward
+LM_EMBED_ROWS = 20_000
+LM_EMBED_DIM = 768
+LM_EMBED_SEQ = 16
+LM_EMBED_BATCH = 256
+LM_ATOL = LM_RTOL = 1e-4  # (a): the card against the CPU, f32
+# (b): tests/test_models.py's decode-vs-forward tolerance
+DECODE_ATOL, DECODE_RTOL = 2e-2, 2e-3
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+
+
+def _lm_tokens(cfg, b: int, s: int, seed: int, device) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)),
+                           dtype=torch.int32, device=device)
+
+
+def _held(got, want, atol: float, rtol: float, label: str) -> float:
+    """Max |got - want| (on the host), failing outside atol + rtol·|want|."""
+    got, want = got.float().cpu(), want.float().cpu()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=atol, rtol=rtol):
+        raise AssertionError(f"phase 13 {label}: max abs err {err} outside "
+                             f"atol {atol}, rtol {rtol}")
+    return err
+
+
+def lm_parity(arch: str, device, *, b: int = 2, prompt: int = 32,
+              steps: int = 4) -> dict:
+    """(a) One smoke config in f32 on the card and on the CPU with the same
+    parameters: ``hidden`` and the prefill's and every decode step's logits
+    within LM_ATOL/LM_RTOL, ``greedy_generate``'s tokens equal."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.models import lm, lm_serving
+
+    cfg = configs.get_config(arch, smoke=True)
+    if cfg.dtype != "float32":
+        raise AssertionError(f"{cfg.name} is not an f32 config")
+    cpu = lm.init(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to(device)
+    toks = _lm_tokens(cfg, b, prompt + steps, 13, "cpu")
+    runs = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        t = toks.to(model.device)
+        batch = {"tokens": t[:, :prompt]}
+        h = lm.hidden(model, batch)
+        logits, cache = lm.prefill(model, batch, prompt + steps + 1)
+        outs = [logits]
+        for i in range(steps):
+            logits, cache = lm.decode_step(model, {"token": t[:, prompt + i]},
+                                           prompt + i, cache)
+            outs.append(logits)
+        gen = lm_serving.greedy_generate(model, batch, steps=2 * steps,
+                                         max_len=prompt + 2 * steps + 1)
+        runs[name] = (h, torch.stack(outs, 1), gen)
+    (h_c, l_c, g_c), (h_d, l_d, g_d) = runs["cpu"], runs["card"]
+    if h_d.device.type != device.type:
+        raise AssertionError(f"phase 13 (a): hidden ran on {h_d.device}")
+    out = dict(arch=cfg.name,
+               hidden_max_abs_err=_held(h_d, h_c, LM_ATOL, LM_RTOL,
+                                        f"(a) {cfg.name} hidden"),
+               logits_max_abs_err=_held(l_d, l_c, LM_ATOL, LM_RTOL,
+                                        f"(a) {cfg.name} logits"))
+    if not torch.equal(g_d.cpu(), g_c):
+        raise AssertionError(f"phase 13 (a) {cfg.name}: greedy tokens "
+                             f"differ, card {g_d.tolist()} cpu {g_c.tolist()}")
+    log(f"phase 13 (a) {cfg.name} f32, card against CPU: hidden max abs err "
+        f"{out['hidden_max_abs_err']:.3e}, prefill + {steps} decode logits "
+        f"{out['logits_max_abs_err']:.3e} (atol {LM_ATOL}, rtol {LM_RTOL}); "
+        f"{2 * steps} greedy tokens equal")
+    return out
+
+
+def _block_params(model) -> int:
+    return sum(t.numel() for t in model.blocks.parameters())
+
+
+def lm_decode_matches_forward(device, *, smoke: bool = False,
+                              b: int = LM_BATCH, prompt: int = LM_PROMPT,
+                              steps: int = LM_CHECK_STEPS) -> dict:
+    """(b) The model at full width in f32, initialized on the card from a
+    seeded ``torch.Generator("cuda")``: its parameter count against
+    ``cfg.n_params()``, then prefill + ``steps`` decode steps against the
+    full forward's logits at the same positions (TF32 is off)."""
+    from repro_torch import configs
+    from repro_torch.common.device import synchronize
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH, smoke=smoke),
+                              dtype="float32")
+    t = time.perf_counter()
+    model = lm.init(cfg, seed=0, device=device)
+    synchronize(device)
+    init_s = time.perf_counter() - t
+    n = sum(p.numel() for p in model.parameters())
+    # n_params() counts a norm's scale only ("bias ignored for estimate")
+    n_bias = sum(p.numel() for name, p in model.named_parameters()
+                 if name.endswith(".bias"))
+    if n - n_bias != cfg.n_params():
+        raise AssertionError(f"phase 13 (b): {n} parameters, {n_bias} of "
+                             f"them norm biases, against n_params() "
+                             f"{cfg.n_params()}")
+    toks = _lm_tokens(cfg, b, prompt + steps, 17, device)
+    h = lm.hidden(model, {"tokens": toks})
+    with torch.no_grad():
+        full = lm.unembed(model, h[:, prompt - 1:])
+    del h
+    logits, cache = lm.prefill(model, {"tokens": toks[:, :prompt]},
+                               prompt + steps)
+    got = [logits]
+    for i in range(steps):
+        logits, cache = lm.decode_step(model, {"token": toks[:, prompt + i]},
+                                       prompt + i, cache)
+        got.append(logits)
+    err = _held(torch.stack(got, 1), full, DECODE_ATOL, DECODE_RTOL,
+                "(b) decode against the full forward")
+    out = dict(config=cfg.name, params=n, norm_biases=n_bias,
+               n_params=cfg.n_params(), init_s=init_s,
+               device=str(model.device), batch=b, prompt=prompt,
+               steps=steps, max_abs_err=err)
+    log(f"phase 13 (b) {cfg.name} f32 on {model.device}: {n:,} parameters "
+        f"({n_bias:,} norm biases + n_params() {cfg.n_params():,}), drawn in "
+        f"{init_s:.2f} s; B={b} x {prompt} prefill + {steps} decode steps "
+        f"against the full forward: max abs err {err:.3e} (atol "
+        f"{DECODE_ATOL}, rtol {DECODE_RTOL})")
+    return out
+
+
+def lm_generate_timed(device, *, smoke: bool = False, b: int = LM_BATCH,
+                      prompt: int = LM_PROMPT, steps: int = LM_STEPS) -> dict:
+    """(c) The model in its own compute dtype (bf16): ``greedy_generate``
+    once (warm), then its loop again with a CUDA event after the prefill
+    and after each step, read only after the loop; the tokens must equal
+    ``greedy_generate``'s; the peak memory of both runs, the model
+    included. Times against their bounds: the prefill's block
+    products at the bf16 peak; a decode step's bytes (bf16 block weights
+    and the f32 tied table; separately with the cache rows up to the
+    step's position) at the HBM rate. The device's own time of a prefill
+    and of a step (replayed from a CUDA graph, so without the host's
+    enqueue) gives the step's idle share."""
+    from repro_torch import configs
+    from repro_torch.common.device import synchronize
+    from repro_torch.models import lm, lm_serving
+
+    cfg = configs.get_config(LM_ARCH, smoke=smoke)
+    synchronize(device)
+    # the earlier phases' tensors stay resident: the peak is read above them
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    model = lm.init(cfg, seed=0, device=device)
+    batch = {"tokens": _lm_tokens(cfg, b, prompt, 19, device)}
+    max_len = prompt + steps + 1
+    ref = lm_serving.greedy_generate(model, batch, steps=steps,
+                                     max_len=max_len)
+    blocks = lm.cast_blocks(model)
+    prefill = lm_serving.make_prefill_step(model, max_len, blocks)
+    decode = lm_serving.make_decode_step(model, blocks)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 2)]
+    ev[0].record()
+    logits, cache = prefill(batch)
+    ev[1].record()
+    tok, outs = lm_serving.greedy_token(cfg, logits), []
+    for i in range(steps):
+        outs.append(tok)
+        logits, cache = decode(lm_serving.next_inputs(cfg, tok), prompt + i,
+                               cache)
+        tok = lm_serving.greedy_token(cfg, logits)
+        ev[i + 2].record()
+    synchronize(device)
+    got = torch.stack(outs, dim=1)
+    if not torch.equal(got, ref):
+        raise AssertionError("phase 13 (c): the timed loop's tokens differ "
+                             "from greedy_generate's")
+    peak = (torch.cuda.max_memory_allocated() - resident
+            if device.type == "cuda" else 0)
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    step_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(steps)]
+    last = lm_serving.next_inputs(cfg, tok)
+    step_dev_ms = graph_time_ms(lambda: decode(last, prompt + steps, cache),
+                                iters=10)
+    prefill_dev_ms = graph_time_ms(lambda: prefill(batch), iters=2)
+    log("phase 13 (c) one decode step, then one prefill, profiled:")
+    profiles = dict(
+        decode_step=profile_batch(lambda: decode(last, prompt + steps, cache)),
+        prefill=profile_batch(lambda: prefill(batch)))
+    p_blocks = _block_params(model)
+    table_bytes = 4 * cfg.vocab_padded * cfg.d_model
+    weight_bytes = 2 * p_blocks + table_bytes
+    mid = prompt + steps // 2
+    cache_bytes = (2 * cfg.n_layers * b * (mid + 1) * cfg.n_kv_heads
+                   * cfg.head_dim * 2)
+    out = dict(config=cfg.name, dtype=cfg.dtype, batch=b, prompt=prompt,
+               steps=steps, prefill_ms=prefill_ms,
+               prefill_bound_ms=2 * p_blocks * b * prompt / BF16_FLOPS * 1e3,
+               decode_step_ms_median=float(np.median(step_ms)),
+               decode_step_ms_min=min(step_ms),
+               decode_step_ms_max=max(step_ms),
+               decode_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+               decode_bound_with_cache_ms=(weight_bytes + cache_bytes)
+               / HBM_BYTES_PER_S * 1e3,
+               prefill_device_ms=prefill_dev_ms,
+               decode_step_device_ms=step_dev_ms,
+               decode_step_idle_share=1.0 - step_dev_ms / float(
+                   np.median(step_ms)),
+               decode_tokens_per_s=b * 1e3 / float(np.median(step_ms)),
+               tokens_per_s=b * steps * 1e3 / (prefill_ms + sum(step_ms)),
+               peak_memory_bytes=peak, block_params=p_blocks,
+               profiles=profiles)
+    log(f"phase 13 (c) {cfg.name} {cfg.dtype} greedy_generate B={b}, "
+        f"{prompt}-token prompt, {steps} steps (CUDA events): prefill "
+        f"{prefill_ms:.3f} ms, device {prefill_dev_ms:.3f} ms (bound "
+        f"{out['prefill_bound_ms']:.3f} ms: "
+        f"2 x {p_blocks:,} x {b * prompt} flops at 989 TFLOP/s); decode "
+        f"step median {out['decode_step_ms_median']:.3f} ms (min "
+        f"{out['decode_step_ms_min']:.3f}, max {out['decode_step_ms_max']:.3f};"
+        f" device {step_dev_ms:.3f} ms, idle share "
+        f"{out['decode_step_idle_share']:.3f}; bound "
+        f"{out['decode_bound_ms']:.3f} ms: {weight_bytes / 1e9:.3f} GB"
+        f" of bf16 block weights and the f32 table at 3.35 TB/s, "
+        f"{out['decode_bound_with_cache_ms']:.3f} ms with the cache rows to "
+        f"position {mid}); {out['decode_tokens_per_s']:.1f} tokens/s a step, "
+        f"{out['tokens_per_s']:.1f} tokens/s with the prefill; peak memory "
+        f"{peak / 2**30:.2f} GiB above the earlier phases' (the model's f32 "
+        f"weights, the bf16 copy, the cache, the activations)")
+    return out
+
+
+def lm_embed_phase(device, *, smoke: bool = False, rows: int = LM_EMBED_ROWS,
+                   dim: int = LM_EMBED_DIM, seq: int = LM_EMBED_SEQ,
+                   batch: int = LM_EMBED_BATCH) -> dict:
+    """(d) ``lm_embed`` of ``rows`` rows of ``datasets._scalar_table`` at
+    full width: once initializing its own model, once with a carried model
+    of the same seed; shape, finite, unit norms, both runs equal bit for
+    bit; rows/s of the second against the bound of its block products."""
+    from repro_torch import configs
+    from repro_torch.bench import augment, datasets
+    from repro_torch.common.device import synchronize
+    from repro_torch.models import lm
+
+    scalars, _ = datasets._scalar_table(rows, 0)
+    kw = dict(arch=LM_ARCH, smoke=smoke, seed=0, seq=seq, batch=batch)
+    t = time.perf_counter()
+    first = augment.lm_embed(scalars, dim, device=device, **kw)
+    first_s = time.perf_counter() - t
+    model = lm.init(configs.get_config(LM_ARCH, smoke=smoke), seed=0,
+                    device=device)
+    synchronize(device)
+    t = time.perf_counter()
+    second = augment.lm_embed(scalars, dim, model=model, **kw)
+    second_s = time.perf_counter() - t
+    norms = np.linalg.norm(second, axis=1)
+    if second.shape != (rows, dim) or not np.isfinite(second).all():
+        raise AssertionError(f"phase 13 (d): shape {second.shape}, finite "
+                             f"{bool(np.isfinite(second).all())}")
+    if np.abs(norms - 1.0).max() > 1e-3:
+        raise AssertionError(f"phase 13 (d): norms off 1 by "
+                             f"{np.abs(norms - 1.0).max()}")
+    if not np.array_equal(first, second):
+        raise AssertionError("phase 13 (d): two runs differ")
+    p_blocks = _block_params(model)
+    bound_s = 2 * p_blocks * rows * seq / BF16_FLOPS
+    toks = torch.as_tensor(augment.lm_tokens(
+        scalars[:batch], seq, model.cfg.vocab, model.cfg.vocab_padded),
+        device=device)
+    blocks = lm.cast_blocks(model)
+    batch_dev_ms = graph_time_ms(
+        lambda: lm.hidden(model, {"tokens": toks}, blocks=blocks), iters=2)
+    device_s = batch_dev_ms * 1e-3 * -(-rows // batch)
+    out = dict(rows=rows, dim=dim, seq=seq, batch=batch,
+               first_s_with_init=first_s, seconds=second_s,
+               batch_device_ms=batch_dev_ms, device_s=device_s,
+               rows_per_s=rows / second_s, bound_s=bound_s,
+               max_norm_err=float(np.abs(norms - 1.0).max()))
+    log(f"phase 13 (d) lm_embed {rows:,} rows x {seq} tokens -> {dim}-d on "
+        f"{model.cfg.name}: {second_s:.3f} s, {out['rows_per_s']:.1f} rows/s;"
+        f" device {device_s:.3f} s ({batch_dev_ms:.3f} ms a batch of {batch}"
+        f" from a CUDA graph) "
+        f"(bound {bound_s:.3f} s: 2 x {p_blocks:,} x {rows * seq:,} flops at "
+        f"989 TFLOP/s; {first_s:.3f} s with its own init); unit norms to "
+        f"{out['max_norm_err']:.1e}; two runs equal bit for bit")
+    return out
+
+
+def lm_serve_cli(device, *, smoke: bool = False) -> dict:
+    """(e) ``launch.serve.main`` at ``stablelm-1.6b``'s full width returns
+    its tokens on the card."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+
+    argv = ["--arch", LM_ARCH, "--batch", "4", "--prompt-len", "32",
+            "--steps", "16"] + (["--smoke"] if smoke else [])
+    t = time.perf_counter()
+    toks = serve.main(argv)
+    seconds = time.perf_counter() - t
+    vocab = configs.get_config(LM_ARCH, smoke=smoke).vocab
+    if (toks.device.type != device.type or tuple(toks.shape) != (4, 16)
+            or not bool(((toks >= 0) & (toks < vocab)).all())):
+        raise AssertionError(f"phase 13 (e): tokens {tuple(toks.shape)} on "
+                             f"{toks.device}")
+    log(f"phase 13 (e) launch.serve.main {' '.join(argv)}: tokens "
+        f"{tuple(toks.shape)} on {toks.device} in {seconds:.2f} s with the "
+        f"init")
+    return dict(argv=argv, shape=list(toks.shape), device=str(toks.device),
+                seconds=seconds)
+
+
+def lm_phase(device, *, smoke: bool = False) -> dict:
+    """Phase 13: (a) card against CPU on smoke configs, (b) decode against
+    the full forward at full width in f32, (c) timed greedy generation in
+    bf16, (d) ``lm_embed`` at full width, (e) the serving CLI. ``smoke``
+    runs (b)-(e) on the smoke config at small sizes (a CPU rehearsal)."""
+    t = time.perf_counter()
+    small = dict(b=2, prompt=24) if smoke else {}
+    out = dict(
+        parity=[lm_parity(a, device) for a in LM_PARITY_ARCHS],
+        decode_vs_forward=lm_decode_matches_forward(device, smoke=smoke,
+                                                    **small),
+        generate=lm_generate_timed(device, smoke=smoke,
+                                   **(dict(small, steps=6) if smoke else {})),
+        embed=lm_embed_phase(device, smoke=smoke,
+                             **(dict(rows=300, dim=32) if smoke else {})),
+        serve=lm_serve_cli(device, smoke=smoke))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 13 done in {out['seconds']:.1f} s")
+    return out
+
+
 def _kernel_entry(name, source, replaces, rows, main, launches,
                   envelope_launches) -> dict:
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -3299,6 +3662,8 @@ def main() -> int:
     sift = sift_phase(dev)
     # phase 9 — the tiered, tenanted, cached path, its serving counts
     tier = tiered_phase(ttable, graphs, t_fit_wl, t_serve_wl, dev)
+    # phase 13 — the dense language models (no custom kernel on this path)
+    lm_out = lm_phase(dev)
     launches_by_phase = {"4": launches, "5": spass["launches"],
                          "7": upd["launches"], "8": sift["launches"],
                          "9": tier["launches"],
@@ -3340,7 +3705,7 @@ def main() -> int:
         plan_mix=plan_mix, scan_pass=spass, fit=metrics, profile=prof,
         profile_graph=prof_graph, launches=launches,
         launches_by_phase=launches_by_phase, updates=upd["inserts"],
-        sift=sift, tiered=tier, shards=shards, mesh=mesh,
+        sift=sift, tiered=tier, shards=shards, mesh=mesh, lm=lm_out,
         static_checks=dict(lint=lint, envelope=envelope, syncs=syncs),
         default_plan_recall=robust_recall, recall_target=target,
         seconds=time.perf_counter() - T0), indent=1))

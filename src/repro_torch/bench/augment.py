@@ -11,10 +11,17 @@ Vector -> scalar (for ann-benchmark-style datasets):
   * reference distance — Σ distances to random reference points
                          (continuous).
 
-Scalar -> vector: ``hash_embed``, a deterministic random-feature embedding
-of scalar rows, so vectors are CORRELATED with the scalars as §4 requires.
-The numpy constructions match the JAX package's bit for bit. The LM
-embedder waits for the port of ``models/``.
+Scalar -> vector (the paper embeds text columns with language models),
+two embedders whose vectors are CORRELATED with the scalars as §4
+requires:
+  * ``hash_embed`` — a deterministic random-feature embedding of scalar
+                     rows;
+  * ``lm_embed``   — tokens hashed from each row run through one of the
+                     assigned-architecture LMs (``repro_torch.models.lm``),
+                     mean-pooled and projected.
+The numpy constructions (``lm_embed``'s tokens and projection included)
+match the JAX package's bit for bit; ``lm_embed``'s LM is the port's own
+init from the seed unless a carried model is passed.
 """
 from __future__ import annotations
 
@@ -111,4 +118,56 @@ def hash_embed(scalars: np.ndarray, dim: int, *, seed: int = 0,
     h = np.tanh(z @ w1)
     v = np.tanh(h @ w2) + noise * rng.normal(size=(len(scalars), dim))
     v = v.astype(np.float32)
+    return v / (np.linalg.norm(v, axis=1, keepdims=True) + 1e-9)
+
+
+def lm_tokens(scalars: np.ndarray, seq: int, vocab: int,
+              rows: int) -> np.ndarray:
+    """The ids the reference's LM reads for each scalar row -> (n, seq)
+    int64: its row -> token hash (int64 numpy, wrapping on overflow), then
+    its cast to int32 and JAX's gather rule (a negative id counts from the
+    end of the ``rows``-row table, then every id is clamped into it). The
+    hash reduces column j modulo ``vocab`` at step j only and grows it
+    again at every later step, so all columns but the last reach that rule;
+    the port keeps the reference's ids (ROADMAP Queue 3)."""
+    mu, sd = scalars.mean(axis=0), scalars.std(axis=0) + 1e-6
+    z = ((scalars - mu) / sd * 37.0).astype(np.int64)
+    toks = np.zeros((len(scalars), seq), np.int64)
+    for j in range(seq):
+        toks = toks * 31 + np.roll(z, j, axis=1).sum(axis=1, keepdims=True) + j
+        toks[:, j] = np.abs(toks[:, j]) % vocab
+    ids = toks.astype(np.int32).astype(np.int64)
+    return np.clip(np.where(ids < 0, ids + rows, ids), 0, rows - 1)
+
+
+@torch.no_grad()
+def lm_embed(scalars: np.ndarray, dim: int, *, arch: str = "stablelm-1.6b",
+             smoke: bool = True, seed: int = 0, seq: int = 16,
+             batch: int = 256, model=None, device=None) -> np.ndarray:
+    """Embed rows with one of the assigned-architecture LMs: rows are
+    hashed to token sequences, run through ``lm.hidden``, mean-pooled and
+    projected by a ``np.random.default_rng(seed)`` matrix, L2-normalized.
+    ``model`` (an ``lm.LM``) replaces the one ``arch``/``smoke``/``seed``
+    would initialize; the LM runs where it lies (``device``, the CUDA
+    device by default, when it is initialized here). -> (n, dim) f32."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    if model is None:
+        model = lm.init(configs.get_config(arch, smoke=smoke), seed=seed,
+                        device=resolve_device(device))
+    cfg, dev = model.cfg, model.device
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(lm_tokens(scalars, seq, cfg.vocab,
+                                      cfg.vocab_padded), device=dev)
+    proj = rng.normal(size=(cfg.d_model, dim)).astype(np.float32) / np.sqrt(
+        cfg.d_model)
+    # float64 after the division by a numpy scalar; JAX rounds it to f32
+    proj = torch.as_tensor(proj, dtype=torch.float32, device=dev)
+    blocks = lm.cast_blocks(model)
+    outs = []
+    for i in range(0, len(scalars), batch):
+        h = lm.hidden(model, {"tokens": toks[i:i + batch]}, blocks=blocks)
+        outs.append(h.mean(dim=1).float() @ proj)
+    v = torch.cat(outs).cpu().numpy().astype(np.float32)
     return v / (np.linalg.norm(v, axis=1, keepdims=True) + 1e-9)

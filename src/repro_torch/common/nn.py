@@ -1,9 +1,12 @@
-"""The encoder/rewriter building blocks as ``nn.Module``s.
+"""The encoder/rewriter and language-model building blocks as
+``nn.Module``s.
 
-Port of what BoomHQ uses from ``repro.common.nn``: a linear layer whose
-weight keeps the JAX layout ``(in, out)`` (so carried-across parameters load
-without a transpose), a plain ReLU MLP, and the truncated-normal
-initializer drawn from an explicit ``torch.Generator``.
+Port of ``repro.common.nn``: a linear layer whose weight keeps the JAX
+layout ``(in, out)`` (so carried-across parameters load without a
+transpose), a plain ReLU MLP, an embedding table, RMSNorm and LayerNorm
+(both computing in f32 and casting back), the activations by name, and
+the truncated-normal and LeCun initializers drawn from an explicit
+``torch.Generator`` on that generator's device.
 """
 from __future__ import annotations
 
@@ -17,11 +20,19 @@ from torch import nn
 def trunc_normal(shape, std: float, generator: torch.Generator
                  ) -> torch.Tensor:
     """std · N(0, 1) truncated to [-2, 2] (the JAX initializer's law),
-    drawn on the CPU from ``generator``."""
-    t = torch.empty(shape)
+    drawn from ``generator`` on its device."""
+    t = torch.empty(shape, device=generator.device)
     nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
                           generator=generator)
-    return t * std
+    return t.mul_(std)
+
+
+def lecun_normal(shape, generator: torch.Generator,
+                 fan_in: int | None = None) -> torch.Tensor:
+    """``trunc_normal`` with std 1/sqrt(fan_in), fan_in ``shape[0]`` unless
+    given."""
+    fan_in = fan_in if fan_in is not None else shape[0]
+    return trunc_normal(shape, 1.0 / math.sqrt(max(1, fan_in)), generator)
 
 
 class Linear(nn.Module):
@@ -32,7 +43,8 @@ class Linear(nn.Module):
         super().__init__()
         std = std if std is not None else 1.0 / math.sqrt(max(1, in_dim))
         self.w = nn.Parameter(trunc_normal((in_dim, out_dim), std, generator))
-        self.b = nn.Parameter(torch.zeros(out_dim)) if bias else None
+        self.b = (nn.Parameter(torch.zeros(out_dim, device=generator.device))
+                  if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x @ self.w
@@ -58,3 +70,85 @@ class MLP(nn.Module):
             if i < n - 1 or final_activation:
                 x = torch.relu(x)
         return x
+
+
+class Embedding(nn.Module):
+    """A (vocab, dim) table, rows looked up by id (``embed/table`` in the
+    JAX parameter dict)."""
+
+    def __init__(self, vocab: int, dim: int, *, std: float,
+                 generator: torch.Generator):
+        super().__init__()
+        self.table = nn.Parameter(trunc_normal((vocab, dim), std, generator))
+
+
+# ---------------------------------------------------------------------------
+# norms: computed in f32, cast back to the input's dtype
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float,
+            zero_centered: bool = False) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    scale = scale.float()
+    if zero_centered:  # gemma-style (1 + scale)
+        scale = 1.0 + scale
+    return (x * scale).to(dt)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+              eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+class RMSNorm(nn.Module):
+    """RMS norm over the last axis; ``zero_centered`` (gemma) starts the
+    scale at 0 and multiplies by ``1 + scale``."""
+
+    def __init__(self, dim: int, *, eps: float = 1e-6,
+                 zero_centered: bool = False, device=None):
+        super().__init__()
+        self.eps, self.zero_centered = eps, zero_centered
+        init = torch.zeros if zero_centered else torch.ones
+        self.scale = nn.Parameter(init(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rmsnorm(x, self.scale, eps=self.eps,
+                       zero_centered=self.zero_centered)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with a scale and a bias over the last axis."""
+
+    def __init__(self, dim: int, *, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm(x, self.scale, self.bias, eps=self.eps)
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+
+_ACTS = {
+    "relu": torch.relu,
+    # JAX's ``gelu`` defaults to the tanh approximation
+    "gelu": lambda x: nn.functional.gelu(x, approximate="tanh"),
+    "gelu_exact": lambda x: nn.functional.gelu(x, approximate="none"),
+    "silu": nn.functional.silu,
+}
+
+
+def act_fn(name: str):
+    return _ACTS[name]

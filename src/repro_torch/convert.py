@@ -11,7 +11,8 @@ encoder's S_enc edges — and ``boomhq``, which assembles a fitted ``BoomHQ``
 from all of them; ``cold_state`` and ``tiered_snapshot`` carry a tiered
 table's epoch (cold state and hot buffers) across mid-stream;
 ``sharded_ivf`` carries a ``ShardedIVF`` (per-shard indexes), or one
-shard's slice of it for a mesh rank, across.
+shard's slice of it for a mesh rank, across; ``lm_params`` carries a dense
+LM's ``lm.init`` tree into an ``lm.LM``.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.core.data_encoder import DataEncoder
 from repro_torch.core.executor import PGVECTOR
 from repro_torch.core.query_encoder import QueryEncoder
 from repro_torch.core.rewriter import MHQRewriter
+from repro_torch.models import lm
 from repro_torch.vectordb.graph import GraphIndex
 from repro_torch.vectordb.distributed import ShardedIVF
 from repro_torch.vectordb.histogram import Histograms
@@ -188,3 +190,55 @@ def tiered_snapshot(epoch: int, cold: ColdState, hot_views: list
                 int(v["id_offset"]), cold.table.device)
         for v in hot_views)
     return TieredSnapshot(epoch=int(epoch), cold=cold, hot_views=views)
+
+
+def lm_names(params: dict, n_layers: int) -> set:
+    """The port's parameter names for the leaves of a JAX ``lm.init`` tree:
+    leaf ``a/b/c`` is ``a.b.c``; a stacked ``blocks/<path>`` leaf is
+    ``blocks.{i}.<path>`` for each layer i."""
+    out = set()
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + [k])
+            elif path[:1] == ["blocks"]:
+                out.update(".".join(["blocks", str(i), *path[1:], k])
+                           for i in range(n_layers))
+            else:
+                out.add(".".join([*path, k]))
+
+    walk(params, [])
+    return out
+
+
+def lm_leaf(params: dict, name: str) -> np.ndarray:
+    """The JAX ``lm.init`` leaf behind the port's parameter ``name``:
+    ``blocks.{i}.<path>`` is layer i of the stacked ``blocks/<path>``."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        node, layer, parts = params["blocks"], int(parts[1]), parts[2:]
+    else:
+        node, layer = params, None
+    for k in parts:
+        node = node[k]
+    return np.asarray(node) if layer is None else np.asarray(node)[layer]
+
+
+def lm_params(params: dict, cfg, *, device=None) -> lm.LM:
+    """A JAX ``lm.init(key, cfg)`` tree (numpy leaves, block leaves stacked
+    on axis 0) as the port's ``lm.LM`` on ``device``, leaf for leaf: the
+    two must have the same names and shapes."""
+    model = lm.LM(cfg, device=device)
+    names = dict(model.named_parameters())
+    if set(names) != lm_names(params, cfg.n_layers):
+        raise ValueError("the JAX tree's leaves and the port's parameters "
+                         f"differ: {sorted(set(names) ^ lm_names(params, cfg.n_layers))}")
+    with torch.no_grad():
+        for name, t in names.items():
+            a = lm_leaf(params, name)
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: JAX leaf {a.shape}, port "
+                                 f"{tuple(t.shape)}")
+            t.copy_(torch.tensor(a))
+    return model

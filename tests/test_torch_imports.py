@@ -58,7 +58,15 @@ def test_port_covers_the_slice_layout():
                 "vectordb/distributed.py", "analysis/findings.py",
                 "analysis/suppressions.py", "analysis/config.py",
                 "analysis/astpass.py", "analysis/runner.py",
-                "analysis/cli.py"):
+                "analysis/cli.py", "configs/__init__.py", "configs/base.py",
+                "configs/stablelm_1_6b.py", "configs/gemma_7b.py",
+                "configs/qwen3_14b.py", "configs/phi3_mini_3_8b.py",
+                "configs/llava_next_mistral_7b.py",
+                "configs/musicgen_large.py", "configs/zamba2_2_7b.py",
+                "configs/kimi_k2_1t_a32b.py", "configs/deepseek_v3_671b.py",
+                "configs/mamba2_370m.py", "models/rotary.py",
+                "models/ffn.py", "models/attention.py", "models/lm.py",
+                "models/lm_serving.py", "launch/serve.py"):
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
 
@@ -68,13 +76,27 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def _numpy(node):
+    if isinstance(node, dict):
+        return {k: _numpy(v) for k, v in node.items()}
+    return node.detach().numpy()
+
+
+def _stack(nodes: list):
+    if isinstance(nodes[0], dict):
+        return {k: _stack([n[k] for n in nodes]) for k in nodes[0]}
+    return np.stack(nodes)
+
+
 def _entry_points():
     """Each entry point as a call taking ``device=``; functions of tensors
     (``graph.build``, ``ops.masked_topk``) take the tensors of a table
     built on that device and must run where those tensors lie."""
-    from repro_torch import convert
-    from repro_torch.bench import datasets
+    from repro_torch import configs, convert
+    from repro_torch.bench import augment, datasets
     from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, lm_serving
     from repro_torch.vectordb import algebra, graph, predicates
     from repro_torch.vectordb.table import (
         ScalarCol, Table, TableSchema, VectorCol,
@@ -101,6 +123,25 @@ def _entry_points():
         assert g.neighbors.device == t.device
         return g
 
+    lm_cfg = configs.get_config("qwen3-14b", smoke=True)
+
+    def generate(**kw):
+        model = lm.LM(lm_cfg, **kw)
+        toks = lm_serving.greedy_generate(
+            model, {"tokens": torch.zeros((1, 4), dtype=torch.int32,
+                                          device=model.device)},
+            steps=2, max_len=8)
+        assert toks.device == model.device
+        return toks
+
+    def carried(**kw):
+        """A CPU model's parameters in JAX's layout (block leaves stacked
+        on axis 0), carried to ``**kw``'s device."""
+        tree = _numpy(lm.param_tree(lm.LM(lm_cfg, device="cpu")))
+        tree["blocks"] = _stack([tree["blocks"][str(i)]
+                                 for i in range(lm_cfg.n_layers)])
+        return convert.lm_params(tree, lm_cfg, **kw)
+
     return {
         "Table.from_numpy": lambda **kw: Table.from_numpy(schema, vec, scal,
                                                           **kw),
@@ -122,6 +163,15 @@ def _entry_points():
             **kw),
         "graph.build": build,
         "ops.masked_topk": scan,
+        "lm.LM": lambda **kw: lm.LM(lm_cfg, **kw),
+        "lm_serving.greedy_generate": generate,
+        "augment.lm_embed": lambda **kw: augment.lm_embed(
+            np.arange(12, dtype=np.float32).reshape(6, 2), 4, arch="qwen3-14b",
+            seq=4, **kw),
+        "launch.serve.main": lambda **kw: serve.main(
+            ["--arch", "qwen3-14b", "--smoke", "--batch", "1",
+             "--prompt-len", "4", "--steps", "2"], **kw),
+        "convert.lm_params": carried,
     }
 
 

@@ -6,7 +6,9 @@ one; gather launches per probing chunk growing with the shard count;
 phase 11: a mesh pass whose ranks were gathered in reverse order, whose
 shard left its ids local, or whose escalated queries or scores differ
 from the logical shards'; phase 12 (c): a sync in a hot function that no
-static finding covers, raised there or in a helper that is not listed).
+static finding covers, raised there or in a helper that is not listed;
+phase 13: a logit outside the tolerance), and phase 13 walked end to end on
+the CPU at the smoke config's size, the card's timers stubbed.
 
 ``_held_to_plain`` lets a kernel's ids differ from the plain version's only
 where the plain version itself ties; ``_refuses_planted_ids`` swaps two
@@ -860,3 +862,47 @@ def test_sync_phase_accounts_for_every_hot_sync(smoke, sync_lint,
     else:
         with pytest.raises(AssertionError, match="rule misses"):
             smoke.sync_phase(Served(), list(range(40)), lint)
+
+
+def test_lm_check_refuses_a_logit_outside_the_tolerance(smoke):
+    want = torch.linspace(-3.0, 3.0, 40).reshape(2, 20)
+    assert smoke._held(want + 5e-5, want, 1e-4, 1e-4, "x") == \
+        pytest.approx(5e-5, rel=1e-2)
+    with pytest.raises(AssertionError, match="max abs err"):
+        smoke._held(want + 3e-4, want, 1e-4, 1e-4, "x")
+
+
+class _HostEvent:
+    """``torch.cuda.Event`` on the host clock."""
+
+    def __init__(self, enable_timing=True):
+        self.t = None
+
+    def record(self):
+        import time
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+def test_lm_phase_runs_on_the_cpu(smoke, monkeypatch):
+    """Phase 13's code paths at the smoke config's size, the CUDA events,
+    graph replays and profiles stubbed, the CLI's device sent to the
+    CPU."""
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
+    monkeypatch.setattr(smoke, "graph_time_ms",
+                        lambda fn, iters=20: (fn(), 1.0)[1])
+    monkeypatch.setattr(smoke, "profile_batch",
+                        lambda run, top=8: (run(), {})[1])
+    monkeypatch.setattr(serve, "resolve_device",
+                        lambda device=None: torch.device("cpu"))
+    out = smoke.lm_phase(torch.device("cpu"), smoke=True)
+    assert [p["arch"] for p in out["parity"]] == ["stablelm-smoke",
+                                                  "qwen3-14b-smoke"]
+    b = out["decode_vs_forward"]
+    assert b["params"] - b["norm_biases"] == b["n_params"]
+    assert out["generate"]["steps"] == 6 and out["embed"]["rows"] == 300
+    assert out["serve"]["shape"] == [4, 16]
