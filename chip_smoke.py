@@ -219,14 +219,31 @@ Phases (any failure raises and exits non-zero):
      shape, finite, unit norms to 1e-3, two runs (own init, carried model)
      equal bit for bit, rows/s beside the bound; (e)
      ``launch.serve.main`` at ``stablelm-1.6b``'s full width (B=4, 32-token
-     prompt, 16 steps) returns its tokens on the card.
+     prompt, 16 steps) returns its tokens on the card;
+ 14. the SSM and hybrid language models (``models/mamba2.py``, ``lm``'s
+     ``ssm`` and ``hybrid`` families; plain torch, no custom kernel), after
+     phase 13: (a) ``mamba2`` and ``zamba2`` smoke configs in f32 on the
+     card against the CPU, as 13 (a); (b) ``mamba2-370m`` and
+     ``zamba2-2.7b`` at full width in f32, drawn on the card: the
+     parameter count equal to ``cfg.n_params()`` plus what it leaves out,
+     named leaf by leaf (the padded vocab's rows), then a prefill of B=8 ×
+     256 tokens (a multiple of both SSD chunks; the scan pads nothing) and
+     four decode steps against the full forward over 512 positions (atol
+     2e-2, rtol 2e-3, TF32 off); (c) both in bf16: ``greedy_generate``
+     with B=8, a 512-token prompt and 64 steps, timed as 13 (c), each time
+     beside ``ssm_bounds`` (a decode step's bytes: weights as cast, the
+     shared block at each use, the f32 head, the state and conv windows
+     read and written, the k/v rows; the prefill's bf16 products, f32 SSD
+     contractions and attention scores, the larger); (d)
+     ``launch.serve.main`` for both archs at full width returns its tokens
+     on the card.
 
 The ``launches`` of the kernel report sum the main paths' counts (phase 4,
 7, 9, 10 and 11's serving passes, phase 11's ranks included, phase 8's
 searches for the gather kernels; phase 5 for the scans); phase 12 (b)'s
 are apart, as ``envelope_launches``; ``chip_smoke.json`` keeps each
 phase's apart. The phases run in the order 1, 2, 12 (a, b), 3, 4,
-12 (c), 5, 10, 11, 6–9, 13.
+12 (c), 5, 10, 11, 6–9, 13, 14.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -3184,13 +3201,13 @@ def _held(got, want, atol: float, rtol: float, label: str) -> float:
     got, want = got.float().cpu(), want.float().cpu()
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, atol=atol, rtol=rtol):
-        raise AssertionError(f"phase 13 {label}: max abs err {err} outside "
+        raise AssertionError(f"phase {label}: max abs err {err} outside "
                              f"atol {atol}, rtol {rtol}")
     return err
 
 
-def lm_parity(arch: str, device, *, b: int = 2, prompt: int = 32,
-              steps: int = 4) -> dict:
+def lm_parity(arch: str, device, *, phase: str = "13", b: int = 2,
+              prompt: int = 32, steps: int = 4) -> dict:
     """(a) One smoke config in f32 on the card and on the CPU with the same
     parameters: ``hidden`` and the prefill's and every decode step's logits
     within LM_ATOL/LM_RTOL, ``greedy_generate``'s tokens equal."""
@@ -3221,19 +3238,19 @@ def lm_parity(arch: str, device, *, b: int = 2, prompt: int = 32,
         runs[name] = (h, torch.stack(outs, 1), gen)
     (h_c, l_c, g_c), (h_d, l_d, g_d) = runs["cpu"], runs["card"]
     if h_d.device.type != device.type:
-        raise AssertionError(f"phase 13 (a): hidden ran on {h_d.device}")
+        raise AssertionError(f"phase {phase} (a): hidden ran on {h_d.device}")
     out = dict(arch=cfg.name,
                hidden_max_abs_err=_held(h_d, h_c, LM_ATOL, LM_RTOL,
-                                        f"(a) {cfg.name} hidden"),
+                                        f"{phase} (a) {cfg.name} hidden"),
                logits_max_abs_err=_held(l_d, l_c, LM_ATOL, LM_RTOL,
-                                        f"(a) {cfg.name} logits"))
+                                        f"{phase} (a) {cfg.name} logits"))
     if not torch.equal(g_d.cpu(), g_c):
-        raise AssertionError(f"phase 13 (a) {cfg.name}: greedy tokens "
+        raise AssertionError(f"phase {phase} (a) {cfg.name}: greedy tokens "
                              f"differ, card {g_d.tolist()} cpu {g_c.tolist()}")
-    log(f"phase 13 (a) {cfg.name} f32, card against CPU: hidden max abs err "
-        f"{out['hidden_max_abs_err']:.3e}, prefill + {steps} decode logits "
-        f"{out['logits_max_abs_err']:.3e} (atol {LM_ATOL}, rtol {LM_RTOL}); "
-        f"{2 * steps} greedy tokens equal")
+    log(f"phase {phase} (a) {cfg.name} f32, card against CPU: hidden max abs "
+        f"err {out['hidden_max_abs_err']:.3e}, prefill + {steps} decode "
+        f"logits {out['logits_max_abs_err']:.3e} (atol {LM_ATOL}, rtol "
+        f"{LM_RTOL}); {2 * steps} greedy tokens equal")
     return out
 
 
@@ -3241,35 +3258,54 @@ def _block_params(model) -> int:
     return sum(t.numel() for t in model.blocks.parameters())
 
 
-def lm_decode_matches_forward(device, *, smoke: bool = False,
+def param_count_gap(model) -> dict:
+    """What the model holds beyond ``cfg.n_params()``, leaf by leaf: the
+    padded vocab's rows of the embedding (and of an untied head), and the
+    LayerNorm biases that ``n_params()`` leaves out ("bias ignored for
+    estimate")."""
+    cfg = model.cfg
+    pad = (cfg.vocab_padded - cfg.vocab) * cfg.d_model
+    gap = {}
+    for name, p in model.named_parameters():
+        if name in ("embed.table", "lm_head.w") and pad:
+            gap[name] = pad
+        elif name.endswith(".bias"):
+            gap[name] = p.numel()
+    return gap
+
+
+def lm_decode_matches_forward(device, *, arch: str = LM_ARCH,
+                              phase: str = "13 (b)", smoke: bool = False,
                               b: int = LM_BATCH, prompt: int = LM_PROMPT,
+                              total: int | None = None,
                               steps: int = LM_CHECK_STEPS) -> dict:
-    """(b) The model at full width in f32, initialized on the card from a
+    """(b) ``arch`` at full width in f32, initialized on the card from a
     seeded ``torch.Generator("cuda")``: its parameter count against
-    ``cfg.n_params()``, then prefill + ``steps`` decode steps against the
-    full forward's logits at the same positions (TF32 is off)."""
+    ``cfg.n_params()`` with each difference named leaf by leaf
+    (``param_count_gap``), then a prefill of ``prompt`` tokens and
+    ``steps`` decode steps against the logits of the full forward over
+    ``total`` positions (``prompt + steps`` unless given) at the same
+    positions (TF32 is off)."""
     from repro_torch import configs
     from repro_torch.common.device import synchronize
     from repro_torch.models import lm
 
-    cfg = dataclasses.replace(configs.get_config(LM_ARCH, smoke=smoke),
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=smoke),
                               dtype="float32")
+    total = total or prompt + steps
     t = time.perf_counter()
     model = lm.init(cfg, seed=0, device=device)
     synchronize(device)
     init_s = time.perf_counter() - t
     n = sum(p.numel() for p in model.parameters())
-    # n_params() counts a norm's scale only ("bias ignored for estimate")
-    n_bias = sum(p.numel() for name, p in model.named_parameters()
-                 if name.endswith(".bias"))
-    if n - n_bias != cfg.n_params():
-        raise AssertionError(f"phase 13 (b): {n} parameters, {n_bias} of "
-                             f"them norm biases, against n_params() "
-                             f"{cfg.n_params()}")
-    toks = _lm_tokens(cfg, b, prompt + steps, 17, device)
+    gap = param_count_gap(model)
+    if n != cfg.n_params() + sum(gap.values()):
+        raise AssertionError(f"phase {phase} {cfg.name}: {n} parameters "
+                             f"against n_params() {cfg.n_params()} + {gap}")
+    toks = _lm_tokens(cfg, b, total, 17, device)
     h = lm.hidden(model, {"tokens": toks})
     with torch.no_grad():
-        full = lm.unembed(model, h[:, prompt - 1:])
+        full = lm.unembed(model, h[:, prompt - 1: prompt + steps])
     del h
     logits, cache = lm.prefill(model, {"tokens": toks[:, :prompt]},
                                prompt + steps)
@@ -3278,37 +3314,37 @@ def lm_decode_matches_forward(device, *, smoke: bool = False,
         logits, cache = lm.decode_step(model, {"token": toks[:, prompt + i]},
                                        prompt + i, cache)
         got.append(logits)
-    err = _held(torch.stack(got, 1), full, DECODE_ATOL, DECODE_RTOL,
-                "(b) decode against the full forward")
-    out = dict(config=cfg.name, params=n, norm_biases=n_bias,
-               n_params=cfg.n_params(), init_s=init_s,
-               device=str(model.device), batch=b, prompt=prompt,
-               steps=steps, max_abs_err=err)
-    log(f"phase 13 (b) {cfg.name} f32 on {model.device}: {n:,} parameters "
-        f"({n_bias:,} norm biases + n_params() {cfg.n_params():,}), drawn in "
-        f"{init_s:.2f} s; B={b} x {prompt} prefill + {steps} decode steps "
-        f"against the full forward: max abs err {err:.3e} (atol "
-        f"{DECODE_ATOL}, rtol {DECODE_RTOL})")
+    got = torch.stack(got, 1)
+    if not bool(torch.isfinite(got[..., : cfg.vocab]).all()):
+        raise AssertionError(f"phase {phase} {cfg.name}: logits not finite")
+    err = _held(got, full, DECODE_ATOL, DECODE_RTOL,
+                f"{phase} {cfg.name} decode against the full forward")
+    out = dict(config=cfg.name, params=n, n_params=cfg.n_params(),
+               beyond_n_params=gap, init_s=init_s, device=str(model.device),
+               batch=b, prompt=prompt, forward_len=total, steps=steps,
+               max_abs_err=err)
+    log(f"phase {phase} {cfg.name} f32 on {model.device}: {n:,} parameters "
+        f"(n_params() {cfg.n_params():,} + {sum(gap.values()):,}: "
+        f"{gap or 'nothing'}), drawn in {init_s:.2f} s; B={b} x {prompt} "
+        f"prefill + {steps} decode steps against the full forward over "
+        f"{total} positions: max abs err {err:.3e} (atol {DECODE_ATOL}, "
+        f"rtol {DECODE_RTOL})")
     return out
 
 
-def lm_generate_timed(device, *, smoke: bool = False, b: int = LM_BATCH,
-                      prompt: int = LM_PROMPT, steps: int = LM_STEPS) -> dict:
-    """(c) The model in its own compute dtype (bf16): ``greedy_generate``
-    once (warm), then its loop again with a CUDA event after the prefill
-    and after each step, read only after the loop; the tokens must equal
-    ``greedy_generate``'s; the peak memory of both runs, the model
-    included. Times against their bounds: the prefill's block
-    products at the bf16 peak; a decode step's bytes (bf16 block weights
-    and the f32 tied table; separately with the cache rows up to the
-    step's position) at the HBM rate. The device's own time of a prefill
+def timed_generation(cfg, device, *, b: int, prompt: int, steps: int,
+                     phase: str) -> tuple:
+    """The model of ``cfg`` in its own compute dtype, drawn on ``device``
+    from seed 0: ``greedy_generate`` once (warm), then its loop again with
+    a CUDA event after the prefill and after each step, read only after
+    the loop; the tokens must equal ``greedy_generate``'s; the peak memory
+    of both runs, the model included. The device's own time of a prefill
     and of a step (replayed from a CUDA graph, so without the host's
-    enqueue) gives the step's idle share."""
-    from repro_torch import configs
+    enqueue) gives the step's idle share; one profile of each. -> (model,
+    timings)."""
     from repro_torch.common.device import synchronize
     from repro_torch.models import lm, lm_serving
 
-    cfg = configs.get_config(LM_ARCH, smoke=smoke)
     synchronize(device)
     # the earlier phases' tensors stay resident: the peak is read above them
     if device.type == "cuda":
@@ -3336,8 +3372,8 @@ def lm_generate_timed(device, *, smoke: bool = False, b: int = LM_BATCH,
     synchronize(device)
     got = torch.stack(outs, dim=1)
     if not torch.equal(got, ref):
-        raise AssertionError("phase 13 (c): the timed loop's tokens differ "
-                             "from greedy_generate's")
+        raise AssertionError(f"phase {phase}: the timed loop's tokens differ "
+                             f"from greedy_generate's")
     peak = (torch.cuda.max_memory_allocated() - resident
             if device.type == "cuda" else 0)
     prefill_ms = ev[0].elapsed_time(ev[1])
@@ -3346,49 +3382,64 @@ def lm_generate_timed(device, *, smoke: bool = False, b: int = LM_BATCH,
     step_dev_ms = graph_time_ms(lambda: decode(last, prompt + steps, cache),
                                 iters=10)
     prefill_dev_ms = graph_time_ms(lambda: prefill(batch), iters=2)
-    log("phase 13 (c) one decode step, then one prefill, profiled:")
+    log(f"phase {phase} {cfg.name}: one decode step, then one prefill, "
+        f"profiled:")
     profiles = dict(
         decode_step=profile_batch(lambda: decode(last, prompt + steps, cache)),
         prefill=profile_batch(lambda: prefill(batch)))
+    median = float(np.median(step_ms))
+    return model, dict(
+        config=cfg.name, dtype=cfg.dtype, batch=b, prompt=prompt, steps=steps,
+        prefill_ms=prefill_ms, decode_step_ms_median=median,
+        decode_step_ms_min=min(step_ms), decode_step_ms_max=max(step_ms),
+        prefill_device_ms=prefill_dev_ms, decode_step_device_ms=step_dev_ms,
+        decode_step_idle_share=1.0 - step_dev_ms / median,
+        decode_tokens_per_s=b * 1e3 / median,
+        tokens_per_s=b * steps * 1e3 / (prefill_ms + sum(step_ms)),
+        peak_memory_bytes=peak, profiles=profiles)
+
+
+def lm_generate_timed(device, *, smoke: bool = False, b: int = LM_BATCH,
+                      prompt: int = LM_PROMPT, steps: int = LM_STEPS) -> dict:
+    """(c) ``timed_generation`` of ``stablelm-1.6b`` in bf16 (its config),
+    each time against its bound: the prefill's block products at the bf16
+    peak; a decode step's bytes (bf16 block weights and the f32 tied
+    table; separately with the cache rows up to the step's position) at
+    the HBM rate."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(LM_ARCH, smoke=smoke)
+    model, out = timed_generation(cfg, device, b=b, prompt=prompt,
+                                  steps=steps, phase="13 (c)")
     p_blocks = _block_params(model)
     table_bytes = 4 * cfg.vocab_padded * cfg.d_model
     weight_bytes = 2 * p_blocks + table_bytes
     mid = prompt + steps // 2
     cache_bytes = (2 * cfg.n_layers * b * (mid + 1) * cfg.n_kv_heads
                    * cfg.head_dim * 2)
-    out = dict(config=cfg.name, dtype=cfg.dtype, batch=b, prompt=prompt,
-               steps=steps, prefill_ms=prefill_ms,
-               prefill_bound_ms=2 * p_blocks * b * prompt / BF16_FLOPS * 1e3,
-               decode_step_ms_median=float(np.median(step_ms)),
-               decode_step_ms_min=min(step_ms),
-               decode_step_ms_max=max(step_ms),
-               decode_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
-               decode_bound_with_cache_ms=(weight_bytes + cache_bytes)
-               / HBM_BYTES_PER_S * 1e3,
-               prefill_device_ms=prefill_dev_ms,
-               decode_step_device_ms=step_dev_ms,
-               decode_step_idle_share=1.0 - step_dev_ms / float(
-                   np.median(step_ms)),
-               decode_tokens_per_s=b * 1e3 / float(np.median(step_ms)),
-               tokens_per_s=b * steps * 1e3 / (prefill_ms + sum(step_ms)),
-               peak_memory_bytes=peak, block_params=p_blocks,
-               profiles=profiles)
+    out.update(
+        prefill_bound_ms=2 * p_blocks * b * prompt / BF16_FLOPS * 1e3,
+        decode_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+        decode_bound_with_cache_ms=(weight_bytes + cache_bytes)
+        / HBM_BYTES_PER_S * 1e3,
+        block_params=p_blocks)
     log(f"phase 13 (c) {cfg.name} {cfg.dtype} greedy_generate B={b}, "
         f"{prompt}-token prompt, {steps} steps (CUDA events): prefill "
-        f"{prefill_ms:.3f} ms, device {prefill_dev_ms:.3f} ms (bound "
-        f"{out['prefill_bound_ms']:.3f} ms: "
+        f"{out['prefill_ms']:.3f} ms, device {out['prefill_device_ms']:.3f} "
+        f"ms (bound {out['prefill_bound_ms']:.3f} ms: "
         f"2 x {p_blocks:,} x {b * prompt} flops at 989 TFLOP/s); decode "
         f"step median {out['decode_step_ms_median']:.3f} ms (min "
         f"{out['decode_step_ms_min']:.3f}, max {out['decode_step_ms_max']:.3f};"
-        f" device {step_dev_ms:.3f} ms, idle share "
+        f" device {out['decode_step_device_ms']:.3f} ms, idle share "
         f"{out['decode_step_idle_share']:.3f}; bound "
         f"{out['decode_bound_ms']:.3f} ms: {weight_bytes / 1e9:.3f} GB"
         f" of bf16 block weights and the f32 table at 3.35 TB/s, "
         f"{out['decode_bound_with_cache_ms']:.3f} ms with the cache rows to "
         f"position {mid}); {out['decode_tokens_per_s']:.1f} tokens/s a step, "
         f"{out['tokens_per_s']:.1f} tokens/s with the prefill; peak memory "
-        f"{peak / 2**30:.2f} GiB above the earlier phases' (the model's f32 "
-        f"weights, the bf16 copy, the cache, the activations)")
+        f"{out['peak_memory_bytes'] / 2**30:.2f} GiB above the earlier "
+        f"phases' (the model's f32 weights, the bf16 copy, the cache, the "
+        f"activations)")
     return out
 
 
@@ -3448,23 +3499,24 @@ def lm_embed_phase(device, *, smoke: bool = False, rows: int = LM_EMBED_ROWS,
     return out
 
 
-def lm_serve_cli(device, *, smoke: bool = False) -> dict:
-    """(e) ``launch.serve.main`` at ``stablelm-1.6b``'s full width returns
-    its tokens on the card."""
+def lm_serve_cli(device, *, smoke: bool = False, arch: str = LM_ARCH,
+                 phase: str = "13 (e)") -> dict:
+    """``launch.serve.main`` at ``arch``'s full width returns its tokens on
+    the card."""
     from repro_torch import configs
     from repro_torch.launch import serve
 
-    argv = ["--arch", LM_ARCH, "--batch", "4", "--prompt-len", "32",
+    argv = ["--arch", arch, "--batch", "4", "--prompt-len", "32",
             "--steps", "16"] + (["--smoke"] if smoke else [])
     t = time.perf_counter()
     toks = serve.main(argv)
     seconds = time.perf_counter() - t
-    vocab = configs.get_config(LM_ARCH, smoke=smoke).vocab
+    vocab = configs.get_config(arch, smoke=smoke).vocab
     if (toks.device.type != device.type or tuple(toks.shape) != (4, 16)
             or not bool(((toks >= 0) & (toks < vocab)).all())):
-        raise AssertionError(f"phase 13 (e): tokens {tuple(toks.shape)} on "
+        raise AssertionError(f"phase {phase}: tokens {tuple(toks.shape)} on "
                              f"{toks.device}")
-    log(f"phase 13 (e) launch.serve.main {' '.join(argv)}: tokens "
+    log(f"phase {phase} launch.serve.main {' '.join(argv)}: tokens "
         f"{tuple(toks.shape)} on {toks.device} in {seconds:.2f} s with the "
         f"init")
     return dict(argv=argv, shape=list(toks.shape), device=str(toks.device),
@@ -3491,6 +3543,141 @@ def lm_phase(device, *, smoke: bool = False) -> dict:
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t
     log(f"phase 13 done in {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the SSM and hybrid language models
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("mamba2-370m", "zamba2-2.7b")
+# (b): the prefill's length must be a multiple of the SSD chunk (256 and
+# 128; the scan pads nothing), the full forward's too
+SSM_CHECK_PROMPT = 256
+SSM_CHECK_LEN = 512
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def _tree_sum(tree, fn) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_sum(v, fn) for v in tree.values())
+    return fn(tree)
+
+
+def _nbytes(tree) -> int:
+    return _tree_sum(tree, lambda t: t.numel() * t.element_size())
+
+
+def ssm_bounds(model, b: int, prompt: int, steps: int) -> dict:
+    """The least times of (c)'s work on the card (3.35 TB/s; 989 TFLOP/s
+    bf16, 67 TFLOP/s f32), from the shapes the code runs.
+
+    A decode step moves, each once: the block weights as cast (bf16 but
+    the f32 ``A_log``/``D``/``dt_bias``; the hybrid's shared block at each
+    of its uses), the f32 head, every layer's conv windows and SSM state
+    read and written, and the hybrid's k/v rows up to the step's position.
+    The prefill computes the block products in bf16 (the shared block at
+    each use; the attention's probabilities times v too) and, in f32, the
+    SSD scan's contractions (the masked L x L products in full, as the code
+    does them) and the attention's scores; its bound is the largest of
+    those two times and its weight bytes."""
+    from repro_torch.models import lm, mamba2
+
+    cfg = model.cfg
+    cast = lm.cast_blocks(model)
+    hybrid = cfg.family == "hybrid"
+    uses = cfg.n_layers // cfg.hybrid_attn_every if hybrid else 0
+    shared = cast.get("shared_attn", {})
+    head = model.embed.table if cfg.tie_embeddings else model.lm_head.w
+    weight_bytes = (sum(_nbytes(p) for p in cast["blocks"])
+                    + uses * _nbytes(shared) + _nbytes(head))
+    dt = lm.compute_dtype(cfg)
+    state_bytes = 2 * cfg.n_layers * _nbytes(
+        mamba2.mamba_make_cache(cfg, b, dt, "meta"))
+    mid = prompt + steps // 2
+    row = b * cfg.n_kv_heads * cfg.head_dim * torch.finfo(dt).bits // 8
+    # k and v: the mid + 1 rows read, the new one written
+    kv_bytes = uses * 2 * row * (mid + 2)
+    decode_bytes = weight_bytes + state_bytes + kv_bytes
+    matrices = (sum(_tree_sum(p, torch.Tensor.numel) for p in cast["blocks"])
+                + uses * _tree_sum(shared, torch.Tensor.numel))
+    L = min(cfg.ssm_chunk, prompt)
+    h, n, p_dim = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    scan_flops = cfg.n_layers * (prompt // L) * 2 * b * h * (
+        L * L * n + L * L * p_dim + 2 * L * n * p_dim)
+    attn_flops = uses * 2 * b * cfg.n_heads * prompt * prompt * cfg.head_dim
+    bf16_flops = 2 * matrices * b * prompt + attn_flops  # + probs @ v
+    f32_flops = scan_flops + attn_flops  # + the scores
+    prefill = dict(bf16_ms=bf16_flops / BF16_FLOPS * 1e3,
+                   f32_ms=f32_flops / F32_FLOPS * 1e3,
+                   bytes_ms=weight_bytes / HBM_BYTES_PER_S * 1e3)
+    return dict(decode_bound_ms=decode_bytes / HBM_BYTES_PER_S * 1e3,
+                decode_bytes=dict(weights=weight_bytes, state=state_bytes,
+                                  kv=kv_bytes),
+                prefill_bound_ms=max(prefill.values()),
+                prefill_bound_by=max(prefill, key=prefill.get),
+                prefill_bound_parts_ms=prefill,
+                prefill_flops=dict(bf16=bf16_flops, f32=f32_flops,
+                                   scan=scan_flops),
+                block_params=matrices)
+
+
+def ssm_generate_timed(arch: str, device, *, smoke: bool = False,
+                       b: int = LM_BATCH, prompt: int = LM_PROMPT,
+                       steps: int = LM_STEPS) -> dict:
+    """(c) ``timed_generation`` of ``arch`` in bf16 (its config), each time
+    beside ``ssm_bounds``."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch, smoke=smoke)
+    model, out = timed_generation(cfg, device, b=b, prompt=prompt,
+                                  steps=steps, phase="14 (c)")
+    out.update(ssm_bounds(model, b, prompt, steps))
+    parts = out["prefill_bound_parts_ms"]
+    gb = {k: v / 1e9 for k, v in out["decode_bytes"].items()}
+    log(f"phase 14 (c) {cfg.name} {cfg.dtype} greedy_generate B={b}, "
+        f"{prompt}-token prompt, {steps} steps (CUDA events): prefill "
+        f"{out['prefill_ms']:.3f} ms, device {out['prefill_device_ms']:.3f} "
+        f"ms (bound {out['prefill_bound_ms']:.3f} ms by "
+        f"{out['prefill_bound_by']}: bf16 products {parts['bf16_ms']:.3f} "
+        f"ms at 989 TFLOP/s, f32 scan and scores {parts['f32_ms']:.3f} ms at "
+        f"67 TFLOP/s, weights {parts['bytes_ms']:.3f} ms); decode step "
+        f"median {out['decode_step_ms_median']:.3f} ms (min "
+        f"{out['decode_step_ms_min']:.3f}, max {out['decode_step_ms_max']:.3f};"
+        f" device {out['decode_step_device_ms']:.3f} ms, idle share "
+        f"{out['decode_step_idle_share']:.3f}; bound "
+        f"{out['decode_bound_ms']:.3f} ms: weights {gb['weights']:.3f} GB, "
+        f"state {gb['state']:.3f} GB, k/v {gb['kv']:.3f} GB at 3.35 TB/s); "
+        f"{out['decode_tokens_per_s']:.1f} tokens/s a step, "
+        f"{out['tokens_per_s']:.1f} tokens/s with the prefill; peak memory "
+        f"{out['peak_memory_bytes'] / 2**30:.2f} GiB above the earlier "
+        f"phases'")
+    return out
+
+
+def ssm_phase(device, *, smoke: bool = False) -> dict:
+    """Phase 14: (a) card against CPU on the ``mamba2`` and ``zamba2``
+    smoke configs, (b) decode against the full forward at full width in
+    f32, (c) timed greedy generation in bf16, (d) the serving CLI, each for
+    both archs. ``smoke`` runs (b)-(d) on the smoke configs at small sizes
+    (a CPU rehearsal)."""
+    t = time.perf_counter()
+    check = (dict(b=2, prompt=16, total=32) if smoke else
+             dict(prompt=SSM_CHECK_PROMPT, total=SSM_CHECK_LEN))
+    gen = dict(b=2, prompt=32, steps=6) if smoke else {}
+    out = dict(
+        parity=[lm_parity(a, device, phase="14") for a in SSM_ARCHS],
+        decode_vs_forward=[lm_decode_matches_forward(
+            device, arch=a, phase="14 (b)", smoke=smoke, **check)
+            for a in SSM_ARCHS],
+        generate=[ssm_generate_timed(a, device, smoke=smoke, **gen)
+                  for a in SSM_ARCHS],
+        serve=[lm_serve_cli(device, smoke=smoke, arch=a, phase="14 (d)")
+               for a in SSM_ARCHS])
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 14 done in {out['seconds']:.1f} s")
     return out
 
 
@@ -3664,6 +3851,8 @@ def main() -> int:
     tier = tiered_phase(ttable, graphs, t_fit_wl, t_serve_wl, dev)
     # phase 13 — the dense language models (no custom kernel on this path)
     lm_out = lm_phase(dev)
+    # phase 14 — the SSM and hybrid language models (no custom kernel)
+    ssm_out = ssm_phase(dev)
     launches_by_phase = {"4": launches, "5": spass["launches"],
                          "7": upd["launches"], "8": sift["launches"],
                          "9": tier["launches"],
@@ -3706,6 +3895,7 @@ def main() -> int:
         profile_graph=prof_graph, launches=launches,
         launches_by_phase=launches_by_phase, updates=upd["inserts"],
         sift=sift, tiered=tier, shards=shards, mesh=mesh, lm=lm_out,
+        ssm=ssm_out,
         static_checks=dict(lint=lint, envelope=envelope, syncs=syncs),
         default_plan_recall=robust_recall, recall_target=target,
         seconds=time.perf_counter() - T0), indent=1))

@@ -149,7 +149,9 @@ def lm_embed(scalars: np.ndarray, dim: int, *, arch: str = "stablelm-1.6b",
     projected by a ``np.random.default_rng(seed)`` matrix, L2-normalized.
     ``model`` (an ``lm.LM``) replaces the one ``arch``/``smoke``/``seed``
     would initialize; the LM runs where it lies (``device``, the CUDA
-    device by default, when it is initialized here). -> (n, dim) f32."""
+    device by default, when it is initialized here). Any ported family
+    embeds; for an ssm or hybrid arch a ``seq`` longer than its
+    ``ssm_chunk`` must be a multiple of it. -> (n, dim) f32."""
     from repro_torch import configs
     from repro_torch.models import lm
 

@@ -193,9 +193,11 @@ def tiered_snapshot(epoch: int, cold: ColdState, hot_views: list
 
 
 def lm_names(params: dict, n_layers: int) -> set:
-    """The port's parameter names for the leaves of a JAX ``lm.init`` tree:
-    leaf ``a/b/c`` is ``a.b.c``; a stacked ``blocks/<path>`` leaf is
-    ``blocks.{i}.<path>`` for each layer i."""
+    """The port's parameter names for the leaves of a JAX ``lm.init`` tree
+    (any of the ported families): leaf ``a/b/c`` is ``a.b.c``, the hybrid's
+    one ``shared_attn`` block included; a stacked ``blocks/<path>`` leaf
+    (an attention or a mamba block's) is ``blocks.{i}.<path>`` for each
+    layer i."""
     out = set()
 
     def walk(node, path):

@@ -1,9 +1,15 @@
-"""Serving driver: batched prefill + greedy decode for a dense arch.
+"""Serving CLI: batched prefill + greedy decode for a dense, ssm or
+hybrid arch.
 
 Port of ``repro.launch.serve``; runs on the CUDA device.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
       --smoke --batch 4 --prompt-len 32 --steps 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+      --batch 8 --prompt-len 512 --steps 64
+
+A prompt longer than an ssm or hybrid arch's ``ssm_chunk`` must be a
+multiple of it (the SSD scan pads nothing).
 
 The model is initialized from ``--seed`` (no weights are read), the prompt
 drawn from ``np.random.default_rng(seed)`` as the reference draws it.

@@ -1,29 +1,37 @@
-"""LM assembly for the dense family: blocks, parameter init, the forward,
-prefill and decode.
+"""LM assembly: blocks, parameter init, the forward, prefill and decode.
 
-Port of ``repro.models.lm``'s dense half:
+Port of ``repro.models.lm`` for three of its four families:
 
-  dense — [norm → attn → +res, norm → ffn → +res] × L
+  dense   — [norm → attn → +res, norm → ffn → +res] × L
+  ssm     — [norm → mamba2 → +res] × L
+  hybrid  — mamba2 × L with a SHARED attn+ffn block applied after every
+            ``hybrid_attn_every``-th layer (zamba2)
 
 ``LM`` holds the parameters (``nn.Module``s named as the JAX parameter
-dict: ``embed.table``, ``blocks.{i}.attn.wq``, ``final_norm.scale``, ...,
-the reference's stacked block leaves as an ``nn.ModuleList``), drawn from
-a seeded ``torch.Generator`` on the model's device. The computation runs
-on plain dicts of tensors by those names, as the reference's functions do.
+dict: ``embed.table``, ``blocks.{i}.attn.wq``, ``blocks.{i}.mamba.in_z``,
+``shared_attn.ffn.w_up``, ``final_norm.scale``, ...; the reference's
+stacked block leaves as an ``nn.ModuleList``, its one shared block as one
+``Block``), drawn from a seeded ``torch.Generator`` on the model's device.
+The computation runs on plain dicts of tensors by those names, as the
+reference's functions do.
 
 Mixed precision: block parameters are used in ``cfg.dtype``
-(``cast_blocks``). ``hidden``, ``prefill`` and ``decode_step`` cast them at
-use unless given ``blocks=``, a copy made once (the serving steps and
+(``cast_blocks``), except the reference's numerics-sensitive leaves
+(``_KEEP_F32``: the SSM's ``A_log``, ``D``, ``dt_bias``), which stay f32.
+``hidden``, ``prefill`` and ``decode_step`` cast them at use unless given
+``blocks=``, a copy made once (the serving steps and
 ``bench.augment.lm_embed`` make one per call); casting is deterministic, so
 both give the same values. The embedding table, ``patch_proj``, the final
-norm and the head stay in ``cfg.param_dtype``.
+norm and the head stay in ``cfg.param_dtype``. The prefill casts the mamba
+blocks too, where the reference's ssm and hybrid prefills do not, and so
+fail in bf16 (ROADMAP Queue 3).
 
 Modality stubs: vlm prepends projected patch embeddings, audio feeds
 precomputed frame embeddings straight to the stack.
 
-The ``moe``, ``ssm`` and ``hybrid`` families, MTP and MLA raise
-``NotImplementedError`` (ROADMAP Queue 1). The training loss is not ported
-yet, so ``hidden``, ``prefill`` and ``decode_step`` run without autograd.
+The ``moe`` family, MTP and MLA raise ``NotImplementedError`` (ROADMAP
+Queue 1). The training loss is not ported yet, so ``hidden``, ``prefill``
+and ``decode_step`` run without autograd.
 """
 from __future__ import annotations
 
@@ -36,14 +44,12 @@ from repro_torch.common import nn as cnn
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2
 from repro_torch.models.ffn import FFN, ffn_apply
 from repro_torch.models.rotary import sinusoidal
 
+FAMILIES = ("dense", "ssm", "hybrid")
 QUEUED = {
-    "ssm": "the ssm family (mamba2) is not ported yet: ROADMAP Queue 1 "
-           "item 4.2",
-    "hybrid": "the hybrid family (zamba2) is not ported yet: ROADMAP Queue 1 "
-              "item 4.2",
     "moe": "the moe family is not ported yet: ROADMAP Queue 1 item 4.3",
     "mtp": "multi-token prediction (mtp_depth > 0) is not ported yet: "
            "ROADMAP Queue 1 item 4.3",
@@ -55,13 +61,18 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
-    if cfg.family != "dense":
+    """Raise ``NotImplementedError`` for what the port does not cover yet,
+    ``ValueError`` for a hybrid whose layers do not split into groups."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(QUEUED.get(cfg.family, cfg.family))
     if cfg.mtp_depth:
         raise NotImplementedError(QUEUED["mtp"])
     if cfg.use_mla:
         raise NotImplementedError(attn.MLA_QUEUED)
+    k = cfg.hybrid_attn_every
+    if cfg.family == "hybrid" and (k <= 0 or cfg.n_layers % k):
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split "
+                         f"into groups of hybrid_attn_every={k}")
 
 
 # ---------------------------------------------------------------------------
@@ -86,16 +97,20 @@ def norm_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 # parameters
 # ---------------------------------------------------------------------------
 
+_KEEP_F32 = ("router", "A_log", "D", "dt_bias")  # numerics-sensitive leaves
+
+
 def param_tree(module: nn.Module, dtype: torch.dtype | None = None) -> dict:
     """The module's parameters as a nested dict by name, each cast to
-    ``dtype`` (a float tensor already in ``dtype`` is returned as is)."""
+    ``dtype`` but the leaves named in ``_KEEP_F32`` (a float tensor already
+    in ``dtype`` is returned as is)."""
     out: dict = {}
     for name, t in module.named_parameters():
         node = out
         *path, leaf = name.split(".")
         for k in path:
             node = node.setdefault(k, {})
-        node[leaf] = t if dtype is None else t.to(dtype)
+        node[leaf] = t if dtype is None or leaf in _KEEP_F32 else t.to(dtype)
     return out
 
 
@@ -110,10 +125,19 @@ class Block(nn.Module):
         self.ffn = FFN(cfg.d_model, cfg.d_ff, cfg.ffn_act, generator=generator)
 
 
+class MambaBlock(nn.Module):
+    """norm1 → mamba2 → +res."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
+        super().__init__()
+        self.norm1 = norm_init(cfg, generator.device)
+        self.mamba = mamba2.Mamba(cfg, generator=generator)
+
+
 class LM(nn.Module):
-    """A dense LM's parameters on ``device`` (the CUDA device unless the
-    caller names another), drawn from ``torch.Generator(device)`` seeded
-    with ``seed``."""
+    """An LM's parameters on ``device`` (the CUDA device unless the caller
+    names another), drawn from ``torch.Generator(device)`` seeded with
+    ``seed``."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None):
         super().__init__()
@@ -127,8 +151,11 @@ class LM(nn.Module):
                                        std=1.0 / math.sqrt(d), generator=g)
         if cfg.modality == "vlm":
             self.patch_proj = cnn.Linear(d, d, bias=True, generator=g)
-        self.blocks = nn.ModuleList(Block(cfg, generator=g)
+        block = Block if cfg.family == "dense" else MambaBlock
+        self.blocks = nn.ModuleList(block(cfg, generator=g)
                                     for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            self.shared_attn = Block(cfg, generator=g)
         self.final_norm = norm_init(cfg, dev)
         if not cfg.tie_embeddings:
             self.lm_head = cnn.Linear(d, cfg.vocab_padded, generator=g)
@@ -143,10 +170,15 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> LM:
 
 
 @torch.no_grad()
-def cast_blocks(model: LM) -> list:
-    """Each block's parameters in the compute dtype (``_cast_block``)."""
+def cast_blocks(model: LM) -> dict:
+    """The block parameters in the compute dtype (``_cast_block``):
+    ``{"blocks": [one dict a layer]}``, and for the hybrid family
+    ``"shared_attn"``, the shared block's one copy."""
     dt = compute_dtype(model.cfg)
-    return [param_tree(b, dt) for b in model.blocks]
+    out = {"blocks": [param_tree(b, dt) for b in model.blocks]}
+    if model.cfg.family == "hybrid":
+        out["shared_attn"] = param_tree(model.shared_attn, dt)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +199,46 @@ def _block_decode(p: dict, cfg: ModelConfig, x, pos: int, cache: dict):
     x = x + y
     h = norm_apply(cfg, p["norm2"], x)
     return x + ffn_apply(p["ffn"], h, cfg.ffn_act), cache
+
+
+def _mamba_block_prefill(p: dict, cfg: ModelConfig, x, cache: dict | None):
+    """The full sequence; with a ``cache`` (``None`` for the forward
+    without one), its conv windows and state are written in place, in the
+    cache's dtypes."""
+    h = norm_apply(cfg, p["norm1"], x)
+    if cache is None:
+        return x + mamba2.mamba_apply(p["mamba"], cfg, h)
+    y, state = mamba2.mamba_apply(p["mamba"], cfg, h, return_state=True)
+    for k, v in state.items():
+        cache[k].copy_(v)
+    return x + y
+
+
+def _mamba_block_decode(p: dict, cfg: ModelConfig, x, cache: dict):
+    h = norm_apply(cfg, p["norm1"], x)
+    y, _ = mamba2.mamba_decode(p["mamba"], cfg, h, cache)
+    return x + y
+
+
+def _run_stack(cfg: ModelConfig, cast: dict, x, cache: dict | None,
+               attn_fn, mamba_fn):
+    """The layers in order: ``attn_fn(p, x, layer_cache)`` for an attention
+    block, ``mamba_fn(p, x, layer_cache)`` for a mamba block, each -> x. The
+    hybrid's shared block follows every ``hybrid_attn_every``-th mamba
+    layer with group g's attention cache."""
+    def at(kind, i):
+        return None if cache is None else {k: v[i]
+                                           for k, v in cache[kind].items()}
+
+    k = cfg.hybrid_attn_every
+    for i, p in enumerate(cast["blocks"]):
+        if cfg.family == "dense":
+            x = attn_fn(p, x, at("attn", i))
+            continue
+        x = mamba_fn(p, x, at("mamba", i))
+        if cfg.family == "hybrid" and (i + 1) % k == 0:
+            x = attn_fn(cast["shared_attn"], x, at("attn", i // k))
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -227,47 +299,60 @@ def unembed(model: LM, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def hidden(model: LM, batch: dict, *, blocks: list | None = None
+def hidden(model: LM, batch: dict, *, blocks: dict | None = None
            ) -> torch.Tensor:
     """Full forward to the final-norm hidden states (B, S, D), cfg.dtype."""
     cfg = model.cfg
     x, positions = embed_inputs(model, batch)
-    for p in blocks if blocks is not None else cast_blocks(model):
-        x, _ = _block_prefill(p, cfg, x, positions, None)
+    x = _run_stack(
+        cfg, blocks if blocks is not None else cast_blocks(model), x, None,
+        lambda p, y, c: _block_prefill(p, cfg, y, positions, c)[0],
+        lambda p, y, c: _mamba_block_prefill(p, cfg, y, c))
     return model.final_norm(x)
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
                device=None) -> dict:
-    """``{"attn": {"k", "v"}}``, each (L, B, max_len, KV, hd) zeros."""
+    """Zeros, each layer's entries stacked on a leading axis: ``{"attn":
+    {"k", "v"}}`` (L, B, max_len, KV, hd) for the dense family; ``{"mamba":
+    {"conv_x", "conv_bc", "state"}}`` (L, B, ...) for ssm, and the hybrid's
+    ``"attn"`` over its n_layers // hybrid_attn_every groups. The conv
+    windows and k/v are in ``dtype`` (cfg.dtype), the SSM state f32."""
     dt = dtype or compute_dtype(cfg)
     dev = resolve_device(device)
-    c = attn.gqa_make_cache(cfg, batch, max_len, dt, dev)
-    return {"attn": {k: v.expand(cfg.n_layers, *v.shape).clone()
-                     for k, v in c.items()}}
 
+    def stack(c: dict, n: int) -> dict:
+        return {k: v.expand(n, *v.shape).clone() for k, v in c.items()}
 
-def _layer_cache(cache: dict, i: int) -> dict:
-    return {k: v[i] for k, v in cache["attn"].items()}
+    if cfg.family == "dense":
+        return {"attn": stack(attn.gqa_make_cache(cfg, batch, max_len, dt,
+                                                  dev), cfg.n_layers)}
+    out = {"mamba": stack(mamba2.mamba_make_cache(cfg, batch, dt, dev),
+                          cfg.n_layers)}
+    if cfg.family == "hybrid":
+        out["attn"] = stack(attn.gqa_make_cache(cfg, batch, max_len, dt, dev),
+                            cfg.n_layers // cfg.hybrid_attn_every)
+    return out
 
 
 @torch.no_grad()
 def prefill(model: LM, batch: dict, max_len: int, *,
-            blocks: list | None = None) -> tuple:
+            blocks: dict | None = None) -> tuple:
     """Run the prompt, fill a new cache. Returns (last-position logits
     (B, V) f32, cache)."""
     cfg = model.cfg
     x, positions = embed_inputs(model, batch)
     cache = make_cache(cfg, x.shape[0], max_len, device=x.device)
-    for i, p in enumerate(blocks if blocks is not None
-                          else cast_blocks(model)):
-        x, _ = _block_prefill(p, cfg, x, positions, _layer_cache(cache, i))
+    x = _run_stack(
+        cfg, blocks if blocks is not None else cast_blocks(model), x, cache,
+        lambda p, y, c: _block_prefill(p, cfg, y, positions, c)[0],
+        lambda p, y, c: _mamba_block_prefill(p, cfg, y, c))
     return unembed(model, model.final_norm(x)[:, -1]), cache
 
 
 @torch.no_grad()
 def decode_step(model: LM, inputs: dict, pos: int, cache: dict, *,
-                blocks: list | None = None) -> tuple:
+                blocks: dict | None = None) -> tuple:
     """One token for every sequence in the batch.
 
     inputs: {"token": (B,)} or {"embed": (B, D)} (audio). pos: the cache
@@ -286,7 +371,8 @@ def decode_step(model: LM, inputs: dict, pos: int, cache: dict, *,
         ppos = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                           device=x.device)
         x = x + sinusoidal(ppos, cfg.d_model).to(dt)
-    for i, p in enumerate(blocks if blocks is not None
-                          else cast_blocks(model)):
-        x, _ = _block_decode(p, cfg, x, pos, _layer_cache(cache, i))
+    x = _run_stack(
+        cfg, blocks if blocks is not None else cast_blocks(model), x, cache,
+        lambda p, y, c: _block_decode(p, cfg, y, pos, c)[0],
+        lambda p, y, c: _mamba_block_decode(p, cfg, y, c))
     return unembed(model, model.final_norm(x)[:, 0]), cache

@@ -1,8 +1,9 @@
 """LM serving steps: prefill (prompt -> cache) and decode (one token/step).
 
 Port of ``repro.models.lm_serving``. Each step closes over one copy of the
-block parameters in the compute dtype, made when the step is made unless
-passed in (``greedy_generate`` makes one for both).
+block parameters in the compute dtype (``lm.cast_blocks``: one per layer
+and, for the hybrid family, the shared block's single copy), made when the
+step is made unless passed in (``greedy_generate`` makes one for both).
 ``greedy_generate`` is the host loop: prefill once, then one decode step
 per token. The tokens stay on the model's device through the loop (the
 cache slot ``pos`` is a host int), so the loop reads nothing back; the
@@ -16,7 +17,7 @@ from repro_torch.models import lm
 
 
 def make_prefill_step(model: lm.LM, max_len: int,
-                      blocks: list | None = None):
+                      blocks: dict | None = None):
     blocks = blocks if blocks is not None else lm.cast_blocks(model)
 
     def prefill_step(batch: dict):
@@ -25,7 +26,7 @@ def make_prefill_step(model: lm.LM, max_len: int,
     return prefill_step
 
 
-def make_decode_step(model: lm.LM, blocks: list | None = None):
+def make_decode_step(model: lm.LM, blocks: dict | None = None):
     blocks = blocks if blocks is not None else lm.cast_blocks(model)
 
     def decode_step(inputs: dict, pos: int, cache: dict):

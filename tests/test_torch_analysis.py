@@ -16,6 +16,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import cap  # noqa: E402
+
+cap()
+
 from repro.analysis import astpass as ref_astpass  # noqa: E402
 from repro.analysis import suppressions as ref_sup  # noqa: E402
 from repro.analysis.config import LintConfig as RefConfig  # noqa: E402

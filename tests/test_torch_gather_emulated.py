@@ -26,6 +26,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import cap  # noqa: E402
+
+cap()
+
 from repro_torch.kernels import gather_score as gs  # noqa: E402
 from repro_torch.kernels.int8_scan import quantize_rows  # noqa: E402
 from repro_torch.kernels.ref import gather_score_ref  # noqa: E402

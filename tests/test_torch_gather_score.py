@@ -22,6 +22,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import cap  # noqa: E402
+
+cap()
+
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import gather_score as jgs  # noqa: E402

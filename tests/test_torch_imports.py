@@ -6,6 +6,9 @@
   count too).
 * Entry points run on the CUDA device by default: with no CUDA device and
   no ``device="cpu"`` they raise instead of falling back to the CPU.
+* Every port test module caps torch's threads under pytest-xdist
+  (``tests/_torch_threads.cap``), and the cap shares the cores among the
+  workers.
 """
 import ast
 import pathlib
@@ -14,6 +17,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from _torch_threads import cap  # noqa: E402
+
+cap()
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -66,7 +73,8 @@ def test_port_covers_the_slice_layout():
                 "configs/kimi_k2_1t_a32b.py", "configs/deepseek_v3_671b.py",
                 "configs/mamba2_370m.py", "models/rotary.py",
                 "models/ffn.py", "models/attention.py", "models/lm.py",
-                "models/lm_serving.py", "launch/serve.py"):
+                "models/lm_serving.py", "launch/serve.py",
+                "models/mamba2.py"):
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
 
@@ -124,9 +132,11 @@ def _entry_points():
         return g
 
     lm_cfg = configs.get_config("qwen3-14b", smoke=True)
+    ssm_cfg = configs.get_config("mamba2-370m", smoke=True)
+    hybrid_cfg = configs.get_config("zamba2-2.7b", smoke=True)
 
-    def generate(**kw):
-        model = lm.LM(lm_cfg, **kw)
+    def generate(cfg=lm_cfg, **kw):
+        model = lm.LM(cfg, **kw)
         toks = lm_serving.greedy_generate(
             model, {"tokens": torch.zeros((1, 4), dtype=torch.int32,
                                           device=model.device)},
@@ -134,13 +144,18 @@ def _entry_points():
         assert toks.device == model.device
         return toks
 
-    def carried(**kw):
+    def carried(cfg=lm_cfg, **kw):
         """A CPU model's parameters in JAX's layout (block leaves stacked
-        on axis 0), carried to ``**kw``'s device."""
-        tree = _numpy(lm.param_tree(lm.LM(lm_cfg, device="cpu")))
+        on axis 0, the hybrid's shared block as it is), carried to
+        ``**kw``'s device."""
+        tree = _numpy(lm.param_tree(lm.LM(cfg, device="cpu")))
         tree["blocks"] = _stack([tree["blocks"][str(i)]
-                                 for i in range(lm_cfg.n_layers)])
-        return convert.lm_params(tree, lm_cfg, **kw)
+                                 for i in range(cfg.n_layers)])
+        return convert.lm_params(tree, cfg, **kw)
+
+    def serve_main(arch, **kw):
+        return serve.main(["--arch", arch, "--smoke", "--batch", "1",
+                           "--prompt-len", "4", "--steps", "2"], **kw)
 
     return {
         "Table.from_numpy": lambda **kw: Table.from_numpy(schema, vec, scal,
@@ -168,10 +183,21 @@ def _entry_points():
         "augment.lm_embed": lambda **kw: augment.lm_embed(
             np.arange(12, dtype=np.float32).reshape(6, 2), 4, arch="qwen3-14b",
             seq=4, **kw),
-        "launch.serve.main": lambda **kw: serve.main(
-            ["--arch", "qwen3-14b", "--smoke", "--batch", "1",
-             "--prompt-len", "4", "--steps", "2"], **kw),
+        "launch.serve.main": lambda **kw: serve_main("qwen3-14b", **kw),
         "convert.lm_params": carried,
+        "lm.LM[ssm]": lambda **kw: lm.LM(ssm_cfg, **kw),
+        "lm_serving.greedy_generate[hybrid]": lambda **kw: generate(
+            hybrid_cfg, **kw),
+        "augment.lm_embed[ssm]": lambda **kw: augment.lm_embed(
+            np.arange(12, dtype=np.float32).reshape(6, 2), 4,
+            arch="mamba2-370m", seq=4, **kw),
+        "launch.serve.main[ssm]": lambda **kw: serve_main("mamba2-370m",
+                                                          **kw),
+        "launch.serve.main[hybrid]": lambda **kw: serve_main("zamba2-2.7b",
+                                                             **kw),
+        "convert.lm_params[hybrid]": lambda **kw: carried(hybrid_cfg, **kw),
+        "lm.make_cache[hybrid]": lambda **kw: lm.make_cache(hybrid_cfg, 1, 8,
+                                                            **kw),
     }
 
 
@@ -235,3 +261,35 @@ def test_sharded_executor_follows_its_table():
         n_shards=3)
     assert ids.device.type == "cpu" and ids.tolist()[0] == [0, 1, 2, 3]
     assert gs.LAUNCHES == {"fp32": 0, "int8": 0}
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "tests").glob(
+    "test_torch_*.py")), ids=lambda p: p.name)
+def test_port_test_modules_cap_torch_threads(path):
+    """Each port test module calls ``_torch_threads.cap()`` when imported,
+    so no pytest-xdist worker's torch sizes its pool to every core."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    calls = [n for n in tree.body if isinstance(n, ast.Expr)
+             and isinstance(n.value, ast.Call)
+             and getattr(n.value.func, "id", None) == "cap"]
+    assert "_torch_threads" in _imported_modules(path) and calls, path.name
+
+
+@pytest.mark.parametrize("workers, cores, want", [
+    (None, 8, None), ("1", 8, None), ("6", 8, 1), ("2", 8, 4), ("12", 8, 1)])
+def test_cap_shares_the_cores_among_xdist_workers(monkeypatch, workers,
+                                                  cores, want):
+    import _torch_threads
+
+    before = torch.get_num_threads()
+    try:
+        if workers is None:
+            monkeypatch.delenv("PYTEST_XDIST_WORKER_COUNT", raising=False)
+        else:
+            monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", workers)
+        monkeypatch.setattr(_torch_threads.os, "cpu_count", lambda: cores)
+        torch.set_num_threads(3)
+        _torch_threads.cap()
+        assert torch.get_num_threads() == (want or 3)
+    finally:
+        torch.set_num_threads(before)

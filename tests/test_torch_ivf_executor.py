@@ -14,6 +14,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import cap  # noqa: E402
+
+cap()
+
 import jax.numpy as jnp  # noqa: E402
 
 from oracle import brute_force_topk, tie_aware_recall  # noqa: E402

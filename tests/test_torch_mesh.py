@@ -43,6 +43,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import cap  # noqa: E402
+
+cap()
+
 N_RANKS = 4
 ROWS, DIM, M, Q, K = 512, 16, 3, 4, 12
 PART_ROWS = 1500  # tests/test_torch_sharded.py's part fixture

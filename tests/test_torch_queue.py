@@ -24,6 +24,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import cap  # noqa: E402
+
+cap()
+
 from repro.serve import queue as jqueue  # noqa: E402
 
 from repro_torch.serve import queue as tqueue  # noqa: E402

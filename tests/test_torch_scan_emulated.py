@@ -26,6 +26,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import cap  # noqa: E402
+
+cap()
+
 from test_torch_gather_emulated import build_emulated  # noqa: E402
 
 from repro_torch.kernels import ops, ref  # noqa: E402

@@ -24,6 +24,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import cap  # noqa: E402
+
+cap()
+
 import jax  # noqa: E402
 
 from oracle import brute_force_topk, eval_mask_np, tie_tolerance  # noqa: E402

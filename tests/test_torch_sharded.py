@@ -27,6 +27,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import cap  # noqa: E402
+
+cap()
+
 import jax.numpy as jnp  # noqa: E402
 
 from oracle import (  # noqa: E402

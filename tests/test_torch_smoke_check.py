@@ -7,8 +7,10 @@ phase 11: a mesh pass whose ranks were gathered in reverse order, whose
 shard left its ids local, or whose escalated queries or scores differ
 from the logical shards'; phase 12 (c): a sync in a hot function that no
 static finding covers, raised there or in a helper that is not listed;
-phase 13: a logit outside the tolerance), and phase 13 walked end to end on
-the CPU at the smoke config's size, the card's timers stubbed.
+phase 13: a logit outside the tolerance; phase 14: decode logits outside
+the tolerance of the full forward's), phases 13 and 14 walked end to end
+on the CPU at the smoke configs' size, the card's timers stubbed, and the
+parameters a model holds beyond ``n_params()`` named leaf by leaf.
 
 ``_held_to_plain`` lets a kernel's ids differ from the plain version's only
 where the plain version itself ties; ``_refuses_planted_ids`` swaps two
@@ -24,6 +26,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from _torch_threads import cap  # noqa: E402
+
+cap()
 
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.shapes import NEG  # noqa: E402
@@ -903,6 +909,80 @@ def test_lm_phase_runs_on_the_cpu(smoke, monkeypatch):
     assert [p["arch"] for p in out["parity"]] == ["stablelm-smoke",
                                                   "qwen3-14b-smoke"]
     b = out["decode_vs_forward"]
-    assert b["params"] - b["norm_biases"] == b["n_params"]
+    assert b["beyond_n_params"] and all(
+        k.endswith(".bias") for k in b["beyond_n_params"])
+    assert b["params"] == b["n_params"] + sum(b["beyond_n_params"].values())
     assert out["generate"]["steps"] == 6 and out["embed"]["rows"] == 300
     assert out["serve"]["shape"] == [4, 16]
+
+
+def _stub_timers(smoke, monkeypatch):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
+    monkeypatch.setattr(smoke, "graph_time_ms",
+                        lambda fn, iters=20: (fn(), 1.0)[1])
+    monkeypatch.setattr(smoke, "profile_batch",
+                        lambda run, top=8: (run(), {})[1])
+    monkeypatch.setattr(serve, "resolve_device",
+                        lambda device=None: torch.device("cpu"))
+
+
+def test_ssm_phase_runs_on_the_cpu(smoke, monkeypatch):
+    """Phase 14's code paths at the smoke configs' size, the CUDA events,
+    graph replays and profiles stubbed, the CLI's device sent to the
+    CPU."""
+    _stub_timers(smoke, monkeypatch)
+    out = smoke.ssm_phase(torch.device("cpu"), smoke=True)
+    assert [p["arch"] for p in out["parity"]] == ["mamba2-smoke",
+                                                  "zamba2-smoke"]
+    for b in out["decode_vs_forward"]:
+        assert b["params"] == b["n_params"] + sum(b["beyond_n_params"].values())
+        assert (b["prompt"], b["forward_len"]) == (16, 32)
+    mamba, zamba = out["generate"]
+    for g in (mamba, zamba):
+        assert g["steps"] == 6 and g["dtype"] == "float32"
+        assert g["decode_bound_ms"] > 0 and g["prefill_bound_ms"] > 0
+        assert g["decode_bytes"]["state"] > 0
+    assert mamba["decode_bytes"]["kv"] == 0 < zamba["decode_bytes"]["kv"]
+    assert [s["shape"] for s in out["serve"]] == [[4, 16], [4, 16]]
+
+
+def test_ssm_check_refuses_a_logit_outside_the_tolerance(smoke, monkeypatch):
+    from repro_torch.models import lm
+
+    real = lm.decode_step
+
+    def off(*a, **kw):
+        logits, cache = real(*a, **kw)
+        return logits + 0.05, cache
+
+    kw = dict(arch="mamba2-370m", phase="14 (b)", smoke=True, b=2,
+              prompt=16, total=32)
+    out = smoke.lm_decode_matches_forward(torch.device("cpu"), **kw)
+    assert out["max_abs_err"] < smoke.DECODE_ATOL
+    monkeypatch.setattr(lm, "decode_step", off)
+    with pytest.raises(AssertionError, match=r"14 \(b\) mamba2-smoke"):
+        smoke.lm_decode_matches_forward(torch.device("cpu"), **kw)
+
+
+def test_param_count_gap_names_each_leaf(smoke):
+    """The padded vocab's rows (of the table and of an untied head) and
+    the LayerNorm biases are what a model holds beyond ``n_params()``."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    padded = dataclasses.replace(configs.get_config("zamba2-2.7b",
+                                                    smoke=True),
+                                 vocab_pad_multiple=48)
+    model = lm.init(padded, device="cpu")
+    gap = smoke.param_count_gap(model)
+    assert gap == {"embed.table": 32 * 64, "lm_head.w": 32 * 64}
+    n = sum(p.numel() for p in model.parameters())
+    assert n == padded.n_params() + sum(gap.values())
+    dense = lm.init(configs.get_config("stablelm-1.6b", smoke=True),
+                    device="cpu")
+    gap = smoke.param_count_gap(dense)
+    assert gap and all(k.endswith(".bias") for k in gap)
+    assert sum(p.numel() for p in dense.parameters()) == \
+        dense.cfg.n_params() + sum(gap.values())

@@ -29,6 +29,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import cap  # noqa: E402
+
+cap()
+
 from oracle import (  # noqa: E402
     eval_mask_np, tie_aware_recall, tiered_brute_force_topk,
 )

@@ -31,6 +31,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import cap  # noqa: E402
+
+cap()
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
