@@ -178,9 +178,26 @@ Phases (any failure raises and exits non-zero):
      dense through ``BatchedHybridExecutor(mesh=)``, every rank equal to
      the logical S=4 passes (ids, escalated queries, per-shard fill;
      scores and boundaries within 1e-5), every rank launching the fp32
-     kernel once per probed column plus once a probing chunk. Every
-     process group has a finite timeout and is destroyed after its
-     phase;
+     kernel once per probed column plus once a probing chunk. (c) The
+     serving front end over four gloo ranks on the one card, each holding
+     phase 4's fitted instance (its tensors shared through CUDA IPC) and
+     its shard of phase 10's S=4 indexes, on a four-rank mesh under the
+     default cost model: the first rank serves through
+     ``AsyncServingEngine`` (``max_wait`` 0.002 s) the ``semcache_draws``
+     pool once as a warm-up, its trace one request at a time (batch 8,
+     ``SemanticCache(eps=0)``) and the 256 queries at once through
+     ``serve_stream`` (batch 32, with the cache); the others run
+     ``serve_follower``. Every rank must exit 0, every follower run as
+     many batches as the first rank with results equal bit for bit, each
+     of the first rank's batches replayed here on the instance bound to
+     logical ``bind_shards(4)`` (the same indexes) give equal ids and
+     scores within 1e-5 (exact-route ties as ``check_tied``), every hit
+     equal its miss, the hits equal the one-process engine's on the same
+     sessions, ``check_served`` hold and every rank launch the fp32
+     kernel; the mesh engine's QPS, p50/p99, hits, timeouts and wall
+     seconds print beside the one-process engine's, with the broadcasts
+     a batch. Every process group has a finite timeout and is destroyed
+     after its phase;
  12. the static checks (``repro_torch.analysis``), (a) and (b) right after
      phase 2's build, (c) right after phase 4's counted passes. (a)
      boomlint over ``src/repro_torch`` with level 2 on this build's
@@ -2859,13 +2876,322 @@ def mesh_four_ranks(bq, queries, gt, fixed4: dict, launches: dict) -> dict:
     return report
 
 
-def mesh_phase(bq, queries, gt, fixed: dict) -> dict:
+FRONT_MAX_WAIT = 0.002  # phase 9 (a)'s engines'
+# phase 11 (c)'s engine sessions: (name, stream, batch size, a semantic
+# cache, requests one at a time (else all at once through serve_stream),
+# the cost model's forced route (None: the default cost model))
+FRONT_SESSIONS = (("warm-up", "pool", 8, False, True, None),
+                  ("trace", "trace", 8, True, True, None),
+                  ("held", "held", BATCH, True, False, None),
+                  ("held, per-shard probing", "held", BATCH, True, False,
+                   "sharded_local"))
+
+
+def _pair(res) -> tuple:
+    """(ids, scores) on the host."""
+    return tuple(x.cpu().numpy() if isinstance(x, torch.Tensor)
+                 else np.asarray(x) for x in res)
+
+
+def front_binder(bq, sivf: dict, **shards):
+    """-> ``bind(force)``: ``bq`` bound to ``shards`` (``n_shards=`` or
+    ``mesh=``) under the default cost model (``force`` None) or
+    ``CostModel(force=force)``, with the per-shard indexes ``sivf`` in its
+    executor."""
+    from repro_torch.serve.batch import CostModel
+
+    def bind(force):
+        bq.bind_shards(**shards).bind_cost_model(
+            None if force is None else CostModel(force=force))
+        bq._batched_executor()._sivf.update(sivf)
+
+    return bind
+
+
+def front_end_sessions(bq, streams: dict, bind) -> dict:
+    """Phase 11 (c)'s ``FRONT_SESSIONS`` through ``AsyncServingEngine`` on
+    ``bq`` (``max_wait`` 0.002 s), one engine a session, each after
+    ``bind(its forced route)``. -> by session: each request (seq, status,
+    cache hit, ids, scores) by seq (seq i is the stream's query i), each
+    executed batch's seqs, QPS, p50/p99 ms, hits, timed-out count,
+    batches and wall seconds."""
+    from repro_torch.serve.queue import AsyncServingEngine, serve_stream
+    from repro_torch.serve.semcache import SemanticCache
+
+    async def one_by_one(eng, qs):
+        async with eng:
+            return [await eng.submit(q) for q in qs]
+
+    out = {}
+    for name, stream, batch, cache, seq, force in FRONT_SESSIONS:
+        bind(force)
+        eng = AsyncServingEngine(
+            bq, batch_size=batch, max_wait=FRONT_MAX_WAIT,
+            semcache=SemanticCache(eps=0.0) if cache else None)
+        t = time.perf_counter()
+        reqs = asyncio.run((one_by_one if seq else serve_stream)(
+            eng, streams[stream]))
+        wall = time.perf_counter() - t
+        rep = eng.report()
+        out[name] = dict(
+            requests=[(r.seq, r.status, r.cache_hit, *_pair(r.result))
+                      for r in reqs],
+            batch_seqs=[list(b) for b in eng.batch_seqs], qps=rep.qps,
+            p50_ms=rep.p50_ms, p99_ms=rep.p99_ms, hits=rep.n_cache_hits,
+            timed_out=rep.n_timed_out, n_batches=rep.n_batches, wall_s=wall)
+    return out
+
+
+def mesh_front_rank(rank: int, store: str, payload: dict,
+                    out_path: str) -> None:
+    """One rank of phase 11 (c), in its own process on the shared card: the
+    fitted instance (its tensors the parent's, through CUDA IPC) bound to
+    a four-rank ``(data,)`` mesh, its shard of phase 10's S=4 indexes in
+    the executor. The first rank runs ``front_end_sessions``; the others
+    ``serve_follower`` once a session, bound alike first.
+    Saves what each served, the gather launches (set to 0 just before the
+    sessions, read just after), the plan broadcasts and the channel's
+    messages."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels import gather_score as gs
+    from repro_torch.serve.queue import serve_follower
+    from repro_torch.vectordb import distributed
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    bq = payload["bq"]
+    plan_broadcasts = []
+    broadcast = distributed.broadcast_from_first
+
+    def counted(obj, mesh):
+        plan_broadcasts.append(1)
+        return broadcast(obj, mesh)
+
+    distributed.broadcast_from_first = counted
+    sent = []
+    send = distributed.BatchChannel._broadcast
+
+    def counted_send(self, msg):
+        sent.append(msg is not None)
+        return send(self, msg)
+
+    distributed.BatchChannel._broadcast = counted_send
+    out = {}
+    with process_group("gloo", store, rank=rank, world=MESH_RANKS):
+        mesh = init_device_mesh("cpu", (MESH_RANKS,),
+                                mesh_dim_names=("data",))
+        shard = distributed.mesh_shard(mesh)[1]
+        bind = front_binder(bq, {c: s.shard(shard)
+                                 for c, s in payload["sivf"].items()},
+                            mesh=mesh)
+        gs.reset_launches()
+        t = time.perf_counter()
+        if rank == 0:
+            out["sessions"] = front_end_sessions(
+                bq, {k: [_on(q, dev) for q in v]
+                     for k, v in payload["streams"].items()}, bind)
+        else:
+            out["followed"] = []
+            for *_, force in FRONT_SESSIONS:
+                bind(force)
+                served = serve_follower(bq)
+                out["followed"].append(dict(
+                    results=[None if res is None else [_pair(x) for x in res]
+                             for res in served.results],
+                    errors={b: repr(e) for b, e in served.errors.items()}))
+        torch.cuda.synchronize()
+        out.update(seconds=time.perf_counter() - t,
+                   launches=dict(gs.LAUNCHES),
+                   plan_broadcasts=len(plan_broadcasts),
+                   channel_messages=sum(sent))
+    torch.save(out, out_path)
+
+
+def _replay_batches(bq, streams: dict, front: dict, bind,
+                    rec: dict) -> dict:
+    """Each batch the first rank executed, again through ``bq`` in this
+    process after ``bind(its session's forced route)`` (logical shards),
+    held to what the first rank served: ids equal and scores within
+    ``MESH_ATOL``, where the replay ran a query on an exact route
+    ``check_tied``'s rule. -> (batches, tie swaps)."""
+    n, swaps = 0, 0
+    for name, stream, *_, force in FRONT_SESSIONS:
+        bind(force)
+        reqs = {r[0]: r for r in front[name]["requests"]}
+        for seqs in front[name]["batch_seqs"]:
+            qs = [streams[stream][i] for i in seqs]
+            _clear(rec)
+            got = [_pair(x) for x in bq.execute_batch(qs)]
+            want = [reqs[i][3:] for i in seqs]
+            label = f"phase 11 (c) replay of {name} batch {seqs}"
+            exact = [id(q) in rec["exact"] for q in qs]
+            check_mesh_pass(
+                dict(results=[w for w, e in zip(want, exact) if not e],
+                     escalated=(), probes=()),
+                dict(results=[g for g, e in zip(got, exact) if not e],
+                     escalated=(), probes=()), label)
+            swaps += check_tied(
+                bq.table, [q for q, e in zip(qs, exact) if e],
+                [w for w, e in zip(want, exact) if e],
+                [g for g, e in zip(got, exact) if e], label)
+            n += 1
+    return dict(batches=n, exact_tie_swaps=swaps)
+
+
+def _check_hits(session: dict, stream: list, label: str) -> None:
+    """Every cache hit's result equals the result of the miss that filled
+    it: the first request of the same query."""
+    filled = {}
+    for seq, status, hit, ids, scores in session["requests"]:
+        if status != "ok":
+            raise AssertionError(f"{label}: request {seq} {status}")
+        key = id(stream[seq])
+        if not hit:
+            filled.setdefault(key, (ids, scores))
+        elif key not in filled or not (
+                np.array_equal(ids, filled[key][0])
+                and np.array_equal(scores, filled[key][1])):
+            raise AssertionError(f"{label}: hit {seq} is not its miss")
+
+
+def mesh_front_end(bq, queries, fixed4: dict, launches: dict,
+                   smi: str) -> dict:
+    """Phase 11 (c): the serving front end over ``MESH_RANKS`` gloo ranks on
+    the one card. Every rank holds phase 4's fitted instance (the parent's
+    tensors, shared through CUDA IPC) and its shard of phase 10's S=4
+    indexes, on a four-rank mesh; the first rank serves
+    ``front_end_sessions`` (under the default cost model the pool once as
+    a warm-up, phase 9 (a)'s ``semcache_draws`` trace over a pool from
+    this instance one request at a time, then ``queries`` at once with
+    batch 32; ``queries`` once more with every index group forced to
+    per-shard probing, since at this size the default routes every group
+    to the exact sharded scan, which launches no gather; all but the
+    warm-up with ``SemanticCache(eps=0)``) and the others
+    ``serve_follower``. Fails unless every rank exits 0; every follower
+    ran as many batches as the first rank, each equal bit for bit; each of
+    the first rank's batches replayed here through the instance bound to
+    logical ``bind_shards(4)`` (the same indexes and cost model) gives the
+    same ids and scores within ``MESH_ATOL`` (exact-route ties by
+    ``check_tied``); every hit equals its miss; the hits equal the
+    one-process engine's on the same sessions over logical S=4;
+    ``check_served`` holds for the first rank's results; every rank
+    launched the fp32 gather kernel (the ranks' launches add to
+    ``launches``)."""
+    from repro_torch.bench import queries as qgen
+
+    _, trace, _ = semcache_draws(bq.table.n_rows)
+    pool = qgen.gen_workload(bq.table, CACHE_UNIQUE, n_vec_used=2, k=10,
+                             seed=100)
+    streams = {"pool": pool, "trace": [pool[i] for i in trace],
+               "held": list(queries)}
+    bq.bind_shards()  # no executor travels with the instance
+    payload = dict(bq=bq, sivf=fixed4["sivf"],
+                   streams={k: [_on(q, "cpu") for q in v]
+                            for k, v in streams.items()})
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=mesh_front_rank, args=(
+            r, f"{d}/store", payload, f"{d}/rank{r}.pt"))
+            for r in range(MESH_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=3 * MESH_TIMEOUT_S)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+        wall = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"phase 11 (c): rank exit codes {codes}")
+        got = [torch.load(f"{d}/rank{r}.pt", weights_only=False)
+               for r in range(MESH_RANKS)]
+    front = got[0]["sessions"]
+    n_batches = sum(front[n]["n_batches"] for n, *_ in FRONT_SESSIONS)
+    for r, g in enumerate(got):
+        if g["launches"]["fp32"] <= 0:
+            raise AssertionError(f"phase 11 (c): rank {r} never launched "
+                                 f"the fp32 kernel")
+        for k in launches:
+            launches[k] += g["launches"][k]
+        if r == 0:
+            continue
+        for (name, *_), followed in zip(FRONT_SESSIONS, g["followed"]):
+            label = f"phase 11 (c) rank {r} {name}"
+            reqs = {q[0]: q for q in front[name]["requests"]}
+            if followed["errors"] or len(followed["results"]) != \
+                    len(front[name]["batch_seqs"]):
+                raise AssertionError(
+                    f"{label}: {len(followed['results'])} batches, errors "
+                    f"{followed['errors']}; the first rank ran "
+                    f"{len(front[name]['batch_seqs'])}")
+            for seqs, res in zip(front[name]["batch_seqs"],
+                                 followed["results"]):
+                check_same_results(res, [reqs[i][3:] for i in seqs], label)
+    for name, stream, *_ in FRONT_SESSIONS:
+        label = f"phase 11 (c) {name}"
+        _check_hits(front[name], streams[stream], label)
+        check_served(bq.table, streams[stream],
+                     [q[3:] for q in front[name]["requests"]], label)
+    # the same sessions through the one-process engine over logical S=4,
+    # then every batch of the first rank replayed on it
+    bind = front_binder(bq, fixed4["sivf"], n_shards=MESH_RANKS)
+    try:
+        one = front_end_sessions(bq, streams, bind)
+        with sharded_records() as rec:
+            replay = _replay_batches(bq, streams, front, bind, rec)
+    finally:
+        bq.bind_shards().bind_cost_model()
+    if one["trace"]["hits"] != front["trace"]["hits"]:
+        raise AssertionError(f"phase 11 (c): {front['trace']['hits']} hits "
+                             f"on the mesh, {one['trace']['hits']} in one "
+                             f"process")
+    rows = {}
+    for who, sessions in (("mesh", front), ("one process", one)):
+        for name, *_ in FRONT_SESSIONS[1:]:
+            x = sessions[name]
+            rows[f"{who} {name}"] = {k: x[k] for k in (
+                "qps", "p50_ms", "p99_ms", "hits", "timed_out", "n_batches",
+                "wall_s")}
+            log(f"  front end [{who}, {name}, {smi}]: {x['qps']:.1f} QPS, "
+                f"p50 {x['p50_ms']:.2f} / p99 {x['p99_ms']:.2f} ms, "
+                f"{x['hits']} hits, {x['timed_out']} timed out, "
+                f"{x['n_batches']} batches, {x['wall_s']:.2f} s")
+    first = got[0]
+    out = dict(
+        sessions=rows, wall_s=wall, batches=n_batches, replay=replay,
+        rank_seconds=[g["seconds"] for g in got],
+        rank_launches=[g["launches"] for g in got],
+        channel_messages_per_batch=first["channel_messages"] / n_batches,
+        plan_broadcasts_per_batch=first["plan_broadcasts"] / n_batches)
+    log(f"  front end over {MESH_RANKS} gloo ranks on one card: {wall:.1f} s "
+        f"with their start; {n_batches} batches on every rank, each "
+        f"follower equal to the first rank; {replay['batches']} batches "
+        f"replayed on logical S=4 ({replay['exact_tie_swaps']} exact-route "
+        f"tie swaps); broadcasts a batch: "
+        f"{out['channel_messages_per_batch']:.2f} on the batch channel "
+        f"(the batch, and one stop a session), "
+        f"{out['plan_broadcasts_per_batch']:.2f} of plans; launches by rank "
+        f"{out['rank_launches']}")
+    return out
+
+
+def mesh_phase(bq, queries, gt, fixed: dict, smi: str) -> dict:
     """Phase 11: (a) a one-rank NCCL mesh in this process, (b) four gloo
-    ranks on the one card. -> the report and its gather launches."""
+    ranks on the one card, (c) the serving front end over four gloo ranks.
+    -> the report and its gather launches."""
     launches = {"fp32": 0, "int8": 0}
     one = mesh_one_rank(bq, queries, gt, fixed[1], launches)
     four = mesh_four_ranks(bq, queries, gt, fixed[MESH_RANKS], launches)
-    return dict(one_rank=one, four_ranks=four, launches=launches)
+    front = mesh_front_end(bq, queries, fixed[MESH_RANKS], launches, smi)
+    return dict(one_rank=one, four_ranks=four, front_end=front,
+                launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -3785,7 +4111,7 @@ def main() -> int:
     # profiler and phase 7's inserts; its serving passes' counts
     shards, fixed = shard_phase(bq, serve_wl, gt, (res_c, rep_c), dev)
     # phase 11 — the mesh on the same instance, its passes' counts
-    mesh = mesh_phase(bq, serve_wl, gt, fixed)
+    mesh = mesh_phase(bq, serve_wl, gt, fixed, smi)
 
     # phase 6
     bq.bind_cost_model(CostModel(force=CANDIDATE_LOCAL))

@@ -324,7 +324,10 @@ class BoomHQ:
         rank over its ``shard_axes`` dimensions: every rank of the mesh
         holds this instance and calls ``execute_batch`` with the same
         queries; the mesh's first rank plans each batch and the others take
-        its plans. A mesh of any size, one rank too, takes the sharded
+        its plans. To serve live traffic, the first rank runs
+        ``serve.queue.AsyncServingEngine`` and every other rank
+        ``serve.queue.serve_follower``, which runs the batches the first
+        rank sends. A mesh of any size, one rank too, takes the sharded
         executor. ``bind_shards()`` restores single-shard serving."""
         if mesh is not None:
             from repro_torch.vectordb.distributed import (
@@ -484,7 +487,9 @@ class BoomHQ:
         time, else taken here: the cold side runs the plan-driven paths on
         the snapshot's epoch and the hot views merge in as one more exact
         candidate source (``_merge_hot``). Only calls without a
-        ``snapshot`` are recorded as recent traffic.
+        ``snapshot`` are recorded as recent traffic (on a mesh, every rank
+        records the same batches; only a tiered compaction reads them, and
+        tiers are refused over more than one rank).
 
         Over a sharded table (``bind_shards``) the learned plans fan out
         across the shards (``_execute_batch_sharded``), with per-shard
@@ -568,18 +573,30 @@ class BoomHQ:
 
         On a mesh of more than one rank the first rank's plans go to every
         rank (one broadcast), so all ranks form the same groups in the
-        same order and meet in the same collectives."""
+        same order and meet in the same collectives. If planning raises on
+        the first rank, the broadcast carries the exception instead
+        (``distributed.portable_error``) and every rank raises it for this
+        batch, so none is left waiting in a collective."""
         n = cold.table.n_rows
         mesh = self.shard_mesh
         if mesh is None or mesh.size() == 1:
             plans = self.optimize_batch(queries, scores_b=scores_b, cold=cold)
         else:
-            from repro_torch.vectordb.distributed import broadcast_from_first
+            from repro_torch.vectordb.distributed import (
+                broadcast_from_first, is_first_rank, portable_error,
+            )
 
-            first = not any(mesh.get_coordinate())
-            plans = broadcast_from_first(
-                self.optimize_batch(queries, scores_b=scores_b, cold=cold)
-                if first else None, mesh)
+            sent, failure = None, None
+            if is_first_rank(mesh):
+                try:
+                    sent = (True, self.optimize_batch(
+                        queries, scores_b=scores_b, cold=cold))
+                except Exception as exc:  # noqa: BLE001 — every rank raises
+                    failure = exc
+                    sent = (False, portable_error(exc))
+            ok, plans = broadcast_from_first(sent, mesh)
+            if not ok:
+                raise failure if failure is not None else plans
         results = bx.execute_batch_sharded(queries, plans, scores_b=scores_b)
         self._retry_underfilled(
             results, queries, bx, scores_b,

@@ -18,6 +18,12 @@ of the serving pipeline for that traffic:
   through ``BoomHQ.execute_batch`` on ONE worker thread, so the event loop
   keeps accepting arrivals while a batch runs on the card. Over a tiered
   table a ``CompactionScheduler`` compacts on a second thread.
+* Over a mesh of more than one rank (``BoomHQ.bind_shards(mesh=...)``)
+  the mesh's first rank is the front end: it runs the engine (batch cuts,
+  deadlines, tenant folding, the semantic cache, the report) and sends
+  every batch it executes to the other ranks, which run
+  ``serve_follower``: the same batches, in the same order, through the
+  same collectives.
 
 Dispositions and latency percentiles land in ``ServeReport``
 (``n_timed_out``, ``p50_ms``/``p99_ms``).
@@ -210,9 +216,21 @@ class AsyncServingEngine:
     landing while a batch runs. Expired requests resolve ``timed_out`` and
     are never executed. With a ``semcache`` (``serve.semcache``), a fresh
     repeat resolves at submit and a miss populates after its batch, stamped
-    with the batch snapshot's token. An instance bound to a mesh of more
-    than one rank is refused: each rank would cut batches by its own
-    clock."""
+    with the batch snapshot's token.
+
+    Over a mesh of more than one rank the engine runs on the mesh's first
+    rank only (``ValueError`` elsewhere) and every other rank runs
+    ``serve_follower`` for each start/stop session. ``start`` makes the
+    session's ``distributed.BatchChannel`` (with the followers); the one
+    worker thread sends each batch on it just before executing it, after
+    late requests are removed, so the followers run exactly what this rank
+    runs, in its order. ``stop`` sends the stop message behind the
+    in-flight batch on that thread and waits for it without blocking the
+    event loop, on every way out (flushed, ``flush=False`` mid-batch, or
+    an exception in an ``async with`` body). The channel has its own
+    timeout, so an idle pause longer than the process group's does not
+    fail the followers. ``batch_seqs`` lists each executed batch's request
+    sequence numbers, in execution order."""
 
     def __init__(self, boomhq, *, batch_size: int = 32,
                  max_wait: float = 0.05,
@@ -220,9 +238,16 @@ class AsyncServingEngine:
                  clock: Callable[[], float] = time.monotonic,
                  semcache=None):
         mesh = getattr(boomhq, "shard_mesh", None)
-        if mesh is not None and mesh.size() > 1:
-            from repro_torch.vectordb.distributed import MULTI_RANK_QUEUED
-            raise NotImplementedError(MULTI_RANK_QUEUED)
+        self._mesh = mesh if mesh is not None and mesh.size() > 1 else None
+        if self._mesh is not None:
+            from repro_torch.vectordb.distributed import is_first_rank
+            if not is_first_rank(self._mesh):
+                raise ValueError(
+                    "AsyncServingEngine serves on the mesh's first rank "
+                    "(coordinate 0 on every dimension); every other rank "
+                    "runs serve_follower(bq)")
+        self._channel = None
+        self.batch_seqs: list = []
         self.bq = boomhq
         self.former = BatchFormer(batch_size=batch_size, max_wait=max_wait,
                                   clock=clock)
@@ -246,7 +271,16 @@ class AsyncServingEngine:
             # ONE worker thread: batches execute strictly in formation
             # order, and a late stop() flush can never race the drainer
             # into two concurrent execute_batch calls
-            self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+            if self._mesh is not None:
+                from repro_torch.vectordb.distributed import BatchChannel
+
+                self._channel = BatchChannel(self._mesh)  # with the followers
+                self._pool = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=1, initializer=_bind_device,
+                    initargs=(self.bq.table.device,))
+            else:
+                self._pool = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=1)
             if getattr(self.bq, "tiered", None) is not None:
                 # snapshot-at-cut, and compaction on its own worker
                 self.former.snapshot_fn = self.bq.tiered.snapshot
@@ -285,9 +319,17 @@ class AsyncServingEngine:
             fut = self._futures.pop(seq)
             if not fut.done():
                 fut.set_exception(asyncio.CancelledError("engine stopped"))
-        # wait=False: do not block the event loop on a discarded batch
-        self._pool.shutdown(wait=False, cancel_futures=True)
-        self._pool = None
+        if self._channel is not None:
+            # the followers' stop goes out on the worker, behind the
+            # in-flight batch and its collectives; awaited, not joined
+            stop_fut = self._pool.submit(self._channel.send_stop)
+            self._pool.shutdown(wait=False)
+            self._pool, self._channel = None, None
+            await asyncio.wrap_future(stop_fut)
+        else:
+            # wait=False: do not block the event loop on a discarded batch
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None
         if self._compactor is not None:
             # let the in-flight compaction land (it owns published state)
             await asyncio.get_running_loop().run_in_executor(
@@ -387,10 +429,14 @@ class AsyncServingEngine:
                 return
         loop = asyncio.get_running_loop()
         queries = [r.query for r in batch]
+        self.batch_seqs.append([r.seq for r in batch])
         if batch[0].snapshot is not None:
             # the whole batch shares the snapshot stamped at cut time
             run = functools.partial(
                 self.bq.execute_batch, queries, snapshot=batch[0].snapshot)
+        elif self._channel is not None:
+            run = functools.partial(_send_and_execute, self._channel,
+                                    self.bq, queries)
         else:
             run = functools.partial(self.bq.execute_batch, queries)
         exec_fut = loop.run_in_executor(self._pool, run)
@@ -498,6 +544,73 @@ class AsyncServingEngine:
             n_cache_hits=sum(r.cache_hit for r in served),
             tenants=tenants or None,
         )
+
+
+def _bind_device(device) -> None:
+    """The front end's worker thread runs on the table's card: a thread
+    starts on the default device, and NCCL collectives run on the current
+    one."""
+    import torch
+
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device.index)
+
+
+def _send_and_execute(channel, bq, queries: list) -> list:
+    """On the front end's worker thread: the batch to the followers, then
+    the batch here, so broadcast order is execution order."""
+    channel.send_batch(queries)
+    return bq.execute_batch(queries)
+
+
+@dataclasses.dataclass
+class FollowerServed:
+    """What ``serve_follower`` ran in one session: each batch's results in
+    execution order (``None`` where the batch raised), and the exceptions
+    by batch index."""
+
+    results: list = dataclasses.field(default_factory=list)
+    errors: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def n_batches(self) -> int:
+        return len(self.results)
+
+
+def serve_follower(boomhq) -> FollowerServed:
+    """Serve one front-end session on a rank of a mesh of more than one rank
+    other than the first, while the first runs ``AsyncServingEngine``:
+    receive each batch the front end executes and run it through
+    ``boomhq.execute_batch`` (every rank meets the same collectives in the
+    same order), until the front end stops. A batch that raises is
+    recorded and the loop goes on, as the front end's drainer does; with
+    the plan broadcast carrying a first-rank planning failure, every rank
+    raises for that batch alike. Cache hits, deadlines and batch cuts stay
+    on the first rank: a follower sees executed batches only. One call per
+    ``start``/``stop`` session of the front end; it makes the session's
+    ``distributed.BatchChannel`` with it. -> ``FollowerServed``."""
+    from repro_torch.vectordb.distributed import (
+        BATCH, BatchChannel, is_first_rank,
+    )
+
+    mesh = getattr(boomhq, "shard_mesh", None)
+    if mesh is None or mesh.size() == 1 or is_first_rank(mesh):
+        raise ValueError("serve_follower runs on a rank of a mesh of more "
+                         "than one rank other than the first; the first "
+                         "runs AsyncServingEngine")
+    channel = BatchChannel(mesh)
+    device = boomhq.table.device
+    out = FollowerServed()
+    while True:
+        kind, queries = channel.receive(device)
+        if kind != BATCH:
+            return out
+        try:
+            out.results.append(boomhq.execute_batch(queries))
+        except Exception as exc:  # noqa: BLE001 — a failed batch fails
+            # that batch only, as on the front end
+            out.errors[len(out.results)] = exc
+            out.results.append(None)
 
 
 async def serve_stream(engine: AsyncServingEngine, queries: list, *,

@@ -35,6 +35,8 @@ same shard and return the same result.
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import pickle
 
 import numpy as np
 import torch
@@ -51,9 +53,9 @@ from repro_torch.vectordb.table import similarity, similarity_batch
 # ---------------------------------------------------------------------------
 
 MULTI_RANK_QUEUED = (
-    "tiered ingest and the async front-end cut epochs and batches by each "
-    "rank's own clock, so the ranks of a mesh of more than one rank would "
-    "diverge; a rank-0 front end for them is queued in ROADMAP Queue 1")
+    "tiered ingest cuts epochs by each rank's own clock, so the ranks of a "
+    "mesh of more than one rank would diverge; a first-rank epoch cut for "
+    "it is queued in ROADMAP Queue 1 item 2b")
 
 
 def _axes(data_axes) -> tuple:
@@ -135,6 +137,99 @@ def broadcast_from_first(obj, mesh):
                                    group=mesh.get_group(d))
         obj = box[0]
     return obj
+
+
+def is_first_rank(mesh) -> bool:
+    """Whether this rank is the mesh's first: coordinate 0 on every
+    dimension (the rank that plans a sharded batch and fronts serving)."""
+    return not any(mesh.get_coordinate())
+
+
+def portable_error(exc: BaseException) -> BaseException:
+    """``exc`` if it survives a pickle round trip, else a ``RuntimeError``
+    carrying its type name and message: what one rank can send the others
+    so that each raises it."""
+    try:
+        pickle.loads(pickle.dumps(exc))
+        return exc
+    except Exception:  # noqa: BLE001 — any pickling fault means "not as is"
+        return RuntimeError(f"{type(exc).__name__}: {exc}")
+
+
+# the batch channel's own timeout: a follower waits in it between batches,
+# however long traffic pauses, so it is not the process group's
+CHANNEL_TIMEOUT = datetime.timedelta(days=7)
+BATCH, STOP = "batch", "stop"
+
+
+def _query_to_host(q) -> dict:
+    p = q.predicates
+    return dict(
+        vectors=[v.detach().cpu().numpy() for v in q.query_vectors],
+        weights=tuple(q.weights), kind=type(p).__name__,
+        fields={f.name: getattr(p, f.name).detach().cpu().numpy()
+                for f in dataclasses.fields(p)},
+        k=q.k, recall_target=q.recall_target, tenant_id=q.tenant_id)
+
+
+def _query_from_host(m: dict, device):
+    from repro_torch.core.query import MHQ
+
+    cls = {"Predicates": predicates.Predicates,
+           "PredicateSet": predicates.PredicateSet}[m["kind"]]
+    return MHQ(tuple(torch.from_numpy(v).to(device) for v in m["vectors"]),
+               m["weights"], cls(**{k: torch.from_numpy(v).to(device)
+                                    for k, v in m["fields"].items()}),
+               k=m["k"], recall_target=m["recall_target"],
+               tenant_id=m["tenant_id"])
+
+
+class BatchChannel:
+    """The serving front end's channel to the other ranks of a mesh of more
+    than one rank: the first rank sends each batch it executes, then a
+    stop; every other rank receives them in that order.
+
+    A message is one ``broadcast_object_list`` from the first rank over a
+    ``gloo`` group of the mesh's ranks made for this channel (every rank
+    of the mesh constructs it at the same point: the front end's start and
+    ``serve_follower``). A batch travels as host arrays — each query's
+    vectors, weights, predicate fields, ``k``, ``recall_target`` and
+    ``tenant_id`` — and each receiver rebuilds its ``MHQ``s on its own
+    device, byte for byte the sender's values. Between batches a receiver
+    waits in the broadcast, so the group has its own timeout
+    (``CHANNEL_TIMEOUT``): a pause in traffic longer than the process
+    group's timeout does not fail a waiting rank. A rank whose peer
+    process ends sees the connection close and raises."""
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+
+        self.src = int(mesh.mesh[(0,) * mesh.ndim])  # the first rank
+        self.group = dist.new_group(sorted(mesh.mesh.flatten().tolist()),
+                                    timeout=CHANNEL_TIMEOUT, backend="gloo")
+
+    def _broadcast(self, msg):
+        import torch.distributed as dist
+
+        box = [msg]
+        dist.broadcast_object_list(box, src=self.src, group=self.group)
+        return box[0]
+
+    def send_batch(self, queries: list) -> None:
+        """First rank: the batch about to execute, as host arrays."""
+        self._broadcast((BATCH, [_query_to_host(q) for q in queries]))
+
+    def send_stop(self) -> None:
+        """First rank: the last message of the session."""
+        self._broadcast((STOP, None))
+
+    def receive(self, device) -> tuple:
+        """Any other rank: the next message. -> ``(BATCH, queries on
+        device)`` or ``(STOP, None)``."""
+        kind, body = self._broadcast(None)
+        if kind == STOP:
+            return STOP, None
+        return BATCH, [_query_from_host(m, device) for m in body]
 
 
 def _merge_shard_candidates(s_all: torch.Tensor, g_all: torch.Tensor, *,

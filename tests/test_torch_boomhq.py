@@ -430,11 +430,13 @@ def test_one_rank_mesh_matches_jax_one_device_mesh(pair, monkeypatch,
 def test_bind_shards_refuses_a_mesh(pair):
     """What ``bind_shards(mesh=)`` refuses: an object that is not a
     ``DeviceMesh`` (``TypeError``), rows that do not divide over its ranks
-    (``ValueError``), and, over more than one rank, tiered ingest and the
-    async front-end (queued in ROADMAP); one rank keeps them."""
+    (``ValueError``), and, over more than one rank, tiered ingest (queued
+    in ROADMAP) and the async front-end anywhere but on the first rank
+    (``ValueError`` naming ``serve_follower``, which the other ranks run);
+    one rank keeps them."""
     from test_torch_mesh import fake_mesh
 
-    from repro_torch.serve.queue import AsyncServingEngine
+    from repro_torch.serve.queue import AsyncServingEngine, serve_follower
 
     tbq = pair[1]
     with pytest.raises(TypeError, match="DeviceMesh"):
@@ -450,8 +452,18 @@ def test_bind_shards_refuses_a_mesh(pair):
             assert tbq._batched_executor().rows == (1000, 1500)
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 tbq.bind_tiered(64)
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(ValueError, match="serve_follower"):
                 AsyncServingEngine(tbq)
+        finally:
+            tbq.bind_shards()
+    with fake_mesh(4, rank=0) as mesh:
+        try:
+            tbq.bind_shards(mesh=mesh)
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                tbq.bind_tiered(64)
+            with pytest.raises(ValueError, match="first runs"):
+                serve_follower(tbq)
+            assert AsyncServingEngine(tbq).bq is tbq
         finally:
             tbq.bind_shards()
     assert tbq.tiered is None and tbq.n_shards == 1
