@@ -185,8 +185,10 @@ Phases (any failure raises and exits non-zero):
      default cost model: the first rank serves through
      ``AsyncServingEngine`` (``max_wait`` 0.002 s) the ``semcache_draws``
      pool once as a warm-up, its trace one request at a time (batch 8,
-     ``SemanticCache(eps=0)``) and the 256 queries at once through
-     ``serve_stream`` (batch 32, with the cache); the others run
+     ``SemanticCache(eps=0)``) and the first ``FRONT_HELD`` = 128 serving
+     queries at once through ``serve_stream`` (batch 32, with the cache;
+     128, not 256, so that the script stays near its time budget with
+     (d)); the others run
      ``serve_follower``. Every rank must exit 0, every follower run as
      many batches as the first rank with results equal bit for bit, each
      of the first rank's batches replayed here on the instance bound to
@@ -196,7 +198,31 @@ Phases (any failure raises and exits non-zero):
      sessions, ``check_served`` hold and every rank launch the fp32
      kernel; the mesh engine's QPS, p50/p99, hits, timeouts and wall
      seconds print beside the one-process engine's, with the broadcasts
-     a batch. Every process group has a finite timeout and is destroyed
+     a batch. (d) Tiered ingest over four gloo ranks on the one card,
+     run inside phase 9 between (a) and (b) on phase 9's fitted tenant
+     instance (phase 4's has no tenant column), each rank holding it
+     through CUDA IPC on a four-rank mesh with ``bind_tiered(
+     hot_capacity=2048)``: the first rank serves (b)'s stream through
+     ``AsyncServingEngine`` (a warm session of two batches of 16 first,
+     whose second batch's time sets the rate) at 60% of the mesh's own
+     warm batch-16 rate while +20,000 ``tenant_skewed_insert`` rows go in
+     through its ``BoomHQ.insert`` in 8 chunks and compact in the
+     background; every other rank runs ``serve_follower`` (the ingest and
+     the compaction starts arrive with each batch, and each follower
+     compacts on its own). Every rank must exit 0; every follower run
+     every batch on the stamp the first rank cut it on, with results
+     equal bit for bit, and end on its final stamp; every rank publish
+     the same epochs on the same rows with equal cold-state digests; the
+     stamps span two epochs or more; every rank score the hot views with
+     the fp32 kernel, as often as the others; every batch replayed here
+     on logical ``bind_shards(4)`` at its stamp (each compaction driven
+     where the first rank's ran) equal the mesh's (scores within 1e-5,
+     ids except between tied slots) and hold to its snapshot's cold ∪
+     hot oracle with no hot row missed. Printed beside the same stream
+     through one process on logical S=4 at the same rate: QPS, p50/p99,
+     each rank's compaction seconds by step, each follower's publish lag
+     by epoch, channel messages and bytes a batch, peak device memory by
+     rank. Every process group has a finite timeout and is destroyed
      after its phase;
  12. the static checks (``repro_torch.analysis``), (a) and (b) right after
      phase 2's build, (c) right after phase 4's counted passes. (a)
@@ -256,11 +282,12 @@ Phases (any failure raises and exits non-zero):
      on the card.
 
 The ``launches`` of the kernel report sum the main paths' counts (phase 4,
-7, 9, 10 and 11's serving passes, phase 11's ranks included, phase 8's
+7, 9, 10 and 11's serving passes, phase 11's ranks included, 11 (d)'s
+too, phase 8's
 searches for the gather kernels; phase 5 for the scans); phase 12 (b)'s
 are apart, as ``envelope_launches``; ``chip_smoke.json`` keeps each
 phase's apart. The phases run in the order 1, 2, 12 (a, b), 3, 4,
-12 (c), 5, 10, 11, 6–9, 13, 14.
+12 (c), 5, 10, 11 (a–c), 6–8, 9 (a), 11 (d), 9 (b), 13, 14.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -272,11 +299,13 @@ import ast
 import asyncio
 import concurrent.futures
 import contextlib
+import copy
 import dataclasses
 import datetime
 import json
 import os
 import pathlib
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -1848,8 +1877,7 @@ def mixed_pass(bq, table, stream_wl, device, launches: dict) -> dict:
     bq.bind_tiered(hot_capacity=HOT_CAPACITY)
 
     def request(i):
-        return dataclasses.replace(stream_wl[i % len(stream_wl)],
-                                   tenant_id=i % TENANTS, recall_target=0.9)
+        return stream_request(stream_wl, i)
 
     stream = [request(i) for i in range(MIXED_REQUESTS)]
     folded = [bq.resolve_tenant(q) for q in stream]
@@ -2145,11 +2173,14 @@ def mixed_pass(bq, table, stream_wl, device, launches: dict) -> dict:
     return out
 
 
-def tiered_phase(ttable, graphs, fit_wl, stream_wl, device) -> dict:
-    """Phase 9: fit on the tenant table, bind tenants, then the cache pass
-    and the mixed ingest pass. The launch counts cover the serving runs
-    only (``count_launches`` around each), the compaction warm-up's apart;
-    the oracle and ``default_plan`` comparisons fall outside them."""
+def tiered_phase(ttable, graphs, fit_wl, stream_wl, device, smi: str
+                 ) -> dict:
+    """Phase 9: fit on the tenant table, bind tenants, then the cache pass,
+    phase 11 (d) (the mixed stream over a mesh of four ranks, on this
+    instance) and the mixed ingest pass. The launch counts cover the
+    serving runs only (``count_launches`` around each), the compaction
+    warm-up's apart; the oracle and ``default_plan`` comparisons fall
+    outside them."""
     from repro_torch.core.boomhq import BoomHQ
 
     bq = BoomHQ(ttable, smoke_config(), graphs=graphs)
@@ -2162,12 +2193,14 @@ def tiered_phase(ttable, graphs, fit_wl, stream_wl, device) -> dict:
     launches = {name: {"fp32": 0, "int8": 0} for name in ("serving",
                                                             "prewarm")}
     cache = cache_pass(bq, ttable, device, launches)
+    # phase 11 (d): this instance's stream over the mesh (its own counts)
+    mesh_tiers = mesh_tiered(bq, stream_wl, device, smi)
     mixed = mixed_pass(bq, ttable, stream_wl, device, launches)
     log(f"  phase 9 launches: serving {launches['serving']}, compaction "
         f"warm-up {launches['prewarm']}")
     return dict(fit=metrics, fit_s=fit_s, cache=cache, mixed=mixed,
                 launches=launches["serving"],
-                prewarm_launches=launches["prewarm"])
+                prewarm_launches=launches["prewarm"], mesh_tiered=mesh_tiers)
 
 
 # ---------------------------------------------------------------------------
@@ -2877,6 +2910,7 @@ def mesh_four_ranks(bq, queries, gt, fixed4: dict, launches: dict) -> dict:
 
 
 FRONT_MAX_WAIT = 0.002  # phase 9 (a)'s engines'
+FRONT_HELD = 128  # the held sessions' queries (the first of the 256)
 # phase 11 (c)'s engine sessions: (name, stream, batch size, a semantic
 # cache, requests one at a time (else all at once through serve_stream),
 # the cost model's forced route (None: the default cost model))
@@ -3064,8 +3098,9 @@ def mesh_front_end(bq, queries, fixed4: dict, launches: dict,
     indexes, on a four-rank mesh; the first rank serves
     ``front_end_sessions`` (under the default cost model the pool once as
     a warm-up, phase 9 (a)'s ``semcache_draws`` trace over a pool from
-    this instance one request at a time, then ``queries`` at once with
-    batch 32; ``queries`` once more with every index group forced to
+    this instance one request at a time, then the first ``FRONT_HELD``
+    of ``queries`` at once with batch 32; those once more with every
+    index group forced to
     per-shard probing, since at this size the default routes every group
     to the exact sharded scan, which launches no gather; all but the
     warm-up with ``SemanticCache(eps=0)``) and the others
@@ -3085,7 +3120,7 @@ def mesh_front_end(bq, queries, fixed4: dict, launches: dict,
     pool = qgen.gen_workload(bq.table, CACHE_UNIQUE, n_vec_used=2, k=10,
                              seed=100)
     streams = {"pool": pool, "trace": [pool[i] for i in trace],
-               "held": list(queries)}
+               "held": list(queries[:FRONT_HELD])}
     bq.bind_shards()  # no executor travels with the instance
     payload = dict(bq=bq, sivf=fixed4["sivf"],
                    streams={k: [_on(q, "cpu") for q in v]
@@ -3192,6 +3227,592 @@ def mesh_phase(bq, queries, gt, fixed: dict, smi: str) -> dict:
     front = mesh_front_end(bq, queries, fixed[MESH_RANKS], launches, smi)
     return dict(one_rank=one, four_ranks=four, front_end=front,
                 launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 11 (d): tiered ingest over the mesh (run inside phase 9)
+# ---------------------------------------------------------------------------
+
+def compaction_records(bq, times: dict) -> list:
+    """Wrap ``bq.tiered.compact`` (the instance's: the scheduler and an
+    inline compaction both call it) so that each compaction that ran
+    appends one record: its epoch, rows ``[a, b)``, seconds by step (timed
+    on the compacting thread to the end of their device work, as phase 9
+    (b) times them; ``times`` holds the step patches' thread-local), the
+    wall-clock instant it published and the cold-state digest of the epoch
+    it published. -> the record list."""
+    from repro_torch.vectordb.tiered import cold_digest
+
+    records, inner = [], bq.tiered.compact
+
+    def recorded():
+        times["local"].secs = secs = {}
+        try:
+            out = inner()
+        finally:
+            times["local"].secs = None
+        if out["compacted"]:
+            published = time.time()
+            cold = bq.tiered.snapshot().cold
+            records.append(dict(
+                epoch=out["epoch"], a=cold.table.n_rows - out["compacted"],
+                b=cold.table.n_rows, seconds=out["seconds"],
+                seconds_by_step=secs, published=published,
+                digest=cold_digest(cold)))
+        return out
+
+    bq.tiered.compact = recorded
+    return records
+
+
+@contextlib.contextmanager
+def compaction_steps(bq):
+    """Time the compaction steps (append, IVF, histograms, graphs, the
+    encoder and the rest of ``_on_compaction``) on the thread
+    ``compaction_records`` marks. -> the shared dict it reads."""
+    from repro_torch.core.data_encoder import DataEncoder
+    from repro_torch.vectordb import graph as graphmod
+    from repro_torch.vectordb import histogram, ivf
+    from repro_torch.vectordb.table import Table
+
+    times = {"local": threading.local()}
+    patches = [(Table, "append", "append"), (ivf, "extend", "ivf"),
+               (ivf, "build", "ivf"), (histogram, "update", "histograms"),
+               (graphmod, "extend", "graphs"),
+               (DataEncoder, "update", "encoder")]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+
+    def timed(fn, step):
+        def wrapper(*a, **kw):
+            secs = getattr(times["local"], "secs", None)
+            if secs is None:
+                return fn(*a, **kw)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            secs[step] = secs.get(step, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    for (obj, attr, step), (_, _, fn) in zip(patches, saved):
+        setattr(obj, attr, timed(fn, step))
+    try:
+        yield times
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+
+
+def counted_hot_views() -> dict:
+    """Count, from here on in this process, the hot views scored and the
+    fp32 gather launches they took (``tiered._hot_topk``)."""
+    from repro_torch.kernels import gather_score as gs
+    from repro_torch.vectordb import tiered
+
+    hot, inner = {"calls": 0, "fp32": 0}, tiered._hot_topk
+
+    def counted(*a, **kw):
+        before = gs.LAUNCHES["fp32"]
+        out = inner(*a, **kw)
+        hot["calls"] += 1
+        hot["fp32"] += gs.LAUNCHES["fp32"] - before
+        return out
+
+    tiered._hot_topk = counted
+    return hot
+
+
+def stream_request(stream_wl, i: int):
+    """Request ``i`` of phase 9 (b)'s tenanted stream."""
+    return dataclasses.replace(stream_wl[i % len(stream_wl)],
+                               tenant_id=i % TENANTS, recall_target=0.9)
+
+
+def tiered_stream(bq, stream_wl, chunks, lam: float, record) -> tuple:
+    """Phase 9 (b)'s stream on ``bq`` through one ``AsyncServingEngine``
+    session (batch 16, ``max_wait`` 0.02 s): request ``i`` of the stream
+    at seed ``UPDATE_SEED + 17``'s Poisson gaps of rate ``lam`` while the
+    ``chunks`` go in through ``bq.insert``, until the ingest has ended and
+    nothing compacts, then ``MIXED_TAIL`` more. ``record(eng, reqs)``
+    reads the session after ``stop``. -> (requests, wall seconds of the
+    stream)."""
+    from repro_torch.serve.queue import AsyncServingEngine
+
+    arrivals = np.random.default_rng(UPDATE_SEED + 17)
+    eng = AsyncServingEngine(bq, batch_size=MIXED_BATCH, max_wait=MIXED_WAIT,
+                             clock=time.perf_counter)
+
+    def compacting():
+        c = eng._compactor
+        return bq.tiered.needs_compaction() or (
+            c is not None and c._inflight is not None
+            and not c._inflight.done())
+
+    async def drive():
+        loop = asyncio.get_running_loop()
+
+        async def ingest():
+            for vecs, scal in chunks:
+                await loop.run_in_executor(None, bq.insert, vecs, scal)
+                await asyncio.sleep(MIXED_REQUESTS / lam / MIXED_CHUNKS / 2)
+
+        async with eng:
+            t0 = time.perf_counter()
+            ing = asyncio.ensure_future(ingest())
+            tasks, end = [], MIXED_MAX
+            for i in range(MIXED_MAX):
+                if i >= end:
+                    break
+                if i > 0:
+                    await asyncio.sleep(arrivals.exponential(1.0 / lam))
+                tasks.append(asyncio.ensure_future(eng.submit(
+                    stream_request(stream_wl, i))))
+                if end == MIXED_MAX and ing.done() and not compacting():
+                    end = max(MIXED_REQUESTS, i + 1 + MIXED_TAIL)
+            reqs = await asyncio.gather(*tasks)
+            wall = time.perf_counter() - t0
+            await ing
+        return reqs, wall
+
+    reqs, wall = asyncio.run(drive())
+    record(eng, reqs)
+    return reqs, wall
+
+
+def _latency(reqs, wall: float) -> dict:
+    lats = np.asarray([r.latency for r in reqs if r.status == "ok"])
+    return dict(requests=len(reqs), qps=len(lats) / wall,
+                p50_ms=float(np.percentile(lats, 50) * 1e3),
+                p99_ms=float(np.percentile(lats, 99) * 1e3))
+
+
+def _batch_log(eng, reqs: list, index=lambda seq: seq) -> list:
+    """Each batch an engine executed: its requests' indices into the
+    stream (``index(seq)``), its snapshot's stamp and hot-view layout, and
+    each request's status and (ids, scores)."""
+    by_seq = {r.seq: r for r in reqs}
+    out = []
+    for seqs in eng.batch_seqs:
+        snap = by_seq[seqs[0]].snapshot
+        out.append(dict(
+            seqs=[index(s) for s in seqs], stamp=snap.stamp,
+            views=[(v.id_offset, v.count) for v in snap.hot_views],
+            status=[by_seq[s].status for s in seqs],
+            results=[_pair(by_seq[s].result) if by_seq[s].result is not None
+                     else None for s in seqs]))
+    return out
+
+
+def mesh_tiered_front(bq, payload: dict, out: dict) -> None:
+    """Phase 11 (d)'s first rank: a warm session (the stream's first
+    ``MIXED_BATCH`` requests at once, twice: the second batch's wall time
+    is the mesh's warm batch-16 time), then the stream at 60% of that rate
+    while the ``chunks`` go in. Its channel's messages and pickled bytes
+    are counted."""
+    from repro_torch.serve.queue import AsyncServingEngine
+    from repro_torch.vectordb import distributed
+
+    dev = torch.device("cuda")
+    stream_wl = [_on(q, dev) for q in payload["stream_wl"]]
+    chunks = payload["chunks"]
+    channel = {"messages": 0, "bytes": 0}
+    send = distributed.BatchChannel._broadcast
+
+    def counted_send(self, msg):
+        channel["messages"] += 1
+        channel["bytes"] += len(pickle.dumps(msg))
+        return send(self, msg)
+
+    distributed.BatchChannel._broadcast = counted_send
+    eng = AsyncServingEngine(bq, batch_size=MIXED_BATCH, max_wait=1.0,
+                             clock=time.perf_counter)
+
+    async def warm():
+        got = []
+        async with eng:
+            for _ in range(2):
+                t = time.perf_counter()
+                got += await asyncio.gather(*(
+                    eng.submit(stream_request(stream_wl, i))
+                    for i in range(MIXED_BATCH)))
+                dt = time.perf_counter() - t
+        return got, dt
+
+    got, warm_s = asyncio.run(warm())
+    out["warm"] = _batch_log(eng, got, lambda seq: seq % MIXED_BATCH)
+    lam = MIXED_UTILIZATION * MIXED_BATCH / warm_s
+
+    def record(eng_s, reqs):
+        out["batches"] = _batch_log(eng_s, reqs)
+        out["report"] = dict(n_batches=eng_s.report().n_batches,
+                             epoch=eng_s.report().epoch,
+                             n_compactions=eng_s.report().n_compactions)
+
+    reqs, wall = tiered_stream(bq, stream_wl, chunks, lam, record)
+    out.update(warm_batch_s=warm_s, lam=lam, stream=_latency(reqs, wall),
+               channel=channel,
+               requests=[(r.seq, r.status) for r in reqs])
+
+
+def mesh_tiered_rank(rank: int, store: str, payload: dict,
+                     out_path: str) -> None:
+    """One rank of phase 11 (d), in its own process on the shared card:
+    phase 9's fitted tenant instance (its tensors the parent's, through
+    CUDA IPC) bound to a four-rank ``(data,)`` mesh and
+    ``bind_tiered(hot_capacity=2048)``. The first rank runs
+    ``mesh_tiered_front`` (two engine sessions); the others
+    ``serve_follower`` twice. Saves what each served and on which stamps,
+    its compactions (epoch, rows, steps, publish instant, digest), the
+    gather launches (set to 0 just before the sessions, read just after),
+    the hot views scored, its final stamp and its peak device memory."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels import gather_score as gs
+    from repro_torch.serve.queue import serve_follower
+
+    torch.cuda.set_device(0)
+    bq = payload["bq"]
+    hot = counted_hot_views()
+    out = {}
+    with process_group("gloo", store, rank=rank, world=MESH_RANKS), \
+            compaction_steps(bq) as times:
+        mesh = init_device_mesh("cpu", (MESH_RANKS,),
+                                mesh_dim_names=("data",))
+        bq.bind_shards(mesh=mesh).bind_tiered(HOT_CAPACITY)
+        records = compaction_records(bq, times)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gs.reset_launches()
+        t = time.perf_counter()
+        if rank == 0:
+            mesh_tiered_front(bq, payload, out)
+        else:
+            out["followed"] = []
+            for _ in range(2):  # the warm session, the stream
+                served = serve_follower(bq)
+                out["followed"].append(dict(
+                    results=[None if res is None else [_pair(x) for x in res]
+                             for res in served.results],
+                    errors={b: repr(e) for b, e in served.errors.items()},
+                    stamps=list(served.stamps), final=served.final.stamp))
+        torch.cuda.synchronize()
+        out.update(seconds=time.perf_counter() - t,
+                   launches=dict(gs.LAUNCHES), hot=dict(hot),
+                   compactions=records, final=bq.tiered.snapshot().stamp,
+                   peak_allocated=torch.cuda.max_memory_allocated(),
+                   peak_reserved=torch.cuda.max_memory_reserved())
+    torch.save(out, out_path)
+
+
+def check_tiered_followers(front: dict, followed: list, label: str) -> int:
+    """Every follower ran the first rank's batches of both sessions, in
+    order, each on the stamp the first rank cut it on, with results equal
+    bit for bit, and ended on the first rank's final stamp. ``front``:
+    the first rank's ``warm`` and ``batches`` logs and its ``final``
+    stamp; ``followed``: a follower's two sessions. -> batches."""
+    want = front["warm"] + front["batches"]
+    got_res = [b for s in followed for b in s["results"]]
+    got_st = [tuple(x) for s in followed for x in s["stamps"]]
+    errors = [s["errors"] for s in followed if s["errors"]]
+    if errors or len(got_res) != len(want) or len(got_st) != len(want):
+        raise AssertionError(f"{label}: {len(got_res)} batches on "
+                             f"{len(got_st)} stamps, errors {errors}; the "
+                             f"first rank ran {len(want)}")
+    for j, (res, st, w) in enumerate(zip(got_res, got_st, want)):
+        if st != tuple(w["stamp"]):
+            raise AssertionError(f"{label}: batch {j} ran on the stamp {st},"
+                                 f" the first rank cut it on {w['stamp']}")
+        check_same_results(res, w["results"], f"{label} batch {j}")
+    if tuple(followed[-1]["final"]) != tuple(front["final"]):
+        raise AssertionError(f"{label}: ended on {followed[-1]['final']}, "
+                             f"the first rank on {front['final']}")
+    return len(want)
+
+
+def check_digests(records: list, label: str) -> int:
+    """Every rank published the same epochs, each on the same rows with an
+    equal cold-state digest. ``records``: each rank's compaction records.
+    -> epochs."""
+    keys = [[(c["epoch"], c["a"], c["b"]) for c in r] for r in records]
+    for r, k in enumerate(keys):
+        if k != keys[0]:
+            raise AssertionError(f"{label}: rank {r} published {k}, the "
+                                 f"first rank {keys[0]}")
+    for r, rec in enumerate(records):
+        for c, c0 in zip(rec, records[0]):
+            if c["digest"] != c0["digest"]:
+                raise AssertionError(
+                    f"{label}: rank {r}'s cold state at epoch {c['epoch']} "
+                    f"differs from the first rank's (digest)")
+    return len(keys[0])
+
+
+def replay_snapshot(tiered, stamp, views, rows: tuple, first_row: int):
+    """A tiered snapshot at ``stamp`` on ``tiered`` (which holds that
+    epoch): its cold state and hot views of the global ``rows`` (host
+    arrays from global row ``first_row``) laid out as ``views``."""
+    from repro_torch.vectordb.tiered import HotView, TieredSnapshot
+
+    if tiered.epoch != stamp[0]:
+        raise AssertionError(f"replay at epoch {tiered.epoch}, stamp "
+                             f"{stamp}")
+    vecs, scal = rows
+    hot = []
+    for off, count in views:
+        lo = off - first_row
+        bufs = [np.zeros((HOT_CAPACITY, v.shape[1]), np.float32)
+                for v in vecs]
+        sbuf = np.zeros((HOT_CAPACITY, scal.shape[1]), np.float32)
+        for b, v in zip(bufs, vecs):
+            b[:count] = v[lo: lo + count]
+        sbuf[:count] = scal[lo: lo + count]
+        hot.append(HotView(tuple(bufs), sbuf, count, off,
+                           tiered.snapshot().cold.table.device))
+    snap = TieredSnapshot(epoch=stamp[0], cold=tiered.snapshot().cold,
+                          hot_views=tuple(hot))
+    if snap.stamp != tuple(stamp):
+        raise AssertionError(f"replay snapshot {snap.stamp}, stamp {stamp}")
+    return snap
+
+
+def check_replayed(got, want, label: str) -> int:
+    """A replayed batch against the mesh's: scores within ``MESH_ATOL``
+    and ids equal, except between slots whose scores tie within it (the
+    exact route's shard merge may order a tie differently). -> id swaps."""
+    swaps = 0
+    for j, ((gi, gs_), (wi, ws)) in enumerate(zip(got, want)):
+        gi, gs_, wi, ws = (np.asarray(x) for x in (gi, gs_, wi, ws))
+        if not np.allclose(gs_, ws, atol=MESH_ATOL, rtol=0):
+            raise AssertionError(f"{label}: query {j}'s scores differ from "
+                                 f"the mesh's beyond {MESH_ATOL}")
+        for p in np.flatnonzero(gi != wi):
+            near = np.abs(ws - ws[p]) <= MESH_ATOL
+            if near.sum() < 2 and p != len(wi) - 1:
+                raise AssertionError(f"{label}: query {j}'s id at slot {p} "
+                                     f"differs from the mesh's, untied")
+            swaps += 1
+    return swaps
+
+
+def check_hot_rows(snap, queries, results, label: str) -> int:
+    """No result misses a hot row (global id at or past the snapshot's
+    cold rows) that the exact top-k over the snapshot's cold ∪ hot rows
+    holds, float ties aside (``missed_hot_rows``). ``queries`` resolved.
+    -> hot rows in the oracle's top-k."""
+    o_ids, o_s = snapshot_topk(snap, queries)
+    first_hot = snap.cold.table.n_rows
+    missed, ranked = [], 0
+    for (ids, scores), oi, os_ in zip(results, o_ids, o_s):
+        ranked += int(np.sum(oi >= first_hot))
+        missed += missed_hot_rows(ids, scores, oi, os_, first_hot)
+    if missed:
+        raise AssertionError(f"{label}: served results miss {len(missed)} "
+                             f"hot rows their snapshot's oracle ranks in "
+                             f"the top-k: {missed[:8]}")
+    return ranked
+
+
+def replay_tiered(rep, stream_wl, log: list, compactions: list, rows: tuple,
+                  first_row: int) -> dict:
+    """Every batch of the mesh's first rank (``log``) again through ``rep``
+    (tiered over logical ``bind_shards(4)``) on a snapshot at its stamp,
+    each compaction driven where the first rank's ran (the logged rows
+    inserted, then ``tiered.compact()``), held to the mesh's results
+    (``check_replayed``) and to the snapshot's cold ∪ hot oracle
+    (``check_hot_rows``). -> counts."""
+    vecs, scal = rows
+    have, swaps, ranked, batches, epochs = first_row, 0, 0, 0, set()
+    for b in log:
+        stamp = tuple(b["stamp"])
+        while rep.tiered.epoch < stamp[0]:
+            c = compactions[rep.tiered.epoch]
+            if c["a"] != rep.tiered.snapshot().cold.table.n_rows:
+                raise AssertionError(f"replay: compaction {c['epoch']} of "
+                                     f"rows from {c['a']}")
+            rep.tiered.insert([v[have - first_row: c["b"] - first_row]
+                               for v in vecs],
+                              scal[have - first_row: c["b"] - first_row])
+            have = c["b"]
+            out = rep.tiered.compact()
+            if (out["epoch"], out["compacted"]) != \
+                    (c["epoch"], c["b"] - c["a"]):
+                raise AssertionError(f"replay: compaction {out}, logged "
+                                     f"{c}")
+        snap = replay_snapshot(rep.tiered, stamp, b["views"], rows, first_row)
+        qs = [stream_request(stream_wl, s) for s in b["seqs"]]
+        ok = [j for j, st in enumerate(b["status"]) if st == "ok"]
+        qs = [qs[j] for j in ok]
+        got = [_pair(x) for x in rep.execute_batch(qs, snapshot=snap)]
+        want = [b["results"][j] for j in ok]
+        label = f"phase 11 (d) replay of batch {batches}"
+        swaps += check_replayed(got, want, label)
+        ranked += check_hot_rows(snap, [rep.resolve_tenant(q) for q in qs],
+                                 want, label)
+        epochs.add(stamp[0])
+        batches += 1
+    return dict(batches=batches, tie_swaps=swaps, hot_rows_in_oracle=ranked,
+                epochs=sorted(epochs))
+
+
+def _tiered_copy(bq):
+    """A serving copy of ``bq`` whose tiers, shards and caches are its own
+    (the tensors are shared, and every update makes new ones)."""
+    import collections
+
+    rep = copy.copy(bq)
+    rep._older_qencs = collections.deque(maxlen=2)
+    rep._recent = collections.deque(maxlen=64)
+    rep._digested = set()
+    rep._batched = None
+    return rep
+
+
+def mesh_tiered(bq, stream_wl, device, smi: str) -> dict:
+    """Phase 11 (d): phase 9 (b)'s tiered stream over ``MESH_RANKS`` gloo
+    ranks on the one card. Each rank holds phase 9's fitted tenant
+    instance ``bq`` (the parent's tensors, through CUDA IPC) on a
+    four-rank mesh with ``bind_tiered(hot_capacity=2048)``; the first rank
+    serves the stream through ``AsyncServingEngine`` at 60% of the mesh's
+    own warm batch-16 rate while +20,000 ``tenant_skewed_insert`` rows go
+    in (8 chunks) and compact in the background, the others
+    ``serve_follower``. Fails unless every rank exits 0; every follower
+    ran every batch on its stamp with results equal bit for bit and ended
+    on the first rank's final stamp; every rank published the same epochs
+    with equal digests; the stamps span two epochs or more; every rank
+    scored the hot views with the fp32 kernel, as often as the others;
+    every batch replayed here on logical ``bind_shards(4)`` at its stamp
+    equals the mesh's and holds to its snapshot's oracle with no hot row
+    missed. Then the same stream through one process over logical S=4 at
+    the same rate, for its QPS and p50/p99."""
+    n0 = bq.table.n_rows
+    n_insert = int(ROWS * MIXED_INSERT_RATIO)
+    per = -(-n_insert // MIXED_CHUNKS)
+    host = dataclasses.replace(bq.table, vectors=[v.cpu() for v in
+                                                  bq.table.vectors],
+                               scalars=bq.table.scalars.cpu())
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        chunks = list(pool.map(
+            lambda d: tenant_skewed_insert(host, min(per, n_insert - d),
+                                           UPDATE_SEED + 31 + d),
+            range(0, n_insert, per)))
+    del host
+    rows = ([np.concatenate([c[0][i] for c in chunks])
+             for i in range(len(chunks[0][0]))],
+            np.concatenate([c[1] for c in chunks]))
+    bq.unbind_tiered().bind_shards()  # neither travels with the instance
+    payloads = [dict(bq=bq)] * MESH_RANKS
+    payloads[0] = dict(bq=bq, stream_wl=[_on(q, "cpu") for q in stream_wl],
+                       chunks=chunks)  # the ingest is the first rank's
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=mesh_tiered_rank, args=(
+            r, f"{d}/store", payloads[r], f"{d}/rank{r}.pt"))
+            for r in range(MESH_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=6 * MESH_TIMEOUT_S)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+        wall = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"phase 11 (d): rank exit codes {codes}")
+        got = [torch.load(f"{d}/rank{r}.pt", weights_only=False)
+               for r in range(MESH_RANKS)]
+    front = got[0]
+    n_batches = 0
+    for r in range(1, MESH_RANKS):
+        n_batches = check_tiered_followers(front, got[r]["followed"],
+                                           f"phase 11 (d) rank {r}")
+    n_epochs = check_digests([g["compactions"] for g in got], "phase 11 (d)")
+    stamps = [tuple(b["stamp"]) for b in front["warm"] + front["batches"]]
+    check_epochs_served([s[0] for s in stamps], front["final"][0],
+                        "phase 11 (d)")
+    hot = [g["hot"] for g in got]
+    if hot[0]["fp32"] <= 0 or any(h != hot[0] for h in hot):
+        raise AssertionError(f"phase 11 (d): hot views scored by rank "
+                             f"{hot}: each rank must launch the fp32 kernel "
+                             f"on them, as often as the others")
+    if any(st != "ok" for _, st in front["requests"]):
+        raise AssertionError("phase 11 (d): a request did not resolve ok")
+    # every batch again in this process, on logical S=4, at its stamp
+    rep = _tiered_copy(bq)
+    rep.bind_tiered(HOT_CAPACITY).bind_shards(MESH_RANKS)
+    t = time.perf_counter()
+    replay = replay_tiered(rep, stream_wl, front["warm"] + front["batches"],
+                           got[0]["compactions"], rows, n0)
+    replay["seconds"] = time.perf_counter() - t
+    del rep
+    # the same stream through one process over logical S=4, same rate
+    one = _tiered_copy(bq)
+    one.bind_tiered(HOT_CAPACITY).bind_shards(MESH_RANKS)
+    one_log = {}
+    one_reqs, one_wall = tiered_stream(
+        one, stream_wl, chunks, front["lam"],
+        lambda eng, reqs: one_log.update(n_compactions=one.tiered.epoch))
+    one_stats = _latency(one_reqs, one_wall)
+    del one
+    first = got[0]["compactions"]
+    lag = {r: [c["published"] - c0["published"]
+               for c, c0 in zip(got[r]["compactions"], first)]
+           for r in range(1, MESH_RANKS)}
+    steps = sorted({k for g in got for c in g["compactions"]
+                    for k in c["seconds_by_step"]})
+    out = dict(
+        wall_s=wall, batches=n_batches, epochs=n_epochs, stamps=len(stamps),
+        rank_seconds=[g["seconds"] for g in got],
+        rank_launches=[g["launches"] for g in got], hot_views=hot,
+        warm_batch_s=front["warm_batch_s"], lam=front["lam"],
+        mesh=front["stream"], one_process=dict(
+            one_stats, n_compactions=one_log["n_compactions"]),
+        compaction_seconds_by_step={
+            r: {k: float(np.mean([c["seconds_by_step"].get(k, 0.0)
+                                  for c in g["compactions"]]))
+                for k in steps}
+            for r, g in enumerate(got)},
+        compaction_seconds=[[c["seconds"] for c in g["compactions"]]
+                            for g in got],
+        publish_lag_s=lag,
+        channel=dict(front["channel"],
+                     bytes_per_batch=front["channel"]["bytes"] / n_batches,
+                     messages_per_batch=front["channel"]["messages"]
+                     / n_batches),
+        peak_allocated=[g["peak_allocated"] for g in got],
+        peak_reserved=[g["peak_reserved"] for g in got], replay=replay,
+        final=front["final"],
+        launches={k: sum(g["launches"][k] for g in got)
+                  for k in got[0]["launches"]})
+    log(f"  tiered over {MESH_RANKS} gloo ranks [{smi}]: {wall:.1f} s with "
+        f"their start; {n_batches} batches on every rank on their stamps, "
+        f"each follower equal to the first rank; {n_epochs} epochs, digests "
+        f"equal; hot views scored {hot[0]['calls']}x, {hot[0]['fp32']} fp32 "
+        f"launches a rank; replayed {replay['batches']} batches on logical "
+        f"S=4 ({replay['tie_swaps']} tie swaps, "
+        f"{replay['hot_rows_in_oracle']} oracle slots hot, none missed) in "
+        f"{replay['seconds']:.1f} s")
+    for who, x in (("mesh", out["mesh"]), ("one process S=4",
+                                            out["one_process"])):
+        log(f"  tiered stream [{who}, {smi}]: {x['requests']} requests, "
+            f"{x['qps']:.1f} QPS, p50 {x['p50_ms']:.2f} / p99 "
+            f"{x['p99_ms']:.2f} ms")
+    log(f"  tiered over the mesh: warm batch of {MIXED_BATCH} "
+        f"{front['warm_batch_s'] * 1e3:.1f} ms; compaction seconds by step "
+        f"(mean, by rank) {out['compaction_seconds_by_step']}; followers' "
+        f"publish lag (s, by epoch) "
+        + "; ".join(f"rank {r} " + ", ".join(f"{x:.3f}" for x in v)
+                    for r, v in lag.items())
+        + f"; channel {out['channel']['messages_per_batch']:.3f} messages, "
+        f"{out['channel']['bytes_per_batch']:.0f} bytes a batch "
+        f"({front['channel']['bytes']} in all); peak allocated by rank "
+        f"{[round(x / 2**30, 3) for x in out['peak_allocated']]} GiB")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4174,7 +4795,7 @@ def main() -> int:
     # phase 8 — a vector->scalar set at d=128, its search pass's counts
     sift = sift_phase(dev)
     # phase 9 — the tiered, tenanted, cached path, its serving counts
-    tier = tiered_phase(ttable, graphs, t_fit_wl, t_serve_wl, dev)
+    tier = tiered_phase(ttable, graphs, t_fit_wl, t_serve_wl, dev, smi)
     # phase 13 — the dense language models (no custom kernel on this path)
     lm_out = lm_phase(dev)
     # phase 14 — the SSM and hybrid language models (no custom kernel)
@@ -4183,7 +4804,8 @@ def main() -> int:
                          "7": upd["launches"], "8": sift["launches"],
                          "9": tier["launches"],
                          "9 compaction warm-up": tier["prewarm_launches"],
-                         "10": shards["launches"], "11": mesh["launches"]}
+                         "10": shards["launches"], "11": mesh["launches"],
+                         "11 (d)": tier["mesh_tiered"]["launches"]}
 
     kernels = []
     for variant in ("fp32", "int8"):
@@ -4197,7 +4819,8 @@ def main() -> int:
             "src/repro/kernels/gather_score.py:88", checked, vrows[0],
             launches[variant] + upd["launches"][variant]
             + sift["launches"][variant] + tier["launches"][variant]
-            + shards["launches"][variant] + mesh["launches"][variant],
+            + shards["launches"][variant] + mesh["launches"][variant]
+            + tier["mesh_tiered"]["launches"][variant],
             envelope["launches"][f"gather_score_{variant}"]))
     for name, variant, replaces in (
             ("masked_topk_fp32", "dot", "src/repro/kernels/masked_topk.py:28"),

@@ -46,7 +46,9 @@ from repro_torch.core.query_encoder import QueryEncoder
 from repro_torch.core.rewriter import MHQRewriter, RewriterConfig, generate_label
 from repro_torch.vectordb import flat, graph, histogram, ivf, predicates
 from repro_torch.vectordb.table import Table
-from repro_torch.vectordb.tiered import ColdState, TieredSnapshot, TieredTable
+from repro_torch.vectordb.tiered import (
+    ColdState, TieredSnapshot, TieredTable, cold_digest,
+)
 
 
 def _n_valid(ids) -> int:
@@ -112,6 +114,9 @@ class BoomHQ:
                 [v.shape[1] for v in table.vectors], table.schema.n_scalar,
                 cfg.encoder, device=table.device)
         self.qenc: Optional[QueryEncoder] = None
+        # the query encoders of the epochs before the latest (tiered): a
+        # batch plans with the encoder of its own snapshot's epoch
+        self._older_qencs: deque = deque(maxlen=2)
         self.rewriter: Optional[MHQRewriter] = None
         self._fitted = False
         self.cost_model = None  # scoring-dispatch override (bind_cost_model)
@@ -128,6 +133,9 @@ class BoomHQ:
         # epoch's serving state with real traffic before the publish
         self._recent: deque = deque(maxlen=64)
         self._last_batch = 1
+        # tiered over a mesh: the epochs whose cold-state digests the
+        # ranks have compared
+        self._digested: set = set()
 
     @property
     def table(self) -> Table:
@@ -199,7 +207,7 @@ class BoomHQ:
         qv_b = tuple(torch.stack([q.query_vectors[i] for q in qpad])
                      for i in range(t.schema.n_vec))
         cfg = self.cfg
-        return self.qenc.encode_batch(
+        return self._qenc_for(cold).encode_batch(
             cold, qv_b, pred_b,
             torch.as_tensor(np.asarray([q.weights for q in qpad], np.float32),
                             device=dev),
@@ -211,6 +219,16 @@ class BoomHQ:
             use_de=cfg.use_de and self.data_encoder is not None,
             use_stats=cfg.use_stats, use_gse=cfg.use_gse,
             use_lnp=cfg.use_lnp)
+
+    def _qenc_for(self, cold: ColdState) -> QueryEncoder:
+        """The query encoder built on the epoch ``cold`` (the latest, or
+        one of the two before it), else the latest: which encoder plans a
+        batch follows from its snapshot, not from when a compaction swaps
+        the encoder."""
+        for qe in (self.qenc, *reversed(self._older_qencs)):
+            if qe is not None and qe.table is cold.table:
+                return qe
+        return self.qenc
 
     # -- online ----------------------------------------------------------------
 
@@ -330,18 +348,57 @@ class BoomHQ:
         rank sends. A mesh of any size, one rank too, takes the sharded
         executor. ``bind_shards()`` restores single-shard serving."""
         if mesh is not None:
-            from repro_torch.vectordb.distributed import (
-                MULTI_RANK_QUEUED, shard_rows,
-            )
+            from repro_torch.vectordb.distributed import shard_rows
 
             shard_rows(self.table.n_rows, mesh, shard_axes)  # or raise
-            if self.tiered is not None and mesh.size() > 1:
-                raise NotImplementedError(MULTI_RANK_QUEUED)
+            if self.tiered is not None:
+                self._check_hot_capacity(self.tiered.hot_capacity, mesh,
+                                         shard_axes)
         self.n_shards = max(1, int(n_shards))
         self.shard_mesh = mesh
         self.shard_axes = shard_axes
         self._batched = None  # rebuild the executor with the shard config
+        self._tiers_on_mesh()
         return self
+
+    @property
+    def _multi_rank(self) -> bool:
+        return self.shard_mesh is not None and self.shard_mesh.size() > 1
+
+    def _first_rank(self) -> bool:
+        """Whether this rank plans and ingests: the mesh's first rank, or
+        the only one."""
+        if not self._multi_rank:
+            return True
+        from repro_torch.vectordb.distributed import is_first_rank
+        return is_first_rank(self.shard_mesh)
+
+    @staticmethod
+    def _check_hot_capacity(hot_capacity: int, mesh, shard_axes) -> None:
+        """Tiers over a mesh: full hot generations must keep the cold rows
+        divisible over its shards."""
+        from repro_torch.vectordb.distributed import mesh_shard
+
+        count = mesh_shard(mesh, shard_axes)[0]
+        if hot_capacity % count:
+            raise ValueError(f"hot_capacity {hot_capacity} is not divisible "
+                             f"over {count} mesh shards")
+
+    def _tiers_on_mesh(self) -> None:
+        """Fit the tiered table to the shard config: over a mesh the cold
+        rows stay divisible over its shards, and the first rank of a mesh
+        of more than one rank keeps the ingest log the others replay."""
+        if self.tiered is None:
+            return
+        if self.shard_mesh is None:
+            self.tiered.row_multiple = 1
+            return
+        from repro_torch.vectordb.distributed import mesh_shard
+
+        self.tiered.row_multiple = mesh_shard(self.shard_mesh,
+                                              self.shard_axes)[0]
+        if self._multi_rank and self._first_rank():
+            self.tiered.lead()
 
     @property
     def _sharded(self) -> bool:
@@ -359,16 +416,30 @@ class BoomHQ:
         epoch-swapped snapshot (``vectordb.tiered``). ``rebuild_every=N``
         makes every Nth compaction a full re-cluster; ``finetune`` keeps
         the data encoder updating on compacted rows. ``unbind_tiered()``
-        restores build-once serving. A mesh of more than one rank is
-        refused: each rank would cut epochs by its own clock."""
-        if self.shard_mesh is not None and self.shard_mesh.size() > 1:
-            from repro_torch.vectordb.distributed import MULTI_RANK_QUEUED
-            raise NotImplementedError(MULTI_RANK_QUEUED)
+        restores build-once serving.
+
+        Composes with ``bind_shards``: over a mesh (either order of the two
+        calls, on every rank alike) ``hot_capacity`` must divide over its
+        shards (``ValueError``), and a compaction that would leave cold
+        rows that do not divide raises and leaves them hot. Over a mesh of
+        more than one rank the first rank owns ingest (``insert``
+        elsewhere raises) and the epoch cuts: ``AsyncServingEngine`` sends
+        every batch with its snapshot stamp and the ingest since, and
+        ``serve.queue.serve_follower`` replays them (each follower
+        compacts on its own). Without an engine every rank calls
+        ``tiered.insert``/``tiered.compact()`` and ``execute_batch`` alike,
+        and each batch first checks every rank's snapshot against the
+        others' (a mismatch raises on every rank)."""
+        if self.shard_mesh is not None:
+            self._check_hot_capacity(hot_capacity, self.shard_mesh,
+                                     self.shard_axes)
         self._tiered_finetune = finetune
         self.tiered = TieredTable(
             self.table, self.state.indexes, self.hists,
             hot_capacity=hot_capacity, rebuild_every=rebuild_every,
             finetune_cb=self._on_compaction, graphs=self.graphs)
+        self._digested = set()
+        self._tiers_on_mesh()
         return self
 
     def unbind_tiered(self) -> "BoomHQ":
@@ -396,19 +467,29 @@ class BoomHQ:
         a tiered batch except the query encoder, which is replaced whole:
         the encoder is updated on a copy and published with it, so a batch
         on the serving thread sees the old pair or the new one, never a
-        half-trained encoder."""
-        de = self.data_encoder
-        if de is not None and self._tiered_finetune:
-            de = copy.deepcopy(de)
-            de.update(cold.table, np.arange(first_new, first_new + n_new))
-        self.data_encoder = de
-        if self.qenc is not None:
-            self.qenc = QueryEncoder(cold.table, list(cold.indexes),
-                                     cold.hists, de)
+        half-trained encoder.
+
+        Over a mesh of more than one rank only the first rank plans, so
+        only it fine-tunes and rebuilds the encoders, and no rank warms
+        the new epoch here: a warm-up batch would enter the mesh's
+        collectives off the serving thread, out of step with the other
+        ranks. The first batch of each epoch builds its executor on every
+        rank's serving path instead."""
+        if self._first_rank():
+            de = self.data_encoder
+            if de is not None and self._tiered_finetune:
+                de = copy.deepcopy(de)
+                de.update(cold.table, np.arange(first_new, first_new + n_new))
+            self.data_encoder = de
+            if self.qenc is not None:
+                self._older_qencs.append(self.qenc)
+                self.qenc = QueryEncoder(cold.table, list(cold.indexes),
+                                         cold.hists, de)
         self.state = cold
         self.executor = HybridExecutor(cold.table, list(cold.indexes),
                                        self.engine, graphs=cold.graphs)
-        self._prewarm_cold(cold)
+        if not self._multi_rank:
+            self._prewarm_cold(cold)
 
     def _prewarm_cold(self, cold: ColdState) -> None:
         """Serve the retained recent queries against the new cold state on
@@ -487,9 +568,12 @@ class BoomHQ:
         time, else taken here: the cold side runs the plan-driven paths on
         the snapshot's epoch and the hot views merge in as one more exact
         candidate source (``_merge_hot``). Only calls without a
-        ``snapshot`` are recorded as recent traffic (on a mesh, every rank
-        records the same batches; only a tiered compaction reads them, and
-        tiers are refused over more than one rank).
+        ``snapshot`` are recorded as recent traffic (only a tiered
+        compaction reads them, and not over a mesh of more than one rank).
+        Over a tiered table on a mesh of more than one rank, every rank
+        first contributes its snapshot's stamp (and, at the first batch of
+        each epoch, its cold-state digest) to one gather, and unless all
+        are equal every rank raises (``distributed.check_stamps``).
 
         Over a sharded table (``bind_shards``) the learned plans fan out
         across the shards (``_execute_batch_sharded``), with per-shard
@@ -504,7 +588,21 @@ class BoomHQ:
         snap = snapshot
         if snap is None and self.tiered is not None:
             snap = self.tiered.snapshot()
+        if snap is not None and self._multi_rank:
+            self._check_stamp(snap)
         return self._execute_batch_on(queries, snap)
+
+    def _check_stamp(self, snap) -> None:
+        """Every rank's snapshot against the others': one gather of each
+        rank's stamp, with its cold-state digest at the first batch of an
+        epoch (an epoch counts as compared only once all agreed, so after
+        a mismatch every batch of that epoch fails alike)."""
+        from repro_torch.vectordb.distributed import check_stamps
+
+        first = snap.epoch not in self._digested
+        check_stamps(snap.stamp + (cold_digest(snap.cold) if first else 0,),
+                     self.shard_mesh, device=snap.cold.table.device)
+        self._digested.add(snap.epoch)
 
     def _execute_batch_on(self, queries: list, snap) -> list:
         """``execute_batch`` on resolved queries against ``snap`` (None for
@@ -576,14 +674,15 @@ class BoomHQ:
         same order and meet in the same collectives. If planning raises on
         the first rank, the broadcast carries the exception instead
         (``distributed.portable_error``) and every rank raises it for this
-        batch, so none is left waiting in a collective."""
+        batch (marked shared), so none is left waiting in a collective."""
         n = cold.table.n_rows
         mesh = self.shard_mesh
         if mesh is None or mesh.size() == 1:
             plans = self.optimize_batch(queries, scores_b=scores_b, cold=cold)
         else:
             from repro_torch.vectordb.distributed import (
-                broadcast_from_first, is_first_rank, portable_error,
+                broadcast_from_first, is_first_rank, mark_shared,
+                portable_error,
             )
 
             sent, failure = None, None
@@ -596,7 +695,7 @@ class BoomHQ:
                     sent = (False, portable_error(exc))
             ok, plans = broadcast_from_first(sent, mesh)
             if not ok:
-                raise failure if failure is not None else plans
+                raise mark_shared(failure if failure is not None else plans)
         results = bx.execute_batch_sharded(queries, plans, scores_b=scores_b)
         self._retry_underfilled(
             results, queries, bx, scores_b,
@@ -702,6 +801,12 @@ class BoomHQ:
         from repro_torch.common.device import synchronize
 
         if self.tiered is not None:
+            if not self._first_rank():
+                raise ValueError(
+                    "over a mesh of more than one rank the first rank owns "
+                    "tiered ingest: insert there (serve_follower replays "
+                    "its rows here), or call tiered.insert on every rank "
+                    "alike")
             self._tiered_finetune = finetune
             stats = self.tiered.insert(vectors, scalars)
             if stats["needs_compaction"] and self._compactor is not None:

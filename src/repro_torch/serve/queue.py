@@ -20,10 +20,13 @@ of the serving pipeline for that traffic:
   table a ``CompactionScheduler`` compacts on a second thread.
 * Over a mesh of more than one rank (``BoomHQ.bind_shards(mesh=...)``)
   the mesh's first rank is the front end: it runs the engine (batch cuts,
-  deadlines, tenant folding, the semantic cache, the report) and sends
-  every batch it executes to the other ranks, which run
-  ``serve_follower``: the same batches, in the same order, through the
-  same collectives.
+  deadlines, tenant folding, the semantic cache, the report, and over a
+  tiered table the ingest and the compactions that cut epochs) and sends
+  every batch it executes to the other ranks, with its snapshot stamp and
+  the ingest since the last batch; they run ``serve_follower``: the same
+  batches, in the same order, through the same collectives, each on the
+  snapshot its stamp names. A rank that fails alone ends the session on
+  every rank at once (``distributed.BatchChannel``).
 
 Dispositions and latency percentiles land in ``ServeReport``
 (``n_timed_out``, ``p50_ms``/``p99_ms``).
@@ -188,6 +191,13 @@ class CompactionScheduler:
         self._inflight: Optional[concurrent.futures.Future] = None
         self.n_scheduled = 0
 
+    def start(self) -> None:
+        """Submit one compaction whatever the table's own policy says (a
+        follower compacts when the first rank's log says); compactions run
+        one after another on the worker."""
+        self._inflight = self._pool.submit(self.tiered.compact)
+        self.n_scheduled += 1
+
     def maybe_schedule(self) -> bool:
         """Submit one compaction if the hot segment needs it and none is in
         flight. -> whether one was submitted."""
@@ -229,8 +239,17 @@ class AsyncServingEngine:
     event loop, on every way out (flushed, ``flush=False`` mid-batch, or
     an exception in an ``async with`` body). The channel has its own
     timeout, so an idle pause longer than the process group's does not
-    fail the followers. ``batch_seqs`` lists each executed batch's request
-    sequence numbers, in execution order."""
+    fail the followers. Over a tiered table the batch goes out with its
+    cut-time snapshot's stamp and the ingest since the last message
+    (``tiered.TieredTable.delta``); this rank's ``CompactionScheduler``
+    cuts the epochs, and ``stop`` waits out its compaction before the
+    stop message, which carries the final stamp. A batch that fails on
+    every rank alike (a planning failure) fails its requests only; any
+    other failure of a batch means some rank failed alone, so that batch
+    and every later request fail with a ``distributed.MeshSessionError``
+    naming the rank, and ``stop`` sends nothing more. ``batch_seqs``
+    lists each executed batch's request sequence numbers, in execution
+    order."""
 
     def __init__(self, boomhq, *, batch_size: int = 32,
                  max_wait: float = 0.05,
@@ -247,6 +266,7 @@ class AsyncServingEngine:
                     "(coordinate 0 on every dimension); every other rank "
                     "runs serve_follower(bq)")
         self._channel = None
+        self._failure: Optional[BaseException] = None  # a session's end
         self.batch_seqs: list = []
         self.bq = boomhq
         self.former = BatchFormer(batch_size=batch_size, max_wait=max_wait,
@@ -320,12 +340,21 @@ class AsyncServingEngine:
             if not fut.done():
                 fut.set_exception(asyncio.CancelledError("engine stopped"))
         if self._channel is not None:
+            if self._compactor is not None:
+                # the last epoch cut lands before the stop that stamps it
+                if self.bq._compactor is self._compactor:
+                    self.bq._compactor = None
+                await asyncio.get_running_loop().run_in_executor(
+                    None, self._compactor.drain)
+                self._compactor = None
             # the followers' stop goes out on the worker, behind the
             # in-flight batch and its collectives; awaited, not joined
-            stop_fut = self._pool.submit(self._channel.send_stop)
+            stop_fut = None if self._failure is not None else \
+                self._pool.submit(_send_stop, self._channel, self.bq)
             self._pool.shutdown(wait=False)
             self._pool, self._channel = None, None
-            await asyncio.wrap_future(stop_fut)
+            if stop_fut is not None:
+                await asyncio.wrap_future(stop_fut)
         else:
             # wait=False: do not block the event loop on a discarded batch
             self._pool.shutdown(wait=False, cancel_futures=True)
@@ -366,6 +395,8 @@ class AsyncServingEngine:
         here). With a semantic cache, a fresh repeat resolves here —
         never queued, never executed, ``cache_hit`` set."""
         await self.start()
+        if self._failure is not None:
+            raise self._failure
         tmo = self.default_timeout if timeout is _DEFAULT else timeout
         # fold the tenant namespace BEFORE the cache key is computed, so
         # the implicit conjunct is part of the predicate signature
@@ -427,18 +458,22 @@ class AsyncServingEngine:
             batch = [r for r in batch if r.status == PENDING]
             if not batch:
                 return
+        if self._failure is not None:
+            for r in batch:
+                r.status = FAILED
+                r.done = now
+                self._finish(r, exc=self._failure)
+            return
         loop = asyncio.get_running_loop()
         queries = [r.query for r in batch]
         self.batch_seqs.append([r.seq for r in batch])
-        if batch[0].snapshot is not None:
-            # the whole batch shares the snapshot stamped at cut time
-            run = functools.partial(
-                self.bq.execute_batch, queries, snapshot=batch[0].snapshot)
-        elif self._channel is not None:
+        # the whole batch shares the snapshot stamped at cut time
+        snap = batch[0].snapshot
+        if self._channel is not None:
             run = functools.partial(_send_and_execute, self._channel,
-                                    self.bq, queries)
+                                    self.bq, queries, snap)
         else:
-            run = functools.partial(self.bq.execute_batch, queries)
+            run = functools.partial(_execute_on, self.bq, queries, snap)
         exec_fut = loop.run_in_executor(self._pool, run)
         try:
             results = await asyncio.shield(exec_fut)
@@ -459,6 +494,8 @@ class AsyncServingEngine:
             # which would strand every later future
             now = self.clock()
             self._n_batches += 1
+            if _is_session_error(exc):
+                self._failure = exc  # and every later request
             for r in batch:
                 r.status = FAILED
                 r.done = now
@@ -556,21 +593,58 @@ def _bind_device(device) -> None:
         torch.cuda.set_device(device.index)
 
 
-def _send_and_execute(channel, bq, queries: list) -> list:
-    """On the front end's worker thread: the batch to the followers, then
-    the batch here, so broadcast order is execution order."""
-    channel.send_batch(queries)
-    return bq.execute_batch(queries)
+def _is_session_error(exc: BaseException) -> bool:
+    from repro_torch.vectordb.distributed import MeshSessionError
+    return isinstance(exc, MeshSessionError)
+
+
+def _execute_on(bq, queries: list, snapshot) -> list:
+    """``bq.execute_batch`` on the batch's cut-time snapshot, if it has
+    one."""
+    if snapshot is None:
+        return bq.execute_batch(queries)
+    return bq.execute_batch(queries, snapshot=snapshot)
+
+
+def _send_and_execute(channel, bq, queries: list, snapshot=None) -> list:
+    """On the front end's worker thread: the batch to the followers (over a
+    tiered table with ``snapshot``'s stamp and the ingest since the last
+    message), then the batch here, so broadcast order is execution order.
+    A failure that every rank shares propagates as it is; any other ends
+    the session (``BatchChannel.session_error``)."""
+    from repro_torch.vectordb.distributed import is_shared
+
+    try:
+        if channel.failed():  # a follower reported: send nothing more
+            raise RuntimeError("a follower reported a failure")
+        channel.send_batch(queries, None if snapshot is None
+                           else bq.tiered.delta(snapshot))
+        return _execute_on(bq, queries, snapshot)
+    except Exception as exc:  # noqa: BLE001 — classified, then re-raised
+        if is_shared(exc):
+            raise
+        raise channel.session_error(exc) from exc
+
+
+def _send_stop(channel, bq) -> None:
+    """The session's last message, over a tiered table with the final
+    stamp (the compactions have landed) and the ingest since the last."""
+    tiered = getattr(bq, "tiered", None)
+    channel.send_stop(None if tiered is None
+                      else tiered.delta(tiered.snapshot()))
 
 
 @dataclasses.dataclass
 class FollowerServed:
     """What ``serve_follower`` ran in one session: each batch's results in
-    execution order (``None`` where the batch raised), and the exceptions
-    by batch index."""
+    execution order (``None`` where the batch raised, on every rank alike),
+    the exceptions by batch index, and over a tiered table the stamp of
+    the snapshot each batch ran on and the session's final snapshot."""
 
     results: list = dataclasses.field(default_factory=list)
     errors: dict = dataclasses.field(default_factory=dict)
+    stamps: list = dataclasses.field(default_factory=list)
+    final: Optional[object] = None
 
     @property
     def n_batches(self) -> int:
@@ -582,15 +656,28 @@ def serve_follower(boomhq) -> FollowerServed:
     other than the first, while the first runs ``AsyncServingEngine``:
     receive each batch the front end executes and run it through
     ``boomhq.execute_batch`` (every rank meets the same collectives in the
-    same order), until the front end stops. A batch that raises is
-    recorded and the loop goes on, as the front end's drainer does; with
-    the plan broadcast carrying a first-rank planning failure, every rank
-    raises for that batch alike. Cache hits, deadlines and batch cuts stay
-    on the first rank: a follower sees executed batches only. One call per
-    ``start``/``stop`` session of the front end; it makes the session's
-    ``distributed.BatchChannel`` with it. -> ``FollowerServed``."""
+    same order), until the front end stops. Cache hits, deadlines and
+    batch cuts stay on the first rank: a follower sees executed batches
+    only. One call per ``start``/``stop`` session of the front end; it
+    makes the session's ``distributed.BatchChannel`` with it.
+
+    Over a tiered table the follower replays the first rank's ingest
+    (``TieredTable.follow``): each message's rows go into its hot segment
+    at their global ids, each compaction the first rank started runs on
+    this rank's own ``CompactionScheduler``, and each batch runs on the
+    snapshot its stamp names, once this rank's compactions have reached
+    that epoch (``snapshot_for``). The stop carries the final stamp: the
+    session ends once this rank's compaction in flight has landed there.
+
+    A batch that raises on every rank alike (marked shared: a first-rank
+    planning failure, a snapshot mismatch) is recorded and the loop goes
+    on. Any other failure here is this rank's alone and has left the
+    others out of step: it is reported and this process ends
+    (``distributed.FAILED_EXIT``), as it does as soon as another rank
+    reports one (the channel's watchdog), so no rank waits out a timeout.
+    -> ``FollowerServed``."""
     from repro_torch.vectordb.distributed import (
-        BATCH, BatchChannel, is_first_rank,
+        BATCH, BatchChannel, is_first_rank, is_shared,
     )
 
     mesh = getattr(boomhq, "shard_mesh", None)
@@ -600,17 +687,38 @@ def serve_follower(boomhq) -> FollowerServed:
                          "runs AsyncServingEngine")
     channel = BatchChannel(mesh)
     device = boomhq.table.device
+    tiered = getattr(boomhq, "tiered", None)
+    compactor = None
     out = FollowerServed()
-    while True:
-        kind, queries = channel.receive(device)
-        if kind != BATCH:
-            return out
+    with channel.watchdog():
         try:
-            out.results.append(boomhq.execute_batch(queries))
-        except Exception as exc:  # noqa: BLE001 — a failed batch fails
-            # that batch only, as on the front end
-            out.errors[len(out.results)] = exc
-            out.results.append(None)
+            if tiered is not None:
+                tiered.hold()
+                compactor = CompactionScheduler(tiered)
+            while True:
+                kind, queries, tier = channel.receive(device)
+                if kind != BATCH:
+                    break
+                snap = None
+                if tier is not None:
+                    tiered.follow(tier, compactor.start)
+                    snap = tiered.snapshot_for(tier["stamp"])
+                    out.stamps.append(snap.stamp)
+                try:
+                    out.results.append(_execute_on(boomhq, queries, snap))
+                except Exception as exc:  # noqa: BLE001 — a failure every
+                    # rank shares fails that batch only
+                    if not is_shared(exc):
+                        raise
+                    out.errors[len(out.results)] = exc
+                    out.results.append(None)
+            if tier is not None:
+                out.final = tiered.end_follow(tier, compactor.start)
+            if compactor is not None:
+                compactor.drain()
+        except Exception as exc:  # noqa: BLE001 — this rank failed alone
+            channel.fail(exc)
+    return out
 
 
 async def serve_stream(engine: AsyncServingEngine, queries: list, *,

@@ -34,9 +34,13 @@ same shard and return the same result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import os
 import pickle
+import sys
+import threading
 
 import numpy as np
 import torch
@@ -51,12 +55,6 @@ from repro_torch.vectordb.table import similarity, similarity_batch
 # ---------------------------------------------------------------------------
 # the mesh: shards, rows and collectives
 # ---------------------------------------------------------------------------
-
-MULTI_RANK_QUEUED = (
-    "tiered ingest cuts epochs by each rank's own clock, so the ranks of a "
-    "mesh of more than one rank would diverge; a first-rank epoch cut for "
-    "it is queued in ROADMAP Queue 1 item 2b")
-
 
 def _axes(data_axes) -> tuple:
     return data_axes if isinstance(data_axes, tuple) else (data_axes,)
@@ -156,10 +154,67 @@ def portable_error(exc: BaseException) -> BaseException:
         return RuntimeError(f"{type(exc).__name__}: {exc}")
 
 
+# ---------------------------------------------------------------------------
+# failures: shared by every rank, or one rank's alone
+# ---------------------------------------------------------------------------
+
+_SHARED = "mesh_shared"
+
+
+def mark_shared(exc: BaseException) -> BaseException:
+    """Mark ``exc`` as raised by every rank of the mesh for the same batch
+    (it travelled in a broadcast, or a collective decided it), so a rank
+    that catches it knows its peers left that batch at the same point.
+    -> ``exc``."""
+    setattr(exc, _SHARED, True)
+    return exc
+
+
+def is_shared(exc: BaseException) -> bool:
+    return bool(getattr(exc, _SHARED, False))
+
+
+class MeshSessionError(RuntimeError):
+    """A rank of the mesh failed alone during a serving session: its peers
+    were left out of step (waiting in a collective it never entered), so
+    the session is over. ``rank`` is the global rank that failed."""
+
+    def __init__(self, rank: int, message: str):
+        super().__init__(f"rank {rank} of the mesh failed alone: {message}; "
+                         f"the serving session over the mesh has ended")
+        self.rank = rank
+
+
+# a follower's process ends with this code when its serving session failed
+# (its own failure, or another rank's), so that every peer waiting on it in
+# a collective raises at once instead of waiting out a timeout
+FAILED_EXIT = 70
+WATCH_INTERVAL_S = 0.05
+
+
+def check_stamps(row: tuple, mesh, *, device) -> None:
+    """Every rank's ``row`` (ints: a tiered snapshot's stamp and its
+    cold-state digest, or 0) gathered once over every dimension of
+    ``mesh``; unless all are equal, every rank raises the same
+    ``RuntimeError``, marked shared (the verdict is computed from the same
+    gathered rows everywhere)."""
+    x = torch.tensor([list(row)], dtype=torch.int64, device=device)
+    every = gather_shards(x, mesh, tuple(mesh.mesh_dim_names)).cpu()
+    if not bool((every == every[0]).all()):
+        raise mark_shared(RuntimeError(
+            f"the ranks' tiered snapshots differ (epoch, cold rows, rows, "
+            f"cold digest by rank): {every.tolist()}"))
+
+
+# ---------------------------------------------------------------------------
+# the batch channel
+# ---------------------------------------------------------------------------
+
 # the batch channel's own timeout: a follower waits in it between batches,
 # however long traffic pauses, so it is not the process group's
 CHANNEL_TIMEOUT = datetime.timedelta(days=7)
 BATCH, STOP = "batch", "stop"
+_FAILURES = "failures"
 
 
 def _query_to_host(q) -> dict:
@@ -195,18 +250,31 @@ class BatchChannel:
     ``serve_follower``). A batch travels as host arrays — each query's
     vectors, weights, predicate fields, ``k``, ``recall_target`` and
     ``tenant_id`` — and each receiver rebuilds its ``MHQ``s on its own
-    device, byte for byte the sender's values. Between batches a receiver
-    waits in the broadcast, so the group has its own timeout
-    (``CHANNEL_TIMEOUT``): a pause in traffic longer than the process
-    group's timeout does not fail a waiting rank. A rank whose peer
-    process ends sees the connection close and raises."""
+    device, byte for byte the sender's values. Over a tiered table a
+    message also carries the batch's snapshot stamp and the ingest since
+    the last message (``tiered.TieredTable.delta``); the stop carries the
+    final stamp. Between batches a receiver waits in the broadcast, so the
+    group has its own timeout (``CHANNEL_TIMEOUT``): a pause in traffic
+    longer than the process group's timeout does not fail a waiting rank.
+
+    A rank that fails alone reports it in the process group's store under
+    this channel's name (``fail``) and its process ends; a follower's
+    ``watchdog`` ends its process as soon as any report appears. A rank
+    whose peer process ends sees the connection close and raises, so no
+    rank waits out a timeout; the first rank names the failed rank
+    (``session_error``)."""
 
     def __init__(self, mesh):
         import torch.distributed as dist
+        from torch.distributed.distributed_c10d import _get_default_store
 
         self.src = int(mesh.mesh[(0,) * mesh.ndim])  # the first rank
-        self.group = dist.new_group(sorted(mesh.mesh.flatten().tolist()),
-                                    timeout=CHANNEL_TIMEOUT, backend="gloo")
+        self.ranks = sorted(mesh.mesh.flatten().tolist())
+        self.group = dist.new_group(self.ranks, timeout=CHANNEL_TIMEOUT,
+                                    backend="gloo")
+        self.store = dist.PrefixStore(
+            f"boomhq/batch-channel/{self.group.group_name}/",
+            _get_default_store())
 
     def _broadcast(self, msg):
         import torch.distributed as dist
@@ -215,21 +283,91 @@ class BatchChannel:
         dist.broadcast_object_list(box, src=self.src, group=self.group)
         return box[0]
 
-    def send_batch(self, queries: list) -> None:
-        """First rank: the batch about to execute, as host arrays."""
-        self._broadcast((BATCH, [_query_to_host(q) for q in queries]))
+    def send_batch(self, queries: list, tiered: dict | None = None) -> None:
+        """First rank: the batch about to execute, as host arrays, with
+        its tiered stamp and ingest delta when it has one."""
+        self._broadcast((BATCH, [_query_to_host(q) for q in queries],
+                         tiered))
 
-    def send_stop(self) -> None:
-        """First rank: the last message of the session."""
-        self._broadcast((STOP, None))
+    def send_stop(self, tiered: dict | None = None) -> None:
+        """First rank: the last message of the session (over a tiered
+        table, with the final stamp and the ingest since the last batch)."""
+        self._broadcast((STOP, None, tiered))
 
     def receive(self, device) -> tuple:
         """Any other rank: the next message. -> ``(BATCH, queries on
-        device)`` or ``(STOP, None)``."""
-        kind, body = self._broadcast(None)
+        device, tiered part or None)`` or ``(STOP, None, tiered part or
+        None)``."""
+        kind, body, tiered = self._broadcast(None)
         if kind == STOP:
-            return STOP, None
-        return BATCH, [_query_from_host(m, device) for m in body]
+            return STOP, None, tiered
+        return BATCH, [_query_from_host(m, device) for m in body], tiered
+
+    # -- failures ------------------------------------------------------------
+
+    def _reports(self) -> list:
+        """(rank, message) of every rank that reported a lone failure."""
+        return [(r, self.store.get(f"failed/{r}").decode())
+                for r in self.ranks if self.store.check([f"failed/{r}"])]
+
+    def _report(self, exc: BaseException) -> None:
+        import torch.distributed as dist
+
+        self.store.set(f"failed/{dist.get_rank()}",
+                       f"{type(exc).__name__}: {exc}")
+        self.store.add(_FAILURES, 1)
+
+    def failed(self) -> bool:
+        return self.store.check([_FAILURES])
+
+    def session_error(self, exc: BaseException) -> MeshSessionError:
+        """First rank: the error that ends the session after ``exc``, which
+        no other rank shares. It names the rank that reported a lone
+        failure; with no report ``exc`` is this rank's own, which is
+        reported here so that the followers end."""
+        import torch.distributed as dist
+
+        reports = self._reports()
+        if not reports:
+            self._report(exc)
+            reports = [(dist.get_rank(), f"{type(exc).__name__}: {exc}")]
+        return MeshSessionError(*reports[0])
+
+    def fail(self, exc: BaseException):
+        """A follower whose batch raised what no other rank shares: report
+        it (unless another rank's report came first: this one is its
+        consequence), then end this process, which releases every peer
+        waiting on it in a collective. Never returns."""
+        if not self.failed():
+            self._report(exc)
+        _end_process()
+
+    @contextlib.contextmanager
+    def watchdog(self):
+        """Within the block, a thread ends this follower's process as soon
+        as any rank has reported a lone failure: the first rank stops
+        sending, and this rank may be waiting on it in a collective."""
+        done = threading.Event()
+
+        def watch():
+            while not done.wait(WATCH_INTERVAL_S):
+                if self.failed():
+                    _end_process()
+
+        t = threading.Thread(target=watch, name="batch-channel-watchdog",
+                             daemon=True)
+        t.start()
+        try:
+            yield
+        finally:
+            done.set()
+            t.join()
+
+
+def _end_process():
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(FAILED_EXIT)
 
 
 def _merge_shard_candidates(s_all: torch.Tensor, g_all: torch.Tensor, *,

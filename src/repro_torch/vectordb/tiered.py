@@ -38,10 +38,32 @@ Concurrency — the **epoch-swap protocol**:
 
 Every thread that drives the card here uses the current (default) stream,
 so the publish orders after every kernel that built the new cold state.
+
+Over a mesh of more than one rank (``BoomHQ.bind_shards(mesh=...)``) the
+first rank owns ingest and every epoch cut; the others replay them:
+
+* the first rank's table keeps a **log** (``lead``) of each compaction's
+  start (its rows ``[a, b)``, sequence number and re-cluster decision) and
+  each publish, each at the row count when it happened. A snapshot records
+  the log's length when it was published, so ``stamp`` and ``log_pos`` of
+  a snapshot name one instant of the ingest. ``delta(snap)`` is what a
+  follower lacks up to that instant: the log since the last delta and the
+  rows inserted since, read back as host arrays;
+* a follower (``hold`` .. ``end_follow``) writes those rows at their global
+  ids through ``insert`` and, at each compaction start, seals exactly the
+  rows named (a partial generation too) and compacts them on its own
+  thread; a publish waits until the first rank's log has published that
+  epoch, so a follower never runs ahead of the batch it serves
+  (``snapshot_for(stamp)`` waits for the stamp's epoch and raises if it
+  cannot reach it);
+* ``row_multiple``: a compaction that would leave a cold row count the
+  mesh's shards do not divide raises before it seals anything, and the
+  rows stay hot.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import threading
 import time
 from typing import Callable, Optional
@@ -148,6 +170,8 @@ class TieredSnapshot:
     epoch: int
     cold: ColdState
     hot_views: tuple  # 0..2 HotView (active [+ sealing during compaction])
+    # the first rank's ingest log length at this publish (TieredTable.lead)
+    log_pos: int = 0
 
     @property
     def n_hot(self) -> int:
@@ -157,6 +181,28 @@ class TieredSnapshot:
     def n_rows(self) -> int:
         """Logical row count (cold + every hot view)."""
         return self.cold.table.n_rows + self.n_hot
+
+    @property
+    def stamp(self) -> tuple:
+        """``(epoch, cold rows, rows)``: what every rank of a mesh must
+        serve a batch on. The hot views follow from it and the ingest log:
+        a generation starts where the cold rows end."""
+        return (self.epoch, self.cold.table.n_rows, self.n_rows)
+
+
+def cold_digest(cold: ColdState) -> int:
+    """A 63-bit digest of a cold epoch's layouts: each IVF index's
+    ``sorted_rows`` and ``offsets``, the histograms' prefix counts and each
+    graph's ``neighbors``. Ranks that recomputed the same compactions hold
+    equal digests."""
+    h = hashlib.sha256()
+    parts = [x for idx in cold.indexes for x in (idx.sorted_rows,
+                                                 idx.offsets)]
+    parts.append(cold.hists.prefix)
+    parts += [g.neighbors for g in cold.graphs or ()]
+    for x in parts:
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return int.from_bytes(h.digest()[:8], "little") >> 1
 
 
 class _HotBuffer:
@@ -223,6 +269,19 @@ class TieredTable:
         self._compactions = 0
         self._inserted = 0
         self._rows_since_finetune = 0
+        # over a mesh: the cold row count must stay a multiple of this
+        self.row_multiple = 1
+        # the first rank's ingest log (lead): entries, the absolute index
+        # of entries[0], and the (log index, row count) sent so far
+        self._log: Optional[list] = None
+        self._log_base = 0
+        self._sent = (0, table.n_rows)
+        # a follower's session (hold .. end_follow): the highest epoch it
+        # may publish, the last compaction a log entry started, and a
+        # failure of its own compaction
+        self._gate: Optional[int] = None
+        self._follow_seq = 0
+        self._failure: Optional[BaseException] = None
         self._snap = self._build_snapshot()
 
     # -- the one sanctioned read path --------------------------------------
@@ -240,8 +299,9 @@ class TieredTable:
             views.append(self._sealing)
         if self._hot.count > 0:
             views.append(self._hot.view())
+        log_pos = 0 if self._log is None else self._log_base + len(self._log)
         return TieredSnapshot(epoch=self._epoch, cold=self._cold,
-                              hot_views=tuple(views))
+                              hot_views=tuple(views), log_pos=log_pos)
 
     def _publish_locked(self) -> None:
         self._snap = self._build_snapshot()
@@ -280,13 +340,21 @@ class TieredTable:
                         break
                     continue
                 # active generation full and rows remain: make room
-                if self._compacting:
+                if self._compacting or self._follow_pending_locked():
                     # backpressure: the in-flight compaction publishes soon
                     self._cond.wait(timeout=30.0)
                     continue
                 if self._sealing is None:
                     self._seal_locked()
                     continue
+                if self._gate is not None:  # a follower compacts by the log
+                    raise RuntimeError(
+                        f"a follower's rows outran its compactions: sealed "
+                        f"rows [{self._sealing.id_offset}, "
+                        f"{self._sealing.id_offset + self._sealing.count}) "
+                        f"have no compaction started"
+                        + ("" if self._failure is None else
+                           f" (its compaction failed: {self._failure!r})"))
                 run_inline = True  # sealed segment pending, no worker
             if run_inline:
                 self.compact()
@@ -312,24 +380,36 @@ class TieredTable:
         """Fold the sealed hot generation into the cold state and publish
         under a new epoch. The heavy work (append, cluster assignment,
         histogram re-bin, graph extension, the owner's callback) runs
-        OUTSIDE the lock; in-flight batches keep their snapshot."""
+        OUTSIDE the lock; in-flight batches keep their snapshot. A
+        compaction that would leave a cold row count ``row_multiple`` does
+        not divide raises ``ValueError`` before it seals anything."""
         t_start = time.perf_counter()
         with self._cond:
             if self._compacting:
                 return {"compacted": 0, "epoch": self._epoch}
-            if self._sealing is None:
-                if self._hot.count == 0:
-                    return {"compacted": 0, "epoch": self._epoch}
-                self._seal_locked()
-            frozen = self._sealing
-            cold = self._cold
+            if self._sealing is None and self._hot.count == 0:
+                return {"compacted": 0, "epoch": self._epoch}
+            rows = self._hot.count if self._sealing is None \
+                else self._sealing.count
+            after = self._cold.table.n_rows + rows
+            if after % self.row_multiple:
+                raise ValueError(
+                    f"compacting {rows} hot rows would leave {after} cold "
+                    f"rows, which {self.row_multiple} mesh shards do not "
+                    f"divide; the rows stay hot")
             # the rebuild_every decision is a function of WHICH compaction
             # this is: its sequence number is taken under the lock at seal
             # time, so a concurrent compaction can neither skip nor double
             # the re-cluster
             seq = self._compactions + 1
+            rebuild = self.rebuild_every > 0 and seq % self.rebuild_every == 0
+            first = self._cold.table.n_rows
+            self._log_locked("compact", first, after, seq, rebuild)
+            if self._sealing is None:
+                self._seal_locked()
+            frozen = self._sealing
+            cold = self._cold
             self._compacting = True
-        rebuild = self.rebuild_every > 0 and seq % self.rebuild_every == 0
         try:
             n = frozen.count
             first_new = cold.table.n_rows
@@ -360,22 +440,175 @@ class TieredTable:
                 with self._cond:
                     self._rows_since_finetune = max(
                         0, self._rows_since_finetune - n)
-        except BaseException:
+        except BaseException as exc:
             with self._cond:  # leave the sealed segment intact for a retry
                 self._compacting = False
+                if self._gate is not None:
+                    self._failure = exc
                 self._cond.notify_all()
             raise
         with self._cond:
+            # a follower publishes an epoch once the first rank's log has
+            while self._gate is not None and self._gate <= self._epoch:
+                self._cond.wait()
             self._cold = new_cold
             self._sealing = None
             self._epoch += 1
             self._compactions += 1
             self._compacting = False
+            self._log_locked("publish", self._epoch)
             self._publish_locked()
             self._cond.notify_all()
             epoch = self._epoch
         return {"compacted": n, "epoch": epoch, "rebuild": rebuild,
                 "seconds": time.perf_counter() - t_start}
+
+    # -- the first rank's ingest log (a mesh of more than one rank) ---------
+
+    def lead(self) -> None:
+        """Keep the ingest log from here on: this table's rows and epoch
+        cuts are the ones every other rank of the mesh replays."""
+        with self._cond:
+            if self._log is None:
+                self._log, self._log_base = [], 0
+                self._sent = (0, self._snap.n_rows)
+
+    def _log_locked(self, kind: str, *body) -> None:
+        if self._log is not None:
+            self._log.append((kind, self._snap.n_rows) + body)
+            # the same snapshot, its log position past the entry, so the
+            # next batch cut carries it (a compaction start seals nothing
+            # when its generation was sealed full)
+            self._snap = dataclasses.replace(
+                self._snap, log_pos=self._log_base + len(self._log))
+
+    def delta(self, snap: TieredSnapshot) -> dict:
+        """What a follower lacks to serve on ``snap`` (a snapshot this
+        table published since ``lead``, no older than the last one passed
+        here): its stamp, the log entries up to its publish and the rows
+        inserted up to its row count since the last delta, as host arrays
+        (hot rows from their buffers, rows compacted since from the cold
+        table). Entries logged after ``snap`` ride on a later delta."""
+        with self._cond:
+            pos, lo = self._sent
+            hi = snap.n_rows
+            if self._log is None or snap.log_pos < pos or hi < lo:
+                raise ValueError(f"snapshot {snap.stamp} at log position "
+                                 f"{snap.log_pos} is older than the last "
+                                 f"sent ({pos}, {lo}) or not led here")
+            events = self._log[pos - self._log_base:
+                               snap.log_pos - self._log_base]
+            del self._log[: snap.log_pos - self._log_base]
+            self._log_base = snap.log_pos
+            self._sent = (snap.log_pos, hi)
+            latest = self._snap
+        vecs, scal = read_rows(latest, lo, hi)
+        return dict(stamp=snap.stamp, events=events, lo=lo, vectors=vecs,
+                    scalars=scal)
+
+    # -- a follower: the first rank's ingest, replayed -----------------------
+
+    def _follow_pending_locked(self) -> bool:
+        """A follower's compaction that a log entry started has not
+        published yet (its thread may not have begun)."""
+        return self._gate is not None and \
+            self._follow_seq > self._compactions and self._failure is None
+
+    def hold(self) -> None:
+        """Start a follower's session: from here on this table seals,
+        compacts and publishes only as the first rank's log says
+        (``follow``)."""
+        with self._cond:
+            self._gate = self._epoch
+            self._follow_seq = self._compactions
+            self._failure = None
+
+    def follow(self, delta: dict, start_compaction: Callable) -> None:
+        """Apply one ``delta`` of the first rank: its rows at their global
+        ids through ``insert``, each logged event at the row count where it
+        happened. At a compaction start the rows ``[a, b)`` it names are
+        sealed here (a partial generation too) and
+        ``start_compaction()`` runs ``compact`` on the follower's own
+        thread; a publish lets that epoch publish here."""
+        lo, vecs, scal = delta["lo"], delta["vectors"], delta["scalars"]
+        with self._cond:
+            have = self._snap.n_rows
+        if have != lo:
+            raise RuntimeError(f"a follower holding {have} rows was sent "
+                               f"rows from {lo}")
+        done = lo
+
+        def write_to(pos):
+            nonlocal done
+            if pos > done:
+                self.insert([v[done - lo: pos - lo] for v in vecs],
+                            scal[done - lo: pos - lo])
+                done = pos
+
+        for kind, pos, *body in delta["events"]:
+            write_to(pos)
+            if kind == "publish":
+                with self._cond:
+                    self._gate = max(self._gate, body[0])
+                    self._cond.notify_all()
+                continue
+            a, b, seq, rebuild = body
+            with self._cond:
+                if seq <= self._follow_seq:
+                    continue  # the first rank's retry of a failed start
+                if rebuild != (self.rebuild_every > 0
+                               and seq % self.rebuild_every == 0):
+                    raise RuntimeError(f"compaction {seq}'s re-cluster "
+                                       f"decision differs from the first "
+                                       f"rank's ({rebuild})")
+                while self._sealing is not None and \
+                        self._follow_pending_locked():
+                    self._cond.wait()
+                if self._failure is not None:
+                    raise RuntimeError("a follower's compaction failed") \
+                        from self._failure
+                if self._sealing is None and self._hot.id_offset == a \
+                        and self._hot.count == b - a:
+                    self._seal_locked()
+                got = None if self._sealing is None else (
+                    self._sealing.id_offset,
+                    self._sealing.id_offset + self._sealing.count)
+                if got != (a, b):
+                    raise RuntimeError(f"compaction {seq} of rows [{a}, {b})"
+                                       f" finds {got} sealed on a follower")
+                self._follow_seq = seq
+            start_compaction()
+        write_to(lo + int(scal.shape[0]))
+
+    def snapshot_for(self, stamp: tuple) -> TieredSnapshot:
+        """The snapshot a follower serves a batch stamped ``stamp`` on,
+        once its own compaction has reached the stamp's epoch (the log has
+        let none beyond it publish). Raises when this table cannot reach
+        the stamp: a compaction of its own failed, or its rows differ."""
+        epoch = stamp[0]
+        with self._cond:
+            while self._epoch < epoch and self._follow_pending_locked():
+                self._cond.wait()
+            snap, failure = self._snap, self._failure
+        if failure is not None:
+            raise RuntimeError(f"a follower cannot reach the stamp {stamp}: "
+                               f"its compaction failed") from failure
+        if snap.stamp != tuple(stamp):
+            raise RuntimeError(f"a follower holds {snap.stamp} where the "
+                               f"first rank stamped {tuple(stamp)}")
+        return snap
+
+    def end_follow(self, delta: dict, start_compaction: Callable
+                   ) -> TieredSnapshot:
+        """The follower's session ends on the first rank's final stamp:
+        apply the last ``delta``, wait out the compaction in flight, and
+        return the snapshot at that stamp."""
+        self.follow(delta, start_compaction)
+        snap = self.snapshot_for(delta["stamp"])
+        with self._cond:
+            self._gate = None
+            self._cond.notify_all()
+        return snap
 
     # -- accounting ---------------------------------------------------------
 
@@ -415,6 +648,33 @@ class TieredTable:
                     for a, b in zip(vecs, view.np_vectors)]
             scal = np.concatenate([scal, view.np_scalars[: view.count]])
         return Table.from_numpy(t.schema, vecs, scal, device=t.device)
+
+
+def read_rows(snap: TieredSnapshot, lo: int, hi: int) -> tuple:
+    """Rows ``[lo, hi)`` of a snapshot (cold rows, then its hot views) as
+    host arrays: -> (per-column (hi - lo, d_i) f32, (hi - lo, M) f32)."""
+    t = snap.cold.table
+    nc = t.n_rows
+    parts = []
+    if lo < nc:
+        top = min(hi, nc)
+        parts.append(([v[lo: top].cpu().numpy() for v in t.vectors],
+                      t.scalars[lo: top].cpu().numpy()))
+    for view in snap.hot_views:
+        a = max(lo, view.id_offset) - view.id_offset
+        b = min(hi, view.id_offset + view.count) - view.id_offset
+        if a < b:
+            parts.append(([x[a: b] for x in view.np_vectors],
+                          view.np_scalars[a: b]))
+    vecs = [np.concatenate([p[0][i] for p in parts]
+                           or [np.zeros((0, vc.dim), np.float32)])
+            for i, vc in enumerate(t.schema.vector_cols)]
+    scal = np.concatenate([p[1] for p in parts]
+                          or [np.zeros((0, t.schema.n_scalar), np.float32)])
+    if scal.shape[0] != hi - lo:
+        raise ValueError(f"rows [{lo}, {hi}) are not all in the snapshot "
+                         f"{snap.stamp}")
+    return vecs, scal
 
 
 # ---------------------------------------------------------------------------

@@ -430,10 +430,12 @@ def test_one_rank_mesh_matches_jax_one_device_mesh(pair, monkeypatch,
 def test_bind_shards_refuses_a_mesh(pair):
     """What ``bind_shards(mesh=)`` refuses: an object that is not a
     ``DeviceMesh`` (``TypeError``), rows that do not divide over its ranks
-    (``ValueError``), and, over more than one rank, tiered ingest (queued
-    in ROADMAP) and the async front-end anywhere but on the first rank
-    (``ValueError`` naming ``serve_follower``, which the other ranks run);
-    one rank keeps them."""
+    (``ValueError``), and, over more than one rank, the async front-end
+    anywhere but on the first rank (``ValueError`` naming
+    ``serve_follower``, which the other ranks run). Tiered ingest binds
+    over more than one rank, on every rank, with a ``hot_capacity`` its
+    shards divide (``ValueError`` otherwise); ``insert`` belongs to the
+    first rank."""
     from test_torch_mesh import fake_mesh
 
     from repro_torch.serve.queue import AsyncServingEngine, serve_follower
@@ -450,22 +452,25 @@ def test_bind_shards_refuses_a_mesh(pair):
         try:
             tbq.bind_shards(mesh=mesh)
             assert tbq._batched_executor().rows == (1000, 1500)
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tbq.bind_tiered(64)
+            with pytest.raises(ValueError, match="not divisible"):
+                tbq.bind_tiered(66)
+            assert tbq.bind_tiered(64).tiered.row_multiple == 4
+            with pytest.raises(ValueError, match="first rank"):
+                tbq.insert([v.numpy()[:4] for v in tbq.table.vectors],
+                           tbq.table.scalars.numpy()[:4])
             with pytest.raises(ValueError, match="serve_follower"):
                 AsyncServingEngine(tbq)
         finally:
-            tbq.bind_shards()
+            tbq.unbind_tiered().bind_shards()
     with fake_mesh(4, rank=0) as mesh:
         try:
             tbq.bind_shards(mesh=mesh)
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tbq.bind_tiered(64)
+            assert tbq.bind_tiered(64).tiered.snapshot().log_pos == 0
             with pytest.raises(ValueError, match="first runs"):
                 serve_follower(tbq)
             assert AsyncServingEngine(tbq).bq is tbq
         finally:
-            tbq.bind_shards()
+            tbq.unbind_tiered().bind_shards()
     assert tbq.tiered is None and tbq.n_shards == 1
 
 

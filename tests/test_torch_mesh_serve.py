@@ -24,6 +24,13 @@ under the default cost model, and runs these sessions in order:
 * **idle:** in a second world whose process-group timeout is a few
   seconds, a pause in traffic longer than it, then one more batch.
 
+A second set of four rank processes (``faulted``) plants a fault in rank
+2's ``execute_batch_sharded``, after the plan broadcast, in a world whose
+process-group timeout is 60 s: the first rank's ``submit`` must raise
+within 10 s naming rank 2, every later request must fail alike, and every
+rank process must end long before the timeout (the followers with
+``distributed.FAILED_EXIT``).
+
 Meanwhile the test process serves the same streams through the port's
 one-process engine and JAX's engine, both over logical ``bind_shards(4)``
 on the same state. Every follower must equal the first rank batch for
@@ -64,6 +71,10 @@ IDLE_TIMEOUT_S = 5  # the idle case's process-group timeout
 IDLE_GAP_S = 7.0  # longer than it
 TIMEOUT_S = 300  # a rank process's whole run
 PLANTED = "planted planning fault"
+PLANTED_ALONE = "planted fault on one follower"
+FAULTY = 2  # the follower that fails alone
+FAULT_TIMEOUT_S = 60  # the faulted world's process-group timeout
+FAULT_NOTICE_S = 10  # the first rank's submit raises within this
 SCORE_TOL = dict(atol=1e-5, rtol=0)
 # (held query, tenant) of each request. The first stream's last two repeat
 # two of its own (both miss: all are submitted before any batch runs); the
@@ -284,6 +295,55 @@ def _rank(r: int, d: str) -> None:
         pickle.dump(out, f)
 
 
+def _fault_rank(r: int, d: str) -> None:
+    """One rank of the faulted world: rank ``FAULTY`` raises in its
+    executor after the plans arrive; the others serve as usual. Only the
+    first rank returns (its record in ``fault0.pkl``); the followers'
+    processes end in ``serve_follower``."""
+    from repro_torch import convert
+    from repro_torch.serve import batch as batchmod
+    from repro_torch.serve.queue import AsyncServingEngine, serve_follower
+    from repro_torch.vectordb.distributed import MeshSessionError
+
+    torch.set_num_threads(1)
+    with open(f"{d}/inputs.pkl", "rb") as f:
+        x = pickle.load(f)
+    bq = convert.boomhq(x["table"], x["cfg"], x["state"]).bind_tenants(
+        "tenant")
+    held = x["held"]
+    with _world(f"{d}/store_fault", r, FAULT_TIMEOUT_S) as mesh:
+        bq.bind_shards(mesh=mesh)
+        if r == FAULTY:
+            def planted(self, *a, **kw):
+                raise RuntimeError(PLANTED_ALONE)
+
+            batchmod.BatchedHybridExecutor.execute_batch_sharded = planted
+        if r != 0:
+            serve_follower(bq)
+            raise AssertionError("serve_follower returned after a failure")
+        eng = AsyncServingEngine(bq, batch_size=1, max_wait=0.0)
+
+        async def main():
+            out = {}
+            async with eng:
+                for name, q in (("first", held[0]), ("later", held[1])):
+                    t = time.monotonic()
+                    out[f"{name}_at"] = time.time()
+                    try:
+                        await eng.submit(q)
+                        out[name] = None
+                    except MeshSessionError as exc:
+                        out[name] = (exc.rank, str(exc))
+                    out[f"{name}_s"] = time.monotonic() - t
+                t = time.monotonic()
+            out["stop_s"] = time.monotonic() - t
+            return out
+
+        out = asyncio.run(main())
+    with open(f"{d}/fault0.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
 # ---------------------------------------------------------------------------
 # the module fixture: the ranks, and beside them the two references
 # ---------------------------------------------------------------------------
@@ -399,7 +459,41 @@ def served(tmp_path_factory):
     for r in range(N_RANKS):
         with open(f"{d}/rank{r}.pkl", "rb") as f:
             out.append(pickle.load(f))
-    return dict(ranks=out, one_process=one, jax=jax_out)
+    return dict(ranks=out, one_process=one, jax=jax_out, dir=d, env=env)
+
+
+@pytest.fixture(scope="module")
+def faulted(served):
+    """The faulted world's four rank processes: the first rank's record,
+    each process's exit code and the wall-clock instant it was seen to
+    end."""
+    d, me = served["dir"], os.path.abspath(__file__)
+    logs = [open(f"{d}/fault{r}.log", "w") for r in range(N_RANKS)]
+    ranks = [subprocess.Popen([sys.executable, me, "fault", str(r), d],
+                              env=served["env"], stdout=logs[r],
+                              stderr=subprocess.STDOUT)
+             for r in range(N_RANKS)]
+    ended = [None] * N_RANKS
+    try:
+        deadline = time.monotonic() + TIMEOUT_S
+        while None in ended and time.monotonic() < deadline:
+            for r, p in enumerate(ranks):
+                if ended[r] is None and p.poll() is not None:
+                    ended[r] = time.time()
+            time.sleep(0.05)
+    finally:
+        for p in ranks:
+            p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    text = [open(f"{d}/fault{r}.log").read()[-3000:] for r in range(N_RANKS)]
+    assert None not in ended, f"rank processes outlived {TIMEOUT_S} s: {text}"
+    assert ranks[0].returncode == 0, text[0]
+    with open(f"{d}/fault0.pkl", "rb") as f:
+        first = pickle.load(f)
+    return dict(first=first, codes=[p.returncode for p in ranks],
+                ended=ended, logs=text)
 
 
 # ---------------------------------------------------------------------------
@@ -542,6 +636,28 @@ def test_idle_gap_past_the_group_timeout(served):
         _assert_same_batches([followed], front, f"rank {r}")
 
 
+def test_a_follower_failing_alone_ends_the_session_promptly(faulted):
+    """A fault on rank 2 after the plan broadcast, with a 60 s process-group
+    timeout: the first rank's ``submit`` raises within 10 s a
+    ``MeshSessionError`` naming rank 2 (the planted message with it), the
+    next request fails alike at once, ``stop`` returns at once, and every
+    follower process ends with ``FAILED_EXIT`` long before the timeout."""
+    from repro_torch.vectordb.distributed import FAILED_EXIT
+
+    first = faulted["first"]
+    rank, text = first["first"]
+    assert rank == FAULTY and f"rank {FAULTY}" in text and \
+        PLANTED_ALONE in text
+    assert first["first_s"] < FAULT_NOTICE_S
+    assert first["later"] is not None and first["later"][0] == FAULTY
+    assert first["later_s"] < 1.0 and first["stop_s"] < 5.0
+    assert faulted["codes"][1:] == [FAILED_EXIT] * (N_RANKS - 1), \
+        faulted["logs"]
+    for r in range(1, N_RANKS):
+        assert faulted["ended"][r] - first["first_at"] < \
+            FAULT_TIMEOUT_S / 3, (r, faulted["logs"][r])
+
+
 # ---------------------------------------------------------------------------
 # the channel's parts, in this process
 # ---------------------------------------------------------------------------
@@ -608,4 +724,7 @@ def test_a_planning_failure_travels_as_itself_or_by_name():
 
 
 if __name__ == "__main__":
-    _rank(int(sys.argv[1]), sys.argv[2])
+    if sys.argv[1] == "fault":
+        _fault_rank(int(sys.argv[2]), sys.argv[3])
+    else:
+        _rank(int(sys.argv[1]), sys.argv[2])

@@ -5,7 +5,9 @@ wrong id from the exact route; an S=1 result differing from the unsharded
 one; gather launches per probing chunk growing with the shard count;
 phase 11: a mesh pass whose ranks were gathered in reverse order, whose
 shard left its ids local, or whose escalated queries or scores differ
-from the logical shards'; phase 12 (c): a sync in a hot function that no
+from the logical shards'; phase 11 (d): a follower's result that differs,
+a batch run on a snapshot other than its stamp, a missed hot row, unequal
+cold-state digests, a replayed batch with an untied id; phase 12 (c): a sync in a hot function that no
 static finding covers, raised there or in a helper that is not listed;
 phase 13: a logit outside the tolerance; phase 14: decode logits outside
 the tolerance of the full forward's), phases 13 and 14 walked end to end
@@ -522,6 +524,122 @@ def test_snapshot_topk_is_the_tiered_oracle(smoke, tenant_part):
                                    atol=1e-4)
         hot_seen += int((i >= 300).sum())
     assert hot_seen > 0
+
+
+def _tiered_log(smoke):
+    """A first rank's two sessions (one batch each) and a follower that ran
+    them alike."""
+    res = [(np.array([3, 9, -1]), np.array([2.0, 1.5, NEG], np.float32))]
+    warm = [dict(stamp=(0, 8, 8), results=res, status=["ok"])]
+    batches = [dict(stamp=(0, 8, 10), results=res, status=["ok"]),
+               dict(stamp=(1, 12, 12), results=res, status=["ok"])]
+    front = dict(warm=warm, batches=batches, final=(1, 12, 12))
+    followed = [dict(results=[[_copy_res(r) for r in res]], errors={},
+                     stamps=[(0, 8, 8)], final=(0, 8, 8)),
+                dict(results=[[_copy_res(r) for r in res]] * 2, errors={},
+                     stamps=[(0, 8, 10), (1, 12, 12)], final=(1, 12, 12))]
+    return front, followed
+
+
+def _copy_res(r):
+    return (r[0].copy(), r[1].copy())
+
+
+@pytest.mark.parametrize("fault", [None, "result", "stamp", "final",
+                                   "error"])
+def test_tiered_follower_check(smoke, fault):
+    """Phase 11 (d): a follower equal to the first rank batch for batch, on
+    the same stamps, ending on its final stamp, passes; a differing
+    result, a batch run on a snapshot other than its stamp, another final
+    stamp or a failed batch is refused."""
+    front, followed = _tiered_log(smoke)
+    if fault == "result":
+        followed[1]["results"][1] = [(np.array([3, 8, -1]),
+                                      followed[1]["results"][1][0][1])]
+    elif fault == "stamp":
+        followed[1]["stamps"][0] = (0, 8, 9)
+    elif fault == "final":
+        followed[1]["final"] = (1, 12, 13)
+    elif fault == "error":
+        followed[1]["errors"] = {0: "RuntimeError('x')"}
+    if fault is None:
+        assert smoke.check_tiered_followers(front, followed, "x") == 3
+    else:
+        with pytest.raises(AssertionError, match="x"):
+            smoke.check_tiered_followers(front, followed, "x")
+
+
+@pytest.mark.parametrize("fault", [None, "digest", "rows", "epochs"])
+def test_tiered_digest_check(smoke, fault):
+    """Phase 11 (d): every rank's epochs on the same rows with equal
+    cold-state digests pass; an unequal digest, other rows or a missing
+    epoch on one rank is refused."""
+    recs = [[dict(epoch=e, a=8 + 4 * e, b=12 + 4 * e, digest=100 + e)
+             for e in (1, 2)] for _ in range(4)]
+    if fault == "digest":
+        recs[2][1] = dict(recs[2][1], digest=7)
+    elif fault == "rows":
+        recs[3][0] = dict(recs[3][0], b=13)
+    elif fault == "epochs":
+        recs[1] = recs[1][:1]
+    if fault is None:
+        assert smoke.check_digests(recs, "x") == 2
+    else:
+        with pytest.raises(AssertionError, match="x"):
+            smoke.check_digests(recs, "x")
+
+
+@pytest.mark.parametrize("fault", [None, "untied_id", "score"])
+def test_tiered_replay_check(smoke, fault):
+    """A replayed batch equal to the mesh's, or differing only between tied
+    slots, passes; an untied id or a score beyond 1e-5 is refused."""
+    want = [(np.array([4, 5, 6]), np.array([3.0, 2.0, 2.0], np.float32))]
+    got = [(np.array([4, 6, 5]), np.array([3.0, 2.0, 2.0], np.float32))]
+    if fault == "untied_id":
+        got = [(np.array([5, 4, 6]), want[0][1].copy())]
+    elif fault == "score":
+        got = [(want[0][0].copy(), want[0][1] + np.float32(1e-3))]
+    if fault is None:
+        assert smoke.check_replayed(got, want, "x") == 2
+    else:
+        with pytest.raises(AssertionError, match="x"):
+            smoke.check_replayed(got, want, "x")
+
+
+def test_tiered_hot_row_check_on_a_snapshot(smoke, tenant_part):
+    """Phase 11 (d)'s oracle check on a snapshot with two hot views: the
+    oracle's own results pass; the same results with a hot row of some
+    top-k replaced by the next row down are refused; a replayed snapshot
+    stands at its stamp, and refuses another."""
+    from repro_torch.vectordb import histogram, ivf
+    from repro_torch.vectordb.predicates import fold_conjunct
+    from repro_torch.vectordb.tiered import TieredTable
+
+    t, qs = tenant_part
+    tt = TieredTable(t, [ivf.build(v, 4) for v in t.vectors],
+                     histogram.build(t.scalars), hot_capacity=40)
+    rows = smoke.tenant_skewed_insert(t, 50, 5)
+    tt.insert(*rows)
+    snap = tt.snapshot()
+    folded = [dataclasses.replace(q, predicates=fold_conjunct(
+        q.predicates, 4, float(q.tenant_id), float(q.tenant_id)))
+        for q in qs[:20]]
+    ids, scores = smoke.snapshot_topk(snap, folded)
+    served = [(i.copy(), s.copy()) for i, s in zip(ids, scores)]
+    assert smoke.check_hot_rows(snap, folded, served, "x") > 0
+    j = next(j for j, i in enumerate(ids) if (i[:-1] >= 300).any())
+    p = int(np.flatnonzero(ids[j][:-1] >= 300)[0])
+    bad = [(i.copy(), s.copy()) for i, s in served]
+    bad[j][0][p:-1], bad[j][1][p:-1] = ids[j][p + 1:], scores[j][p + 1:]
+    with pytest.raises(AssertionError, match="miss"):
+        smoke.check_hot_rows(snap, folded, bad, "x")
+    again = smoke.replay_snapshot(
+        tt, snap.stamp, [(v.id_offset, v.count) for v in snap.hot_views],
+        rows, 300)
+    assert smoke.check_hot_rows(again, folded, served, "x") > 0
+    with pytest.raises(AssertionError, match="stamp"):
+        smoke.replay_snapshot(tt, (0, 300, 350), [(300, 40), (340, 9)],
+                              rows, 300)
 
 
 @pytest.mark.parametrize("epochs,final,ok", [

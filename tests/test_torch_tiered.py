@@ -20,7 +20,9 @@ inserts. In definition order (the tests share the two instances):
   at seal time; publishing a view costs no device transfer; compaction
   runs in the background under the async engine with every request
   served, and ``unbind_tiered`` folds leftover hot rows in;
-* under ``bind_shards(2)`` an empty hot segment still changes nothing.
+* under ``bind_shards(2)`` an empty hot segment still changes nothing,
+  and under ``bind_shards(4)`` hot rows and their compaction serve JAX's
+  results.
 """
 import asyncio
 
@@ -244,6 +246,39 @@ def test_sharded_empty_hot_parity(pair):
         jbq.bind_shards(1)
     for (bi, bs), (ti, ts) in zip(base, got):
         assert np.array_equal(bi, ti) and np.array_equal(bs, ts)
+
+
+def test_sharded_hot_rows_and_compaction_match_jax(pair):
+    """Under ``bind_shards(4)`` with rows hot, then after a compaction swaps
+    them cold: the port serves JAX's results (scores to ``atol=1e-4``, a
+    differing id only on a float tie) on both sides of the swap, and every
+    hot row of the oracle's top-k first (recall ≥ 0.9) — the one-process
+    baseline a mesh of four ranks is held to."""
+    jbq, tbq, jheld, theld = pair
+    jbq.unbind_tiered()  # its hot segment is empty (the test above)
+    for bq in (jbq, tbq):
+        bq.bind_tiered(hot_capacity=64).bind_shards(4)
+    try:
+        vecs, scal = _fresh_rows(40, seed=24)
+        for bq in (jbq, tbq):
+            bq.insert(vecs, scal)
+        snap = tbq.tiered.snapshot()
+        assert (snap.n_hot, snap.epoch) == (40, jbq.tiered.epoch)
+        got = tbq.execute_batch(theld[:8])
+        assert tbq._batched_executor().n_shards == 4
+        _same_all(got, jbq.execute_batch(jheld[:8]))
+        assert _union_recall(snap, theld[:8], got) >= 0.9
+        out, jout = tbq.tiered.compact(), jbq.tiered.compact()
+        assert (out["compacted"], out["epoch"]) == \
+            (jout["compacted"], jout["epoch"]) == (40, snap.epoch + 1)
+        after = tbq.tiered.snapshot()
+        assert not after.hot_views and after.n_rows == snap.n_rows
+        got = tbq.execute_batch(theld[:8])
+        _same_all(got, jbq.execute_batch(jheld[:8]))
+        assert _union_recall(snap, theld[:8], got) >= 0.9
+    finally:
+        for bq in (jbq, tbq):
+            bq.unbind_tiered().bind_shards(1)
 
 
 # -- 4: standalone claims of tests/test_tiered.py on the port ----------------
