@@ -263,6 +263,12 @@ Phases (any failure raises and exits non-zero):
      equal bit for bit, rows/s beside the bound; (e)
      ``launch.serve.main`` at ``stablelm-1.6b``'s full width (B=4, 32-token
      prompt, 16 steps) returns its tokens on the card;
+     (f) ``qwen3-14b`` at full width, bf16 compute on its f32 parameters
+     (each block cast at its use): ``greedy_generate`` with B=8, a
+     512-token prompt and 64 steps, its tokens in the vocab, its peak
+     memory beside the parameters' bytes and the whole-model bf16 copy
+     the serving steps no longer hold; it runs in a process of its own
+     right after phase 1;
  14. the SSM and hybrid language models (``models/mamba2.py``, ``lm``'s
      ``ssm`` and ``hybrid`` families; plain torch, no custom kernel), after
      phase 13: (a) ``mamba2`` and ``zamba2`` smoke configs in f32 on the
@@ -279,15 +285,38 @@ Phases (any failure raises and exits non-zero):
      read and written, the k/v rows; the prefill's bf16 products, f32 SSD
      contractions and attention scores, the larger); (d)
      ``launch.serve.main`` for both archs at full width returns its tokens
-     on the card.
+     on the card;
+ 15. the ``moe`` family (``models/moe.py``, ``moe_sharded.py``, MLA in
+     ``attention.py``, ``lm``'s dense prefix and MoE blocks; plain torch,
+     no custom kernel), in a process of its own right after phase 1 and
+     13 (f), each model freed before the next: (a) the ``deepseek-v3``
+     (MLA, MTP) and ``kimi-k2`` smoke configs in f32 on the card against
+     the CPU at their own capacity factor (the prompt drops): ``hidden``
+     and its aux, logits, every layer's cache (1e-4); and
+     ``moe_apply_sharded`` over four ``gloo`` ranks sharing the card on a
+     (data 2, model 2) mesh: at ``capacity_factor=8`` against one-process
+     ``moe_apply``, at 1.25 (the first data shard overflowing) against
+     the same ranks on the CPU; (b) ``deepseek-v3-671b`` at full width
+     cut to 4 layers (3 dense + 1 MoE) in f32 at ``capacity_factor`` E/k
+     = 32, where nothing can drop (at 8 the random router overfills an
+     expert, and the dropped share is printed):
+     its parameters beside ``n_params()`` (the MTP block's MoE FFN that it
+     counts, named), a B=2 × 128 prefill and four decode steps against
+     the full forward (atol 2e-2, rtol 2e-3), the first layer's absorbed
+     MLA decode against the expanded form; (c) ``deepseek-v3-671b`` (4
+     layers) and ``kimi-k2-1t-a32b`` (2 layers) in bf16 on bf16
+     parameters (``param_dtype="bfloat16"``, the router f32) at their own
+     capacity factor: ``greedy_generate`` with B=8, a 512-token prompt and
+     64 steps, timed as 13 (c), beside ``moe_bounds``, with the prompt's
+     ``moe_drop_frac``.
 
 The ``launches`` of the kernel report sum the main paths' counts (phase 4,
 7, 9, 10 and 11's serving passes, phase 11's ranks included, 11 (d)'s
 too, phase 8's
 searches for the gather kernels; phase 5 for the scans); phase 12 (b)'s
 are apart, as ``envelope_launches``; ``chip_smoke.json`` keeps each
-phase's apart. The phases run in the order 1, 2, 12 (a, b), 3, 4,
-12 (c), 5, 10, 11 (a–c), 6–8, 9 (a), 11 (d), 9 (b), 13, 14.
+phase's apart. The phases run in the order 1, 13 (f), 15, 2, 12 (a, b),
+3, 4, 12 (c), 5, 10, 11 (a–c), 6–8, 9 (a), 11 (d), 9 (b), 13 (a–e), 14.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -4209,7 +4238,10 @@ def param_count_gap(model) -> dict:
     """What the model holds beyond ``cfg.n_params()``, leaf by leaf: the
     padded vocab's rows of the embedding (and of an untied head), and the
     LayerNorm biases that ``n_params()`` leaves out ("bias ignored for
-    estimate")."""
+    estimate"); and, negative, what ``n_params()`` counts of the MTP block
+    beyond what it holds (``n_params()`` gives it the last layer's FFN, a
+    MoE one in the moe family, where ``lm.init`` gives it a dense FFN of
+    width ``dense_d_ff``)."""
     cfg = model.cfg
     pad = (cfg.vocab_padded - cfg.vocab) * cfg.d_model
     gap = {}
@@ -4218,6 +4250,12 @@ def param_count_gap(model) -> dict:
             gap[name] = pad
         elif name.endswith(".bias"):
             gap[name] = p.numel()
+    if cfg.mtp_depth:
+        d = cfg.d_model
+        counted = cfg.mtp_depth * (
+            cfg._attn_params() + cfg._ffn_params(cfg.n_layers - 1)
+            + 2 * d * cfg.d_model + 4 * d)
+        gap["mtp"] = sum(p.numel() for p in model.mtp.parameters()) - counted
     return gap
 
 
@@ -4284,8 +4322,9 @@ def timed_generation(cfg, device, *, b: int, prompt: int, steps: int,
     """The model of ``cfg`` in its own compute dtype, drawn on ``device``
     from seed 0: ``greedy_generate`` once (warm), then its loop again with
     a CUDA event after the prefill and after each step, read only after
-    the loop; the tokens must equal ``greedy_generate``'s; the peak memory
-    of both runs, the model included. The device's own time of a prefill
+    the loop (each block cast to the compute dtype at its use, as
+    ``greedy_generate`` does); the tokens must equal ``greedy_generate``'s;
+    the peak memory of both runs, the model included. The device's own time of a prefill
     and of a step (replayed from a CUDA graph, so without the host's
     enqueue) gives the step's idle share; one profile of each. -> (model,
     timings)."""
@@ -4302,9 +4341,8 @@ def timed_generation(cfg, device, *, b: int, prompt: int, steps: int,
     max_len = prompt + steps + 1
     ref = lm_serving.greedy_generate(model, batch, steps=steps,
                                      max_len=max_len)
-    blocks = lm.cast_blocks(model)
-    prefill = lm_serving.make_prefill_step(model, max_len, blocks)
-    decode = lm_serving.make_decode_step(model, blocks)
+    prefill = lm_serving.make_prefill_step(model, max_len)
+    decode = lm_serving.make_decode_step(model)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 2)]
     ev[0].record()
     logits, cache = prefill(batch)
@@ -4385,9 +4423,67 @@ def lm_generate_timed(device, *, smoke: bool = False, b: int = LM_BATCH,
         f"position {mid}); {out['decode_tokens_per_s']:.1f} tokens/s a step, "
         f"{out['tokens_per_s']:.1f} tokens/s with the prefill; peak memory "
         f"{out['peak_memory_bytes'] / 2**30:.2f} GiB above the earlier "
-        f"phases' (the model's f32 weights, the bf16 copy, the cache, the "
-        f"activations)")
+        f"phases' (the model's f32 weights, one block's bf16 cast at a "
+        f"time, the cache, the activations)")
     return out
+
+
+LM_F32_ARCH = "qwen3-14b"  # (f): f32 parameters near the card's size
+
+
+def lm_generate_f32_params(device, *, smoke: bool = False, b: int = LM_BATCH,
+                           prompt: int = LM_PROMPT, steps: int = LM_STEPS
+                           ) -> dict:
+    """(f) ``greedy_generate`` of ``qwen3-14b`` at full width (bf16 compute
+    on its f32 parameters, each block cast at its use): its tokens in the
+    vocab, its seconds and its peak memory beside the parameters' bytes and
+    the bf16 copy of every block that the serving steps once held beside
+    them (which, with the f32 parameters, passed the card's memory)."""
+    from repro_torch import configs
+    from repro_torch.common.device import synchronize
+    from repro_torch.models import lm, lm_serving
+
+    cfg = configs.get_config(LM_F32_ARCH, smoke=smoke)
+    if smoke:  # the full config's compute dtype on the f32 smoke one
+        cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    synchronize(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    model = lm.init(cfg, seed=0, device=device)
+    params_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    cast = lm.compute_dtype(cfg)
+    copy_bytes = sum(p.numel() * torch.finfo(cast).bits // 8
+                     for name in lm._stacks(model)
+                     for p in getattr(model, name).parameters())
+    toks = _lm_tokens(cfg, b, prompt, 19, device)
+    synchronize(device)
+    t = time.perf_counter()
+    out = lm_serving.greedy_generate(model, {"tokens": toks}, steps=steps,
+                                     max_len=prompt + steps + 1)
+    synchronize(device)
+    seconds = time.perf_counter() - t
+    peak = (torch.cuda.max_memory_allocated() - resident
+            if device.type == "cuda" else 0)
+    if tuple(out.shape) != (b, steps) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"phase 13 (f) {cfg.name}: tokens "
+                             f"{tuple(out.shape)} outside the vocab")
+    res = dict(config=cfg.name, dtype=cfg.dtype,
+               param_dtype=cfg.param_dtype, batch=b, prompt=prompt,
+               steps=steps, seconds=seconds, params_bytes=params_bytes,
+               whole_copy_bytes=copy_bytes, peak_memory_bytes=peak)
+    log(f"phase 13 (f) {cfg.name} {cfg.dtype} on {cfg.param_dtype} "
+        f"parameters: greedy_generate B={b}, {prompt}-token prompt, {steps} "
+        f"steps in {seconds:.2f} s with the first call; peak memory "
+        f"{peak / 2**30:.2f} GiB ({params_bytes / 2**30:.2f} GiB of "
+        f"parameters; a whole-model {cfg.dtype} copy of the blocks would "
+        f"add {copy_bytes / 2**30:.2f} GiB)")
+    del model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
 
 
 def lm_embed_phase(device, *, smoke: bool = False, rows: int = LM_EMBED_ROWS,
@@ -4628,6 +4724,496 @@ def ssm_phase(device, *, smoke: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the moe family (deepseek-v3 with MLA and MTP, kimi-k2)
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("deepseek-v3-671b", "kimi-k2-1t-a32b")
+# (a): tests/test_models.py's setting; at the smoke size (8 experts, top 2)
+# C = S·k/E·8 >= S, so nothing can drop
+MOE_CHECK_CF = 8.0
+MOE_CHECK_B, MOE_CHECK_PROMPT = 2, 128  # (b): beside 63.2 GB of f32 weights
+MOE_MESH = (2, 2)  # (a): the (data, model) grid of the sharded MoE
+MOE_SHARD_B, MOE_SHARD_S = 4, 16
+
+
+def moe_depth_cut(cfg):
+    """Full width, the depth cut to the dense prefix and one MoE block."""
+    return dataclasses.replace(cfg, n_layers=cfg.first_k_dense + 1)
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _held_tree(got, want, label: str) -> float:
+    """``_held`` leaf by leaf (every layer of a stacked cache at once)."""
+    if isinstance(want, dict):
+        return max(_held_tree(got[k], want[k], f"{label} {k}") for k in want)
+    return _held(got, want, LM_ATOL, LM_RTOL, label)
+
+
+def moe_parity(arch: str, device, *, b: int = 2, prompt: int = 32,
+               steps: int = 4) -> dict:
+    """(a) One moe smoke config in f32 (its own capacity factor, 1.25, so
+    the prefill drops) on the card and on the CPU with the same
+    parameters: ``hidden`` and its aux, the prefill's and every decode
+    step's logits, every layer's cache after the prefill and after the
+    steps, within LM_ATOL/LM_RTOL; ``greedy_generate``'s tokens equal."""
+    from repro_torch import configs
+    from repro_torch.models import lm, lm_serving
+
+    cfg = configs.get_config(arch, smoke=True)
+    if cfg.dtype != "float32" or cfg.family != "moe":
+        raise AssertionError(f"{cfg.name} is not an f32 moe config")
+    cpu = lm.init(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to(device)
+    toks = _lm_tokens(cfg, b, prompt + steps, 23, "cpu")
+    runs = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        t = toks.to(model.device)
+        batch = {"tokens": t[:, :prompt]}
+        h, aux = lm.hidden(model, batch, with_aux=True)
+        logits, cache = lm.prefill(model, batch, prompt + steps + 1)
+        caches, outs = [_clone_tree(cache)], [logits]
+        for i in range(steps):
+            logits, cache = lm.decode_step(model, {"token": t[:, prompt + i]},
+                                           prompt + i, cache)
+            outs.append(logits)
+        caches.append(cache)
+        gen = lm_serving.greedy_generate(model, batch, steps=2 * steps,
+                                         max_len=prompt + 2 * steps + 1)
+        runs[name] = (h, aux, torch.stack(outs, 1), caches, gen)
+    (h_c, a_c, l_c, c_c, g_c), (h_d, a_d, l_d, c_d, g_d) = (runs["cpu"],
+                                                            runs["card"])
+    if h_d.device.type != device.type:
+        raise AssertionError(f"phase 15 (a): hidden ran on {h_d.device}")
+    label = f"15 (a) {cfg.name}"
+    out = dict(
+        arch=cfg.name,
+        hidden_max_abs_err=_held(h_d, h_c, LM_ATOL, LM_RTOL,
+                                 f"{label} hidden"),
+        aux_max_abs_err=_held_tree(a_d, a_c, f"{label} aux"),
+        logits_max_abs_err=_held(l_d, l_c, LM_ATOL, LM_RTOL,
+                                 f"{label} logits"),
+        cache_max_abs_err=max(_held_tree(d, c, f"{label} cache")
+                              for d, c in zip(c_d, c_c)),
+        aux={k: float(v) for k, v in a_c.items()})
+    if out["aux"]["moe_drop_frac"] <= 0:
+        raise AssertionError(f"phase {label}: the prompt dropped nothing")
+    if not torch.equal(g_d.cpu(), g_c):
+        raise AssertionError(f"phase {label}: greedy tokens differ, card "
+                             f"{g_d.tolist()} cpu {g_c.tolist()}")
+    log(f"phase {label} f32, card against CPU: hidden max abs err "
+        f"{out['hidden_max_abs_err']:.3e}, aux {out['aux_max_abs_err']:.3e} "
+        f"(drop frac {out['aux']['moe_drop_frac']:.4f} summed over the MoE "
+        f"blocks), prefill + {steps} decode logits "
+        f"{out['logits_max_abs_err']:.3e}, every layer's cache "
+        f"{out['cache_max_abs_err']:.3e} (atol {LM_ATOL}, rtol {LM_RTOL}); "
+        f"{2 * steps} greedy tokens equal")
+    return out
+
+
+def _shard_x(d_model: int) -> torch.Tensor:
+    """(a)'s input: B x S tokens from one seed, every token of the first
+    data shard the same, so its two experts' queues overflow at 1.25 (and
+    the reported ``moe_drop_frac``, data shard 0's, is not 0)."""
+    x = np.random.default_rng(29).normal(
+        size=(MOE_SHARD_B, MOE_SHARD_S, d_model)).astype(np.float32)
+    x[: MOE_SHARD_B // MOE_MESH[0]] = x[0, 0]
+    return torch.from_numpy(x)
+
+
+def moe_rank(rank: int, store: str, payload: dict, out_path: str) -> None:
+    """One rank of phase 15 (a)'s sharded MoE, in its own process on the
+    shared card (``payload["device"]``): ``moe_apply_sharded`` on its
+    share of the layer over the (data, model) mesh, at each capacity
+    factor there, and at 1.25 on the CPU too (the same ranks, the same
+    group)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models import moe_sharded as ms
+    from repro_torch.vectordb.distributed import shard_rows
+
+    card = payload["device"]
+    if card == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    with process_group("gloo", store, rank=rank,
+                       world=MOE_MESH[0] * MOE_MESH[1]):
+        mesh = init_device_mesh("cpu", MOE_MESH,
+                                mesh_dim_names=("data", "model"))
+        r0, r1 = shard_rows(payload["x"].shape[0], mesh)
+        for cf in (MOE_CHECK_CF, payload["cfg"].capacity_factor):
+            cfg = dataclasses.replace(payload["cfg"], capacity_factor=cf)
+            for dev in (card, "cpu") if cf != MOE_CHECK_CF else (card,):
+                share = ms.mesh_share(_tree_to(payload["p"], dev), cfg, mesh)
+                y, aux = ms.moe_apply_sharded(
+                    share, cfg, payload["x"][r0:r1].to(dev), mesh)
+                if y.device.type != dev:
+                    raise AssertionError(f"rank {rank}: y on {y.device}")
+                out[(cf, dev)] = (y.cpu(), {k: v.cpu()
+                                            for k, v in aux.items()})
+    torch.save(dict(rows=(r0, r1), out=out), out_path)
+
+
+def moe_sharded_check(device) -> dict:
+    """(a) ``moe_apply_sharded`` of the deepseek smoke config's MoE layer
+    (8 experts, a shared one) over four ``gloo`` ranks sharing the card
+    (``MOE_MESH``): at ``capacity_factor=8`` every rank's y equals one-
+    process ``moe_apply``'s rows of its data shard and the aux its aux
+    (nothing drops); at the config's 1.25 (one group per data shard, the
+    first shard overflowing) each rank's card run equals its CPU run, y
+    and aux. Within LM_ATOL/LM_RTOL."""
+    from repro_torch import configs
+    from repro_torch.models import lm, moe
+
+    cfg = configs.get_config("deepseek-v3-671b", smoke=True)
+    layer = moe.MoE(cfg, generator=torch.Generator().manual_seed(31))
+    p = _clone_tree(lm.param_tree(layer))
+    x = _shard_x(cfg.d_model)
+    world = MOE_MESH[0] * MOE_MESH[1]
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as d:
+        payload = dict(cfg=cfg, p=p, x=x, device=device.type)
+        procs = [ctx.Process(target=moe_rank, args=(
+            r, f"{d}/store", payload, f"{d}/rank{r}.pt"))
+            for r in range(world)]
+        t0 = time.perf_counter()
+        for pr in procs:
+            pr.start()
+        try:
+            for pr in procs:
+                pr.join(timeout=3 * MESH_TIMEOUT_S)
+        finally:
+            for pr in procs:
+                if pr.is_alive():
+                    pr.terminate()
+                    pr.join()
+        wall = time.perf_counter() - t0
+        codes = [pr.exitcode for pr in procs]
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"phase 15 (a): rank exit codes {codes}")
+        got = [torch.load(f"{d}/rank{r}.pt", weights_only=False)
+               for r in range(world)]
+    check = dataclasses.replace(cfg, capacity_factor=MOE_CHECK_CF)
+    with torch.no_grad():
+        y1, aux1 = moe.moe_apply(_tree_to(p, device), check, x.to(device))
+    errs = dict(no_drop=0.0, card_cpu=0.0)
+    for r, g in enumerate(got):
+        r0, r1 = g["rows"]
+        y, aux = g["out"][(MOE_CHECK_CF, device.type)]
+        label = f"15 (a) sharded MoE rank {r}"
+        errs["no_drop"] = max(
+            errs["no_drop"],
+            _held(y, y1[r0:r1], LM_ATOL, LM_RTOL, f"{label} cf 8 y"),
+            *(_held(aux[k], aux1[k], LM_ATOL, LM_RTOL, f"{label} cf 8 {k}")
+              for k in ("moe_lb_loss", "moe_z_loss")))
+        if float(aux["moe_drop_frac"]) != 0.0:
+            raise AssertionError(f"phase {label}: dropped at cf 8")
+        yd, ad = g["out"][(cfg.capacity_factor, device.type)]
+        yc, ac = g["out"][(cfg.capacity_factor, "cpu")]
+        errs["card_cpu"] = max(errs["card_cpu"],
+                               _held(yd, yc, LM_ATOL, LM_RTOL,
+                                     f"{label} cf {cfg.capacity_factor} y"),
+                               _held_tree(ad, ac, f"{label} aux"))
+    drop = float(got[0]["out"][(cfg.capacity_factor, device.type)][1][
+        "moe_drop_frac"])
+    if drop <= 0:
+        raise AssertionError("phase 15 (a): nothing dropped at 1.25")
+    log(f"phase 15 (a) moe_apply_sharded over {world} gloo ranks on one card "
+        f"({MOE_MESH[0]} data x {MOE_MESH[1]} model, {cfg.n_experts} experts,"
+        f" x {tuple(x.shape)}), {wall:.1f} s with their start: cf "
+        f"{MOE_CHECK_CF} against one-process moe_apply max abs err "
+        f"{errs['no_drop']:.3e}; cf {cfg.capacity_factor} (drop frac "
+        f"{drop:.4f}, data shard 0's) card against CPU {errs['card_cpu']:.3e}"
+        f" (atol {LM_ATOL}, rtol {LM_RTOL})")
+    return dict(ranks=world, mesh=list(MOE_MESH), wall_s=wall,
+                no_drop_max_abs_err=errs["no_drop"],
+                card_cpu_max_abs_err=errs["card_cpu"], drop_frac=drop)
+
+
+def moe_decode_matches_forward(device, *, smoke: bool = False,
+                               b: int = MOE_CHECK_B,
+                               prompt: int = MOE_CHECK_PROMPT,
+                               steps: int = LM_CHECK_STEPS) -> dict:
+    """(b) ``deepseek-v3-671b`` at full width, its depth cut to
+    ``moe_depth_cut``, in f32 (TF32 off), drawn on the card: the
+    parameters it holds beside ``cfg.n_params()`` with each difference
+    named (``param_count_gap``: the MTP block's MoE FFN that
+    ``n_params()`` counts); a prefill of ``prompt`` tokens and ``steps``
+    decode steps against the full forward over ``prompt + steps``
+    positions; the first layer's MLA, absorbed decode against the
+    expanded form on the same normed inputs.
+
+    A decode step routes one token a group (capacity 1, nothing drops),
+    so the forward must drop nothing either: at ``capacity_factor`` E / k
+    (32) an expert's capacity is a whole row, the least at which no
+    routing can drop. At ``MOE_CHECK_CF`` (8) the same forward drops,
+    the randomly drawn router sending more than a quarter of a row's
+    tokens to one expert; its dropped share is reported."""
+    from repro_torch import configs
+    from repro_torch.common.device import synchronize
+    from repro_torch.models import attention, lm
+
+    cfg = moe_depth_cut(configs.get_config(MOE_ARCHS[0], smoke=smoke))
+    cfg = dataclasses.replace(
+        cfg, dtype="float32",
+        capacity_factor=cfg.n_experts / cfg.n_experts_per_tok)
+    total = prompt + steps
+    synchronize(device)
+    t = time.perf_counter()
+    model = lm.init(cfg, seed=0, device=device)
+    synchronize(device)
+    init_s = time.perf_counter() - t
+    n = sum(p.numel() for p in model.parameters())
+    gap = param_count_gap(model)
+    if n != cfg.n_params() + sum(gap.values()):
+        raise AssertionError(f"phase 15 (b) {cfg.name}: {n} parameters "
+                             f"against n_params() {cfg.n_params()} + {gap}")
+    toks = _lm_tokens(cfg, b, total, 17, device)
+    model.cfg = dataclasses.replace(cfg, capacity_factor=MOE_CHECK_CF)
+    _, aux = lm.hidden(model, {"tokens": toks}, with_aux=True)
+    drop_at_check_cf = float(aux["moe_drop_frac"])
+    model.cfg = cfg
+    h, aux = lm.hidden(model, {"tokens": toks}, with_aux=True)
+    if float(aux["moe_drop_frac"]) != 0.0:
+        raise AssertionError(f"phase 15 (b): the forward dropped at cf "
+                             f"{cfg.capacity_factor}")
+    with torch.no_grad():
+        full = lm.unembed(model, h[:, prompt - 1: total])
+    del h
+    logits, cache = lm.prefill(model, {"tokens": toks[:, :prompt]}, total)
+    got = [logits]
+    for i in range(steps):
+        logits, cache = lm.decode_step(model, {"token": toks[:, prompt + i]},
+                                       prompt + i, cache)
+        got.append(logits)
+    got = torch.stack(got, 1)
+    del cache
+    if not bool(torch.isfinite(got[..., : cfg.vocab]).all()):
+        raise AssertionError(f"phase 15 (b) {cfg.name}: logits not finite")
+    err = _held(got, full, DECODE_ATOL, DECODE_RTOL,
+                f"15 (b) {cfg.name} decode against the full forward")
+    with torch.no_grad():
+        blk = lm.param_tree(model.dense_blocks[0])
+        x, pos = lm.embed_inputs(model, {"tokens": toks})
+        xn = lm.norm_apply(cfg, blk["norm1"], x)
+        expanded = attention.mla_apply(blk["attn"], cfg, xn, pos)
+        mcache = attention.mla_make_cache(cfg, b, total, torch.float32,
+                                          device)
+        attention.mla_prefill(blk["attn"], cfg, xn[:, :prompt],
+                              pos[:, :prompt], mcache)
+        absorbed = torch.cat([attention.mla_decode(
+            blk["attn"], cfg, xn[:, prompt + i: prompt + i + 1], prompt + i,
+            mcache)[0] for i in range(steps)], dim=1)
+    mla_err = _held(absorbed, expanded[:, prompt:], DECODE_ATOL, DECODE_RTOL,
+                    f"15 (b) {cfg.name} MLA absorbed decode against the "
+                    f"expanded form")
+    out = dict(config=cfg.name, n_layers=cfg.n_layers, params=n,
+               n_params=cfg.n_params(), beyond_n_params=gap, init_s=init_s,
+               device=str(model.device), batch=b, prompt=prompt,
+               forward_len=total, steps=steps,
+               capacity_factor=cfg.capacity_factor,
+               drop_frac_at_cf_8=drop_at_check_cf, max_abs_err=err,
+               mla_max_abs_err=mla_err)
+    log(f"phase 15 (b) {cfg.name} cut to {cfg.n_layers} layers "
+        f"({cfg.first_k_dense} dense + 1 MoE), f32 on {model.device}: "
+        f"{n:,} parameters (n_params() {cfg.n_params():,} + "
+        f"{sum(gap.values()):,}: {gap or 'nothing'}), drawn in "
+        f"{init_s:.2f} s; B={b} x {prompt} prefill + {steps} decode steps "
+        f"at capacity factor {cfg.capacity_factor:g} (nothing dropped; at "
+        f"{MOE_CHECK_CF:g} the forward drops {drop_at_check_cf:.4f}) against "
+        f"the full forward: max abs err {err:.3e}; the first layer's MLA, "
+        f"absorbed decode against the expanded form: {mla_err:.3e} (atol "
+        f"{DECODE_ATOL}, rtol {DECODE_RTOL})")
+    del model, full, got
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_bounds(model, b: int, prompt: int, steps: int) -> dict:
+    """The least times of (c)'s work on the card (3.35 TB/s; 989 TFLOP/s
+    bf16, 67 TFLOP/s f32), from the shapes the code runs.
+
+    A decode step moves, each once: every block's weights as used (the
+    GShard einsum runs every expert each step, on its one capacity slot a
+    row; the router f32), the head in its stored dtype, and every layer's
+    cache rows up to the step's position (MLA's compressed ``c_kv`` and
+    ``k_rope``, or GQA's k/v) read, the new one written; its products (the
+    experts' at one slot a row and expert) at the bf16 peak. The prefill
+    computes in bf16 the blocks' dense products, every expert's FFN on its
+    C slots a row (``group_capacity(prompt)``), the dispatch and combine
+    einsums over (B, S, E, C) and the attention's probabilities times v,
+    and in f32 the attention's scores (S x S a head, as the code writes
+    them out) and the router; its bound is the largest of those two times
+    and its weight bytes."""
+    from repro_torch.models import lm, moe
+
+    cfg = model.cfg
+    cast = lm.cast_blocks(model)
+    blocks = [blk for name in lm._stacks(model) for blk in cast[name]]
+    head = model.embed.table if cfg.tie_embeddings else model.lm_head.w
+    weight_bytes = sum(_nbytes(p) for p in blocks) + _nbytes(head)
+    dt = lm.compute_dtype(cfg)
+    elt = torch.finfo(dt).bits // 8
+    mid = prompt + steps // 2
+    row = (cfg.kv_lora_rank + cfg.qk_rope_head_dim if cfg.use_mla
+           else 2 * cfg.n_kv_heads * cfg.head_dim) * b * elt
+    cache_bytes = cfg.n_layers * row * (mid + 2)  # mid + 1 read, 1 written
+    expert = 3 * cfg.d_model * cfg.moe_d_ff  # one expert's gated FFN
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    routers = n_moe * cfg.d_model * cfg.n_experts
+    dense = sum(_tree_sum(p, torch.Tensor.numel) for p in blocks) \
+        - n_moe * cfg.n_experts * expert - routers
+    decode_flops = 2 * b * (dense + n_moe * cfg.n_experts * expert)
+    s, c = prompt, moe.group_capacity(prompt, cfg)
+    if cfg.use_mla:
+        qk, v = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    else:
+        qk = v = cfg.head_dim
+    scores = cfg.n_layers * 2 * b * cfg.n_heads * s * s * qk
+    bf16_flops = (2 * b * s * dense
+                  + n_moe * 2 * b * cfg.n_experts * c * expert
+                  + n_moe * 2 * 2 * b * s * cfg.n_experts * c * cfg.d_model
+                  + cfg.n_layers * 2 * b * cfg.n_heads * s * s * v)
+    f32_flops = scores + 2 * b * s * routers
+    prefill = dict(bf16_ms=bf16_flops / BF16_FLOPS * 1e3,
+                   f32_ms=f32_flops / F32_FLOPS * 1e3,
+                   bytes_ms=weight_bytes / HBM_BYTES_PER_S * 1e3)
+    decode = dict(bytes_ms=(weight_bytes + cache_bytes)
+                  / HBM_BYTES_PER_S * 1e3,
+                  bf16_ms=decode_flops / BF16_FLOPS * 1e3)
+    return dict(decode_bound_ms=max(decode.values()),
+                decode_bound_by=max(decode, key=decode.get),
+                decode_bytes=dict(weights=weight_bytes, cache=cache_bytes),
+                prefill_bound_ms=max(prefill.values()),
+                prefill_bound_by=max(prefill, key=prefill.get),
+                prefill_bound_parts_ms=prefill,
+                prefill_flops=dict(bf16=bf16_flops, f32=f32_flops),
+                capacity=c, block_params=dense + n_moe * (
+                    cfg.n_experts * expert) + routers)
+
+
+def moe_generate_timed(arch: str, device, *, smoke: bool = False,
+                       b: int = LM_BATCH, prompt: int = LM_PROMPT,
+                       steps: int = LM_STEPS) -> dict:
+    """(c) ``timed_generation`` of ``arch`` cut to ``moe_depth_cut``, in
+    bf16 on bf16 parameters (``param_dtype="bfloat16"``; the router f32)
+    at its own capacity factor, beside ``moe_bounds``; the prompt's
+    ``moe_drop_frac`` from ``hidden``'s aux."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(
+        moe_depth_cut(configs.get_config(arch, smoke=smoke)),
+        param_dtype="bfloat16", dtype="bfloat16")
+    model, out = timed_generation(cfg, device, b=b, prompt=prompt,
+                                  steps=steps, phase="15 (c)")
+    _, aux = lm.hidden(model, {"tokens": _lm_tokens(cfg, b, prompt, 19,
+                                                    device)}, with_aux=True)
+    out.update(moe_bounds(model, b, prompt, steps),
+               n_layers=cfg.n_layers, param_dtype=cfg.param_dtype,
+               capacity_factor=cfg.capacity_factor,
+               params=sum(p.numel() for p in model.parameters()),
+               moe_drop_frac=float(aux["moe_drop_frac"]),
+               decode_kernels=out["profiles"]["decode_step"].get("launches"))
+    parts = out["prefill_bound_parts_ms"]
+    gb = {k: v / 1e9 for k, v in out["decode_bytes"].items()}
+    log(f"phase 15 (c) {cfg.name} cut to {cfg.n_layers} layers, {cfg.dtype} "
+        f"on {cfg.param_dtype} parameters ({out['params']:,}), capacity "
+        f"factor {cfg.capacity_factor} (C={out['capacity']} a row in the "
+        f"prefill; drop frac {out['moe_drop_frac']:.4f}), greedy_generate "
+        f"B={b}, {prompt}-token prompt, {steps} steps (CUDA events): prefill "
+        f"{out['prefill_ms']:.3f} ms, device {out['prefill_device_ms']:.3f} "
+        f"ms (bound {out['prefill_bound_ms']:.3f} ms by "
+        f"{out['prefill_bound_by']}: bf16 products {parts['bf16_ms']:.3f} ms "
+        f"at 989 TFLOP/s, f32 scores and router {parts['f32_ms']:.3f} ms at "
+        f"67 TFLOP/s, weights {parts['bytes_ms']:.3f} ms); decode step "
+        f"median {out['decode_step_ms_median']:.3f} ms (min "
+        f"{out['decode_step_ms_min']:.3f}, max {out['decode_step_ms_max']:.3f};"
+        f" device {out['decode_step_device_ms']:.3f} ms, idle share "
+        f"{out['decode_step_idle_share']:.3f}, {out['decode_kernels']} "
+        f"kernels a step; bound {out['decode_bound_ms']:.3f} ms by "
+        f"{out['decode_bound_by']}: weights {gb['weights']:.3f} GB, cache "
+        f"{gb['cache']:.3f} GB at 3.35 TB/s); "
+        f"{out['decode_tokens_per_s']:.1f} tokens/s a step, "
+        f"{out['tokens_per_s']:.1f} tokens/s with the prefill; peak memory "
+        f"{out['peak_memory_bytes'] / 2**30:.2f} GiB")
+    del model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(device, *, smoke: bool = False) -> dict:
+    """Phase 15: (a) card against CPU on the ``deepseek-v3`` and ``kimi-k2``
+    smoke configs, and the sharded MoE over four ``gloo`` ranks; (b)
+    ``deepseek-v3-671b`` at full width cut to 4 layers in f32 (decode
+    against the full forward, MLA's absorbed decode against its expanded
+    form); (c) both archs cut to their dense prefix + 1 MoE block, timed
+    greedy generation in bf16 on bf16 parameters. ``smoke`` runs (b)-(c)
+    on the smoke configs at small sizes (a CPU rehearsal). Each model is
+    freed before the next is drawn."""
+    t = time.perf_counter()
+    check = dict(b=2, prompt=16) if smoke else {}
+    gen = dict(b=2, prompt=32, steps=6) if smoke else {}
+    out = dict(parity=[moe_parity(a, device) for a in MOE_ARCHS],
+               sharded=moe_sharded_check(device),
+               decode_vs_forward=moe_decode_matches_forward(
+                   device, smoke=smoke, **check),
+               generate=[moe_generate_timed(a, device, smoke=smoke, **gen)
+                         for a in MOE_ARCHS])
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 15 done in {out['seconds']:.1f} s")
+    return out
+
+
+CHILD_PHASES = {"13 (f)": "lm_generate_f32_params", "15": "moe_phase"}
+
+
+def child_phase(phase: str, out_path: str) -> None:
+    """Run ``CHILD_PHASES[phase]`` on the card in this process (a child of
+    the script's own, with nothing else of the script allocated on the
+    card) and write its result as JSON to ``out_path``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = globals()[CHILD_PHASES[phase]](torch.device("cuda"))
+    pathlib.Path(out_path).write_text(json.dumps(res, default=str))
+
+
+def run_child_phase(phase: str) -> dict:
+    """``child_phase`` in a fresh Python process (its output on ours);
+    raises if it fails. -> its result."""
+    with tempfile.TemporaryDirectory() as d:
+        out = f"{d}/phase.json"
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "import chip_smoke; chip_smoke.child_phase(sys.argv[2], "
+                "sys.argv[3])")
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code, str(ROOT), phase,
+                               out], cwd=ROOT, timeout=1500)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase {phase} (in its own process) exited "
+                                 f"{proc.returncode}")
+        res = json.loads(pathlib.Path(out).read_text())
+    log(f"phase {phase} in its own process: {time.perf_counter() - t:.1f} s "
+        f"with its start")
+    return res
+
+
 def _kernel_entry(name, source, replaces, rows, main, launches,
                   envelope_launches) -> dict:
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -4663,6 +5249,9 @@ def main() -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda")
+    # phases 13 (f) and 15 — the largest models, each in a process of its
+    # own while nothing else of this script is on the card
+    big = {phase: run_child_phase(phase) for phase in CHILD_PHASES}
 
     # phase 2
     build_s = build_kernels()
@@ -4797,7 +5386,7 @@ def main() -> int:
     # phase 9 — the tiered, tenanted, cached path, its serving counts
     tier = tiered_phase(ttable, graphs, t_fit_wl, t_serve_wl, dev, smi)
     # phase 13 — the dense language models (no custom kernel on this path)
-    lm_out = lm_phase(dev)
+    lm_out = dict(lm_phase(dev), f32_params=big["13 (f)"])
     # phase 14 — the SSM and hybrid language models (no custom kernel)
     ssm_out = ssm_phase(dev)
     launches_by_phase = {"4": launches, "5": spass["launches"],
@@ -4844,7 +5433,7 @@ def main() -> int:
         profile_graph=prof_graph, launches=launches,
         launches_by_phase=launches_by_phase, updates=upd["inserts"],
         sift=sift, tiered=tier, shards=shards, mesh=mesh, lm=lm_out,
-        ssm=ssm_out,
+        ssm=ssm_out, moe=big["15"],
         static_checks=dict(lint=lint, envelope=envelope, syncs=syncs),
         default_plan_recall=robust_recall, recall_target=target,
         seconds=time.perf_counter() - T0), indent=1))

@@ -11,8 +11,9 @@ encoder's S_enc edges — and ``boomhq``, which assembles a fitted ``BoomHQ``
 from all of them; ``cold_state`` and ``tiered_snapshot`` carry a tiered
 table's epoch (cold state and hot buffers) across mid-stream;
 ``sharded_ivf`` carries a ``ShardedIVF`` (per-shard indexes), or one
-shard's slice of it for a mesh rank, across; ``lm_params`` carries a dense
-LM's ``lm.init`` tree into an ``lm.LM``.
+shard's slice of it for a mesh rank, across; ``lm_params`` carries an
+LM's ``lm.init`` tree (any family, MTP included, f32 or bf16) into an
+``lm.LM``.
 """
 from __future__ import annotations
 
@@ -192,21 +193,25 @@ def tiered_snapshot(epoch: int, cold: ColdState, hot_views: list
     return TieredSnapshot(epoch=int(epoch), cold=cold, hot_views=views)
 
 
-def lm_names(params: dict, n_layers: int) -> set:
+_STACKS = ("blocks", "dense_blocks", "moe_blocks")
+
+
+def lm_names(params: dict) -> set:
     """The port's parameter names for the leaves of a JAX ``lm.init`` tree
-    (any of the ported families): leaf ``a/b/c`` is ``a.b.c``, the hybrid's
-    one ``shared_attn`` block included; a stacked ``blocks/<path>`` leaf
-    (an attention or a mamba block's) is ``blocks.{i}.<path>`` for each
-    layer i."""
+    (any family): leaf ``a/b/c`` is ``a.b.c``, the hybrid's one
+    ``shared_attn`` block and the ``mtp`` subtree included; a stacked
+    ``<stack>/<path>`` leaf (``blocks``, or the moe family's
+    ``dense_blocks`` and ``moe_blocks``) is ``<stack>.{i}.<path>`` for
+    each layer i of its leading axis."""
     out = set()
 
     def walk(node, path):
         for k, v in node.items():
             if isinstance(v, dict):
                 walk(v, path + [k])
-            elif path[:1] == ["blocks"]:
-                out.update(".".join(["blocks", str(i), *path[1:], k])
-                           for i in range(n_layers))
+            elif path[:1] and path[0] in _STACKS:
+                out.update(".".join([path[0], str(i), *path[1:], k])
+                           for i in range(np.shape(v)[0]))
             else:
                 out.add(".".join([*path, k]))
 
@@ -216,10 +221,10 @@ def lm_names(params: dict, n_layers: int) -> set:
 
 def lm_leaf(params: dict, name: str) -> np.ndarray:
     """The JAX ``lm.init`` leaf behind the port's parameter ``name``:
-    ``blocks.{i}.<path>`` is layer i of the stacked ``blocks/<path>``."""
+    ``<stack>.{i}.<path>`` is layer i of the stacked ``<stack>/<path>``."""
     parts = name.split(".")
-    if parts[0] == "blocks":
-        node, layer, parts = params["blocks"], int(parts[1]), parts[2:]
+    if parts[0] in _STACKS:
+        node, layer, parts = params[parts[0]], int(parts[1]), parts[2:]
     else:
         node, layer = params, None
     for k in parts:
@@ -229,18 +234,22 @@ def lm_leaf(params: dict, name: str) -> np.ndarray:
 
 def lm_params(params: dict, cfg, *, device=None) -> lm.LM:
     """A JAX ``lm.init(key, cfg)`` tree (numpy leaves, block leaves stacked
-    on axis 0) as the port's ``lm.LM`` on ``device``, leaf for leaf: the
-    two must have the same names and shapes."""
+    on axis 0; f32, or bf16 where ``cfg.param_dtype`` says so) as the
+    port's ``lm.LM`` on ``device``, leaf for leaf: the two must have the
+    same names, shapes and dtypes."""
     model = lm.LM(cfg, device=device)
     names = dict(model.named_parameters())
-    if set(names) != lm_names(params, cfg.n_layers):
+    if set(names) != lm_names(params):
         raise ValueError("the JAX tree's leaves and the port's parameters "
-                         f"differ: {sorted(set(names) ^ lm_names(params, cfg.n_layers))}")
+                         f"differ: {sorted(set(names) ^ lm_names(params))}")
     with torch.no_grad():
         for name, t in names.items():
             a = lm_leaf(params, name)
-            if tuple(a.shape) != tuple(t.shape):
-                raise ValueError(f"{name}: JAX leaf {a.shape}, port "
-                                 f"{tuple(t.shape)}")
-            t.copy_(torch.tensor(a))
+            if tuple(a.shape) != tuple(t.shape) or \
+                    str(a.dtype) != str(t.dtype).removeprefix("torch."):
+                raise ValueError(f"{name}: JAX leaf {a.shape} {a.dtype}, "
+                                 f"port {tuple(t.shape)} {t.dtype}")
+            # numpy has no bf16 of its own: carry the values through f32,
+            # which holds every bf16 value exactly
+            t.copy_(torch.tensor(a.astype(np.float32)))
     return model

@@ -348,7 +348,7 @@ class BoomHQ:
         rank sends. A mesh of any size, one rank too, takes the sharded
         executor. ``bind_shards()`` restores single-shard serving."""
         if mesh is not None:
-            from repro_torch.vectordb.distributed import shard_rows
+            from repro_torch.common.mesh import shard_rows
 
             shard_rows(self.table.n_rows, mesh, shard_axes)  # or raise
             if self.tiered is not None:
@@ -377,7 +377,7 @@ class BoomHQ:
     def _check_hot_capacity(hot_capacity: int, mesh, shard_axes) -> None:
         """Tiers over a mesh: full hot generations must keep the cold rows
         divisible over its shards."""
-        from repro_torch.vectordb.distributed import mesh_shard
+        from repro_torch.common.mesh import mesh_shard
 
         count = mesh_shard(mesh, shard_axes)[0]
         if hot_capacity % count:
@@ -393,7 +393,7 @@ class BoomHQ:
         if self.shard_mesh is None:
             self.tiered.row_multiple = 1
             return
-        from repro_torch.vectordb.distributed import mesh_shard
+        from repro_torch.common.mesh import mesh_shard
 
         self.tiered.row_multiple = mesh_shard(self.shard_mesh,
                                               self.shard_axes)[0]

@@ -1,4 +1,4 @@
-"""Serving CLI: batched prefill + greedy decode for a dense, ssm or
+"""Serving CLI: batched prefill + greedy decode for a dense, moe, ssm or
 hybrid arch.
 
 Port of ``repro.launch.serve``; runs on the CUDA device.
@@ -7,6 +7,8 @@ Port of ``repro.launch.serve``; runs on the CUDA device.
       --smoke --batch 4 --prompt-len 32 --steps 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
       --batch 8 --prompt-len 512 --steps 64
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v3-671b --smoke
 
 A prompt longer than an ssm or hybrid arch's ``ssm_chunk`` must be a
 multiple of it (the SSD scan pads nothing).

@@ -1,6 +1,6 @@
-"""Attention: GQA (with qk-norm, partial rotary, softcap).
+"""Attention variants: GQA (with qk-norm, partial rotary, softcap) and MLA.
 
-Port of ``repro.models.attention``'s GQA half. Full-sequence attention
+Port of ``repro.models.attention``. Full-sequence attention
 (prefill, the no-cache forward) is **q-chunked**: the score matrix never
 exceeds (B, H, q_chunk, S). ``cfg.flash_attention`` selects the
 online-softmax form instead, whose (m, l, acc) carry never holds more than
@@ -13,8 +13,12 @@ dtype before the PV product. Query head ``h`` reads kv head
 Decode attends one new token against a (B, S_max, ...) cache, written in
 place at ``pos`` for the whole batch.
 
-MLA (deepseek-v3) is not ported yet: its configs raise
-``NotImplementedError`` (ROADMAP Queue 1).
+MLA (deepseek-v3) runs the full sequence in the expanded form (k and v
+built per head from the compressed stream, k's rope part shared by every
+head) and decodes in the **absorbed** form: the cache holds only the
+compressed ``c_kv`` (kv_lora_rank) and ``k_rope`` (rope dims) a position,
+W_uk is folded into the query and W_uv into the output, so decode attends
+in the kv_lora_rank space. ``attn_*`` dispatch on ``cfg.use_mla``.
 """
 from __future__ import annotations
 
@@ -28,8 +32,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.rotary import apply_rope
 
 NEG_INF = -1e30
-MLA_QUEUED = ("MLA attention (deepseek-v3) is not ported yet: ROADMAP "
-              "Queue 1 item 4.3, MoE with MLA")
 
 
 def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
@@ -55,7 +57,8 @@ class GQA(nn.Module):
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
         super().__init__()
         if cfg.use_mla:
-            raise NotImplementedError(MLA_QUEUED)
+            raise ValueError(f"{cfg.name} uses MLA attention: build it with "
+                             f"MLA (attn_init dispatches on cfg.use_mla)")
         d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         g = generator
         self.wq = nn.Parameter(cnn.lecun_normal((d, h * hd), g))
@@ -211,3 +214,154 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, pos: int,
     probs = torch.softmax(scores, dim=-1).to(cv.dtype)
     out = torch.einsum("bkgs,bskh->bkgh", probs, cv).reshape(b, 1, h * hd)
     return out @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v3)
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """``wq_a`` (d, q_lora), ``q_norm``, ``wq_b`` (q_lora, H·(nope+rope)),
+    ``wkv_a`` (d, kv_lora + rope), ``kv_norm``, ``wkv_b`` (kv_lora,
+    H·(nope+v)), ``wo`` (H·v, d)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        vd = cfg.v_head_dim
+        g = generator
+        self.wq_a = nn.Parameter(cnn.lecun_normal((d, qr), g))
+        self.q_norm = cnn.RMSNorm(qr, eps=cfg.norm_eps, device=g.device)
+        self.wq_b = nn.Parameter(cnn.lecun_normal((qr, h * (nope + rope_d)),
+                                                  g, fan_in=qr))
+        self.wkv_a = nn.Parameter(cnn.lecun_normal((d, kvr + rope_d), g))
+        self.kv_norm = cnn.RMSNorm(kvr, eps=cfg.norm_eps, device=g.device)
+        self.wkv_b = nn.Parameter(cnn.lecun_normal((kvr, h * (nope + vd)), g,
+                                                   fan_in=kvr))
+        self.wo = nn.Parameter(cnn.lecun_normal((h * vd, d), g,
+                                                fan_in=h * vd))
+
+
+def _mla_q(p: dict, cfg: ModelConfig, x, positions) -> tuple:
+    """-> q_nope (B,S,H,nope), q_rope (B,S,H,rope) with rope applied."""
+    b, s, _ = x.shape
+    nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    cq = cnn.rmsnorm(x @ p["wq_a"], p["q_norm"]["scale"], eps=cfg.norm_eps)
+    q = (cq @ p["wq_b"]).reshape(b, s, cfg.n_heads, nope + rope_d)
+    return q[..., :nope], apply_rope(q[..., nope:], positions,
+                                     theta=cfg.rope_theta)
+
+
+def _mla_kv_compressed(p: dict, cfg: ModelConfig, x, positions) -> tuple:
+    """-> c_kv (B,S,kv_lora) normalized, k_rope (B,S,rope) with rope
+    applied (one for every head)."""
+    kvr = cfg.kv_lora_rank
+    kv = x @ p["wkv_a"]
+    c_kv = cnn.rmsnorm(kv[..., :kvr], p["kv_norm"]["scale"], eps=cfg.norm_eps)
+    return c_kv, apply_rope(kv[..., kvr:], positions, theta=cfg.rope_theta)
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def _mla_expanded(p: dict, cfg: ModelConfig, x, positions, c_kv, k_rope):
+    """The expanded (non-absorbed) full-sequence attention. -> (B,S,D)."""
+    b, s, _ = x.shape
+    h, nope, vd = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    kvb = (c_kv @ p["wkv_b"]).reshape(b, s, h, nope + vd)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([kvb[..., :nope],
+                   k_rope[:, :, None].expand(b, s, h, k_rope.shape[-1])],
+                  dim=-1)
+    out = full_attention(cfg, q, k, kvb[..., nope:], scale=_mla_scale(cfg))
+    return out.reshape(b, s, h * vd) @ p["wo"]
+
+
+def mla_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence MLA (the forward, prefill), expanded form. x (B,S,D)."""
+    c_kv, k_rope = _mla_kv_compressed(p, cfg, x, positions)
+    return _mla_expanded(p, cfg, x, positions, c_kv, k_rope)
+
+
+def mla_make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> dict:
+    """The compressed stream only: ``c_kv`` (B, S_max, kv_lora) and
+    ``k_rope`` (B, S_max, rope)."""
+    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, cache: dict | None) -> tuple:
+    """``mla_apply``; with a ``cache``, the compressed stream is written
+    into its first S slots in place. Returns (y, cache)."""
+    c_kv, k_rope = _mla_kv_compressed(p, cfg, x, positions)
+    y = _mla_expanded(p, cfg, x, positions, c_kv, k_rope)
+    if cache is not None:
+        s = x.shape[1]
+        cache["c_kv"][:, :s] = c_kv
+        cache["k_rope"][:, :s] = k_rope
+    return y, cache
+
+
+def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, pos: int,
+               cache: dict) -> tuple:
+    """Absorbed one-token MLA decode against the compressed cache, written
+    in place at ``pos``: q_c = q_nope · W_uk, the scores against c_kv and
+    k_rope with f32 products and sums, the context in the kv_lora space,
+    then W_uv and ``wo``. x (B,1,D). Returns (y, cache)."""
+    b = x.shape[0]
+    h, nope, vd = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)  # (B,1,H,.)
+    c_kv, k_rope = _mla_kv_compressed(p, cfg, x, positions)
+    ck, cr = cache["c_kv"], cache["k_rope"]
+    ck[:, pos] = c_kv[:, 0]
+    cr[:, pos] = k_rope[:, 0]
+    wkv_b = p["wkv_b"].reshape(kvr, h, nope + vd)
+    w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
+    q_c = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)  # (B,H,kv_lora)
+    scores = (_scores(q_c, ck, "bhr,bsr->bhs")
+              + _scores(q_rope[:, 0], cr, "bhr,bsr->bhs")) * _mla_scale(cfg)
+    valid = torch.arange(ck.shape[1], device=x.device) <= pos
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(ck.dtype)
+    ctx_c = torch.einsum("bhs,bsr->bhr", probs, ck)
+    out = torch.einsum("bhr,rhv->bhv", ctx_c, w_uv).reshape(b, 1, h * vd)
+    return out @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# family dispatch
+# ---------------------------------------------------------------------------
+
+def attn_init(cfg: ModelConfig, *, generator: torch.Generator) -> nn.Module:
+    return (MLA(cfg, generator=generator) if cfg.use_mla
+            else GQA(cfg, generator=generator))
+
+
+def attn_apply(p: dict, cfg: ModelConfig, x, positions) -> torch.Tensor:
+    return attn_prefill(p, cfg, x, positions, None)[0]
+
+
+def attn_make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                    device) -> dict:
+    return (mla_make_cache if cfg.use_mla else gqa_make_cache)(
+        cfg, batch, max_len, dtype, device)
+
+
+def attn_prefill(p: dict, cfg: ModelConfig, x, positions, cache) -> tuple:
+    return (mla_prefill if cfg.use_mla else gqa_prefill)(
+        p, cfg, x, positions, cache)
+
+
+def attn_decode(p: dict, cfg: ModelConfig, x, pos: int, cache) -> tuple:
+    return (mla_decode if cfg.use_mla else gqa_decode)(p, cfg, x, pos, cache)

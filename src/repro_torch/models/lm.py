@@ -1,37 +1,54 @@
 """LM assembly: blocks, parameter init, the forward, prefill and decode.
 
-Port of ``repro.models.lm`` for three of its four families:
+Port of ``repro.models.lm`` for its four families:
 
   dense   — [norm → attn → +res, norm → ffn → +res] × L
+  moe     — a dense prefix (``first_k_dense`` blocks of FFN width
+            ``dense_d_ff``) + MoE blocks (the FFN replaced by ``moe``)
   ssm     — [norm → mamba2 → +res] × L
   hybrid  — mamba2 × L with a SHARED attn+ffn block applied after every
             ``hybrid_attn_every``-th layer (zamba2)
 
-``LM`` holds the parameters (``nn.Module``s named as the JAX parameter
-dict: ``embed.table``, ``blocks.{i}.attn.wq``, ``blocks.{i}.mamba.in_z``,
-``shared_attn.ffn.w_up``, ``final_norm.scale``, ...; the reference's
-stacked block leaves as an ``nn.ModuleList``, its one shared block as one
-``Block``), drawn from a seeded ``torch.Generator`` on the model's device.
-The computation runs on plain dicts of tensors by those names, as the
+Attention is GQA, or MLA where ``cfg.use_mla`` (deepseek-v3). ``LM`` holds
+the parameters (``nn.Module``s named as the JAX parameter dict:
+``embed.table``, ``blocks.{i}.attn.wq``, ``moe_blocks.{i}.moe.w_up``,
+``dense_blocks.{i}.attn.wkv_b``, ``blocks.{i}.mamba.in_z``,
+``shared_attn.ffn.w_up``, ``mtp.proj.w``, ``final_norm.scale``, ...; the
+reference's stacked block leaves as ``nn.ModuleList``s, its one shared
+block as one ``Block``), drawn from a seeded ``torch.Generator`` on the
+model's device and cast to ``cfg.param_dtype`` as ``lm.init`` does: every
+leaf but the numerics-sensitive ones (``_KEEP_F32``: the router, the SSM's
+``A_log``, ``D``, ``dt_bias``), which stay f32. With ``mtp_depth`` the
+model holds the multi-token-prediction parameters (``mtp``: ``norm_h``,
+``norm_e``, ``proj``, a dense ``block``, ``norm_f``); the training loss
+that uses them is not ported yet (ROADMAP Queue 1 item 4.4). The
+computation runs on plain dicts of tensors by those names, as the
 reference's functions do.
 
-Mixed precision: block parameters are used in ``cfg.dtype``
-(``cast_blocks``), except the reference's numerics-sensitive leaves
-(``_KEEP_F32``: the SSM's ``A_log``, ``D``, ``dt_bias``), which stay f32.
-``hidden``, ``prefill`` and ``decode_step`` cast them at use unless given
-``blocks=``, a copy made once (the serving steps and
-``bench.augment.lm_embed`` make one per call); casting is deterministic, so
-both give the same values. The embedding table, ``patch_proj``, the final
-norm and the head stay in ``cfg.param_dtype``. The prefill casts the mamba
+Mixed precision: each block's parameters are used in ``cfg.dtype``, the
+``_KEEP_F32`` leaves in f32. ``hidden``, ``prefill`` and ``decode_step``
+cast each block at its use, as the reference's ``_cast_block`` does inside
+its scan, so no whole-model copy is held; a block already in the compute
+dtype is used as it is, without a copy. ``hidden(..., blocks=)`` takes a
+copy made once instead (``cast_blocks``; ``bench.augment.lm_embed``
+makes one per call, over many batches); casting is deterministic, so both
+give the same values. The embedding table, ``patch_proj``, the final norm
+and the head stay in ``cfg.param_dtype``. The prefill casts the mamba
 blocks too, where the reference's ssm and hybrid prefills do not, and so
 fail in bf16 (ROADMAP Queue 3).
+
+The moe family's FFN is ``moe.moe_apply`` in every block: the reference
+picks its expert-parallel ``moe_apply_sharded`` only under an activation
+mesh context (``models/sharding.act_ctx``, ROADMAP Queue 1 item 4.5),
+which the port does not have yet, and without one it runs ``moe_apply``
+too. ``hidden(..., with_aux=True)`` also returns the MoE aux losses summed
+over the MoE blocks.
 
 Modality stubs: vlm prepends projected patch embeddings, audio feeds
 precomputed frame embeddings straight to the stack.
 
-The ``moe`` family, MTP and MLA raise ``NotImplementedError`` (ROADMAP
-Queue 1). The training loss is not ported yet, so ``hidden``, ``prefill``
-and ``decode_step`` run without autograd.
+The training loss is not ported yet, so ``hidden``, ``prefill`` and
+``decode_step`` run without autograd.
 """
 from __future__ import annotations
 
@@ -46,29 +63,26 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models.ffn import FFN, ffn_apply
+from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.rotary import sinusoidal
 
-FAMILIES = ("dense", "ssm", "hybrid")
-QUEUED = {
-    "moe": "the moe family is not ported yet: ROADMAP Queue 1 item 4.3",
-    "mtp": "multi-token prediction (mtp_depth > 0) is not ported yet: "
-           "ROADMAP Queue 1 item 4.3",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not cover yet,
-    ``ValueError`` for a hybrid whose layers do not split into groups."""
+    """Raise ``ValueError`` for a family the package does not know or a
+    hybrid whose layers do not split into groups."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(QUEUED.get(cfg.family, cfg.family))
-    if cfg.mtp_depth:
-        raise NotImplementedError(QUEUED["mtp"])
-    if cfg.use_mla:
-        raise NotImplementedError(attn.MLA_QUEUED)
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     k = cfg.hybrid_attn_every
     if cfg.family == "hybrid" and (k <= 0 or cfg.n_layers % k):
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split "
@@ -114,15 +128,32 @@ def param_tree(module: nn.Module, dtype: torch.dtype | None = None) -> dict:
     return out
 
 
-class Block(nn.Module):
-    """norm1 → attn → +res, norm2 → ffn → +res."""
+@torch.no_grad()
+def _in_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """``module`` with every parameter but the ``_KEEP_F32`` leaves cast to
+    ``dtype`` in place (the f32 draw is freed leaf by leaf)."""
+    for name, t in module.named_parameters():
+        if name.split(".")[-1] not in _KEEP_F32 and t.dtype != dtype:
+            t.data = t.data.to(dtype)
+    return module
 
-    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
+
+class Block(nn.Module):
+    """norm1 → attn (GQA or MLA) → +res, norm2 → ffn (width ``d_ff``) or
+    ``moe`` → +res."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 d_ff: int = 0, moe: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm1 = norm_init(cfg, generator.device)
-        self.attn = attn.GQA(cfg, generator=generator)
+        self.attn = attn.attn_init(cfg, generator=generator)
         self.norm2 = norm_init(cfg, generator.device)
-        self.ffn = FFN(cfg.d_model, cfg.d_ff, cfg.ffn_act, generator=generator)
+        if moe:
+            self.moe = MoE(cfg, generator=generator, dtype=dtype)
+        else:
+            self.ffn = FFN(cfg.d_model, d_ff, cfg.ffn_act,
+                           generator=generator)
 
 
 class MambaBlock(nn.Module):
@@ -134,10 +165,26 @@ class MambaBlock(nn.Module):
         self.mamba = mamba2.Mamba(cfg, generator=generator)
 
 
+class MTP(nn.Module):
+    """Multi-token prediction (depth 1): ``norm_h``, ``norm_e``, ``proj``
+    (2·d → d), a dense ``block`` of FFN width ``dense_d_ff or d_ff``,
+    ``norm_f``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator):
+        super().__init__()
+        d, dev = cfg.d_model, generator.device
+        self.norm_h = norm_init(cfg, dev)
+        self.norm_e = norm_init(cfg, dev)
+        self.proj = cnn.Linear(2 * d, d, generator=generator)
+        self.block = Block(cfg, generator=generator,
+                           d_ff=cfg.dense_d_ff or cfg.d_ff)
+        self.norm_f = norm_init(cfg, dev)
+
+
 class LM(nn.Module):
     """An LM's parameters on ``device`` (the CUDA device unless the caller
     names another), drawn from ``torch.Generator(device)`` seeded with
-    ``seed``."""
+    ``seed``, each module cast to ``cfg.param_dtype`` once drawn."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None):
         super().__init__()
@@ -145,20 +192,40 @@ class LM(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         g = torch.Generator(dev).manual_seed(seed)
+        pdt = param_dtype(cfg)
+
+        def new(module: nn.Module) -> nn.Module:
+            return _in_dtype(module, pdt)
+
         d = cfg.d_model
         if not cfg.inputs_are_embeds:
-            self.embed = cnn.Embedding(cfg.vocab_padded, d,
-                                       std=1.0 / math.sqrt(d), generator=g)
+            self.embed = new(cnn.Embedding(cfg.vocab_padded, d,
+                                           std=1.0 / math.sqrt(d),
+                                           generator=g))
         if cfg.modality == "vlm":
-            self.patch_proj = cnn.Linear(d, d, bias=True, generator=g)
-        block = Block if cfg.family == "dense" else MambaBlock
-        self.blocks = nn.ModuleList(block(cfg, generator=g)
-                                    for _ in range(cfg.n_layers))
+            self.patch_proj = new(cnn.Linear(d, d, bias=True, generator=g))
+        if cfg.family == "dense":
+            self.blocks = nn.ModuleList(
+                new(Block(cfg, generator=g, d_ff=cfg.d_ff))
+                for _ in range(cfg.n_layers))
+        elif cfg.family == "moe":
+            if cfg.first_k_dense:
+                self.dense_blocks = nn.ModuleList(
+                    new(Block(cfg, generator=g, d_ff=cfg.dense_d_ff))
+                    for _ in range(cfg.first_k_dense))
+            self.moe_blocks = nn.ModuleList(
+                new(Block(cfg, generator=g, moe=True, dtype=pdt))
+                for _ in range(cfg.n_layers - cfg.first_k_dense))
+        else:
+            self.blocks = nn.ModuleList(new(MambaBlock(cfg, generator=g))
+                                        for _ in range(cfg.n_layers))
         if cfg.family == "hybrid":
-            self.shared_attn = Block(cfg, generator=g)
-        self.final_norm = norm_init(cfg, dev)
+            self.shared_attn = new(Block(cfg, generator=g, d_ff=cfg.d_ff))
+        self.final_norm = new(norm_init(cfg, dev))
         if not cfg.tie_embeddings:
-            self.lm_head = cnn.Linear(d, cfg.vocab_padded, generator=g)
+            self.lm_head = new(cnn.Linear(d, cfg.vocab_padded, generator=g))
+        if cfg.mtp_depth:
+            self.mtp = new(MTP(cfg, generator=g))
 
     @property
     def device(self) -> torch.device:
@@ -169,13 +236,24 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> LM:
     return LM(cfg, seed=seed, device=device)
 
 
+def _stacks(model: LM) -> tuple:
+    """The names of the model's stacked block lists, in layer order."""
+    if model.cfg.family != "moe":
+        return ("blocks",)
+    return (("dense_blocks",) if model.cfg.first_k_dense else ()) + (
+        "moe_blocks",)
+
+
 @torch.no_grad()
 def cast_blocks(model: LM) -> dict:
-    """The block parameters in the compute dtype (``_cast_block``):
-    ``{"blocks": [one dict a layer]}``, and for the hybrid family
-    ``"shared_attn"``, the shared block's one copy."""
+    """The block parameters in the compute dtype (``_cast_block``), one
+    dict a layer under each stack's name (``"blocks"``, or the moe
+    family's ``"dense_blocks"`` and ``"moe_blocks"``), and for the hybrid
+    family ``"shared_attn"``, the shared block's one copy. A leaf already
+    in the compute dtype is the parameter itself."""
     dt = compute_dtype(model.cfg)
-    out = {"blocks": [param_tree(b, dt) for b in model.blocks]}
+    out = {name: [param_tree(b, dt) for b in getattr(model, name)]
+           for name in _stacks(model)}
     if model.cfg.family == "hybrid":
         out["shared_attn"] = param_tree(model.shared_attn, dt)
     return out
@@ -185,20 +263,36 @@ def cast_blocks(model: LM) -> dict:
 # blocks
 # ---------------------------------------------------------------------------
 
-def _block_prefill(p: dict, cfg: ModelConfig, x, positions, cache):
-    y, cache = attn.gqa_prefill(p["attn"], cfg, norm_apply(cfg, p["norm1"], x),
-                                positions, cache)
-    x = x + y
-    h = norm_apply(cfg, p["norm2"], x)
-    return x + ffn_apply(p["ffn"], h, cfg.ffn_act), cache
+def _moe_dispatch(p: dict, cfg: ModelConfig, h) -> tuple:
+    """The MoE FFN: ``moe_apply`` (see the module docstring for the
+    reference's sharded choice)."""
+    return moe_apply(p, cfg, h)
 
 
-def _block_decode(p: dict, cfg: ModelConfig, x, pos: int, cache: dict):
-    y, cache = attn.gqa_decode(p["attn"], cfg, norm_apply(cfg, p["norm1"], x),
-                               pos, cache)
+def _ffn(p: dict, cfg: ModelConfig, h) -> tuple:
+    """The block's FFN or MoE on the normed residual -> (y, aux)."""
+    if "moe" in p:
+        return _moe_dispatch(p["moe"], cfg, h)
+    return ffn_apply(p["ffn"], h, cfg.ffn_act), {}
+
+
+def _block_prefill(p: dict, cfg: ModelConfig, x, positions, cache) -> tuple:
+    """-> (x, aux); with a ``cache`` (``None`` for the forward without
+    one), the attention's cache is written in place."""
+    y, _ = attn.attn_prefill(p["attn"], cfg, norm_apply(cfg, p["norm1"], x),
+                             positions, cache)
     x = x + y
-    h = norm_apply(cfg, p["norm2"], x)
-    return x + ffn_apply(p["ffn"], h, cfg.ffn_act), cache
+    y, aux = _ffn(p, cfg, norm_apply(cfg, p["norm2"], x))
+    return x + y, aux
+
+
+def _block_decode(p: dict, cfg: ModelConfig, x, pos: int, cache: dict
+                  ) -> tuple:
+    y, _ = attn.attn_decode(p["attn"], cfg, norm_apply(cfg, p["norm1"], x),
+                            pos, cache)
+    x = x + y
+    y, aux = _ffn(p, cfg, norm_apply(cfg, p["norm2"], x))
+    return x + y, aux
 
 
 def _mamba_block_prefill(p: dict, cfg: ModelConfig, x, cache: dict | None):
@@ -220,25 +314,44 @@ def _mamba_block_decode(p: dict, cfg: ModelConfig, x, cache: dict):
     return x + y
 
 
-def _run_stack(cfg: ModelConfig, cast: dict, x, cache: dict | None,
-               attn_fn, mamba_fn):
-    """The layers in order: ``attn_fn(p, x, layer_cache)`` for an attention
-    block, ``mamba_fn(p, x, layer_cache)`` for a mamba block, each -> x. The
-    hybrid's shared block follows every ``hybrid_attn_every``-th mamba
-    layer with group g's attention cache."""
+_CACHE_OF = {"blocks": "attn", "dense_blocks": "dense", "moe_blocks": "moe"}
+
+
+def _run_stack(model: LM, blocks: dict | None, x, cache: dict | None,
+               attn_fn, mamba_fn) -> tuple:
+    """The layers in order: ``attn_fn(p, x, layer_cache) -> (x, aux)`` for
+    an attention block, ``mamba_fn(p, x, layer_cache) -> x`` for a mamba
+    block, ``p`` each block's parameters in the compute dtype (cast at use
+    unless ``blocks`` holds a copy). The hybrid's shared block follows
+    every ``hybrid_attn_every``-th mamba layer with group g's attention
+    cache. -> (x, the aux summed over the MoE blocks)."""
+    cfg = model.cfg
+    dt = compute_dtype(cfg)
+
+    def params(name, i):
+        if blocks is not None:
+            return blocks[name] if i is None else blocks[name][i]
+        mod = getattr(model, name)
+        return param_tree(mod if i is None else mod[i], dt)
+
     def at(kind, i):
         return None if cache is None else {k: v[i]
                                            for k, v in cache[kind].items()}
 
+    aux: dict = {}
+    if cfg.family in ("dense", "moe"):
+        for name in _stacks(model):
+            for i in range(len(getattr(model, name))):
+                x, a = attn_fn(params(name, i), x, at(_CACHE_OF[name], i))
+                for k, v in a.items():
+                    aux[k] = aux[k] + v if k in aux else v
+        return x, aux
     k = cfg.hybrid_attn_every
-    for i, p in enumerate(cast["blocks"]):
-        if cfg.family == "dense":
-            x = attn_fn(p, x, at("attn", i))
-            continue
-        x = mamba_fn(p, x, at("mamba", i))
+    for i in range(cfg.n_layers):
+        x = mamba_fn(params("blocks", i), x, at("mamba", i))
         if cfg.family == "hybrid" and (i + 1) % k == 0:
-            x = attn_fn(cast["shared_attn"], x, at("attn", i // k))
-    return x
+            x, _ = attn_fn(params("shared_attn", None), x, at("attn", i // k))
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -299,60 +412,70 @@ def unembed(model: LM, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def hidden(model: LM, batch: dict, *, blocks: dict | None = None
-           ) -> torch.Tensor:
-    """Full forward to the final-norm hidden states (B, S, D), cfg.dtype."""
+def hidden(model: LM, batch: dict, *, blocks: dict | None = None,
+           with_aux: bool = False):
+    """Full forward to the final-norm hidden states (B, S, D), cfg.dtype;
+    with ``with_aux``, (h, aux): the MoE aux losses (``AUX_KEYS``) summed
+    over the MoE blocks, empty for the other families."""
     cfg = model.cfg
     x, positions = embed_inputs(model, batch)
-    x = _run_stack(
-        cfg, blocks if blocks is not None else cast_blocks(model), x, None,
-        lambda p, y, c: _block_prefill(p, cfg, y, positions, c)[0],
+    x, aux = _run_stack(
+        model, blocks, x, None,
+        lambda p, y, c: _block_prefill(p, cfg, y, positions, c),
         lambda p, y, c: _mamba_block_prefill(p, cfg, y, c))
-    return model.final_norm(x)
+    h = model.final_norm(x)
+    return (h, aux) if with_aux else h
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
                device=None) -> dict:
     """Zeros, each layer's entries stacked on a leading axis: ``{"attn":
-    {"k", "v"}}`` (L, B, max_len, KV, hd) for the dense family; ``{"mamba":
-    {"conv_x", "conv_bc", "state"}}`` (L, B, ...) for ssm, and the hybrid's
-    ``"attn"`` over its n_layers // hybrid_attn_every groups. The conv
-    windows and k/v are in ``dtype`` (cfg.dtype), the SSM state f32."""
+    {"k", "v"}}`` (L, B, max_len, KV, hd) for the dense family; for moe
+    ``"dense"`` over the ``first_k_dense`` layers and ``"moe"`` over the
+    rest, each GQA's ``{"k", "v"}`` or MLA's ``{"c_kv", "k_rope"}`` (L, B,
+    max_len, kv_lora / rope); ``{"mamba": {"conv_x", "conv_bc", "state"}}``
+    (L, B, ...) for ssm, and the hybrid's ``"attn"`` over its n_layers //
+    hybrid_attn_every groups. The conv windows and the attention caches
+    are in ``dtype`` (cfg.dtype), the SSM state f32."""
     dt = dtype or compute_dtype(cfg)
     dev = resolve_device(device)
 
     def stack(c: dict, n: int) -> dict:
         return {k: v.expand(n, *v.shape).clone() for k, v in c.items()}
 
+    def attn_cache(n: int) -> dict:
+        return stack(attn.attn_make_cache(cfg, batch, max_len, dt, dev), n)
+
     if cfg.family == "dense":
-        return {"attn": stack(attn.gqa_make_cache(cfg, batch, max_len, dt,
-                                                  dev), cfg.n_layers)}
+        return {"attn": attn_cache(cfg.n_layers)}
+    if cfg.family == "moe":
+        out = {"dense": attn_cache(cfg.first_k_dense)} if cfg.first_k_dense \
+            else {}
+        out["moe"] = attn_cache(cfg.n_layers - cfg.first_k_dense)
+        return out
     out = {"mamba": stack(mamba2.mamba_make_cache(cfg, batch, dt, dev),
                           cfg.n_layers)}
     if cfg.family == "hybrid":
-        out["attn"] = stack(attn.gqa_make_cache(cfg, batch, max_len, dt, dev),
-                            cfg.n_layers // cfg.hybrid_attn_every)
+        out["attn"] = attn_cache(cfg.n_layers // cfg.hybrid_attn_every)
     return out
 
 
 @torch.no_grad()
-def prefill(model: LM, batch: dict, max_len: int, *,
-            blocks: dict | None = None) -> tuple:
+def prefill(model: LM, batch: dict, max_len: int) -> tuple:
     """Run the prompt, fill a new cache. Returns (last-position logits
     (B, V) f32, cache)."""
     cfg = model.cfg
     x, positions = embed_inputs(model, batch)
     cache = make_cache(cfg, x.shape[0], max_len, device=x.device)
-    x = _run_stack(
-        cfg, blocks if blocks is not None else cast_blocks(model), x, cache,
-        lambda p, y, c: _block_prefill(p, cfg, y, positions, c)[0],
+    x, _ = _run_stack(
+        model, None, x, cache,
+        lambda p, y, c: _block_prefill(p, cfg, y, positions, c),
         lambda p, y, c: _mamba_block_prefill(p, cfg, y, c))
     return unembed(model, model.final_norm(x)[:, -1]), cache
 
 
 @torch.no_grad()
-def decode_step(model: LM, inputs: dict, pos: int, cache: dict, *,
-                blocks: dict | None = None) -> tuple:
+def decode_step(model: LM, inputs: dict, pos: int, cache: dict) -> tuple:
     """One token for every sequence in the batch.
 
     inputs: {"token": (B,)} or {"embed": (B, D)} (audio). pos: the cache
@@ -371,8 +494,8 @@ def decode_step(model: LM, inputs: dict, pos: int, cache: dict, *,
         ppos = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                           device=x.device)
         x = x + sinusoidal(ppos, cfg.d_model).to(dt)
-    x = _run_stack(
-        cfg, blocks if blocks is not None else cast_blocks(model), x, cache,
-        lambda p, y, c: _block_decode(p, cfg, y, pos, c)[0],
+    x, _ = _run_stack(
+        model, None, x, cache,
+        lambda p, y, c: _block_decode(p, cfg, y, pos, c),
         lambda p, y, c: _mamba_block_decode(p, cfg, y, c))
     return unembed(model, model.final_norm(x)[:, 0]), cache

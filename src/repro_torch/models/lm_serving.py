@@ -1,10 +1,9 @@
 """LM serving steps: prefill (prompt -> cache) and decode (one token/step).
 
-Port of ``repro.models.lm_serving``. Each step closes over one copy of the
-block parameters in the compute dtype (``lm.cast_blocks``: one per layer
-and, for the hybrid family, the shared block's single copy), made when the
-step is made unless passed in (``greedy_generate`` makes one for both).
-``greedy_generate`` is the host loop: prefill once, then one decode step
+Port of ``repro.models.lm_serving``. Each step casts each block to the
+compute dtype at its use, as the reference's scan does, so no step holds a
+whole-model copy beside the parameters. ``greedy_generate`` is the host
+loop: prefill once, then one decode step
 per token. The tokens stay on the model's device through the loop (the
 cache slot ``pos`` is a host int), so the loop reads nothing back; the
 caller reads the result once at the end.
@@ -16,21 +15,16 @@ import torch
 from repro_torch.models import lm
 
 
-def make_prefill_step(model: lm.LM, max_len: int,
-                      blocks: dict | None = None):
-    blocks = blocks if blocks is not None else lm.cast_blocks(model)
-
+def make_prefill_step(model: lm.LM, max_len: int):
     def prefill_step(batch: dict):
-        return lm.prefill(model, batch, max_len, blocks=blocks)
+        return lm.prefill(model, batch, max_len)
 
     return prefill_step
 
 
-def make_decode_step(model: lm.LM, blocks: dict | None = None):
-    blocks = blocks if blocks is not None else lm.cast_blocks(model)
-
+def make_decode_step(model: lm.LM):
     def decode_step(inputs: dict, pos: int, cache: dict):
-        return lm.decode_step(model, inputs, pos, cache, blocks=blocks)
+        return lm.decode_step(model, inputs, pos, cache)
 
     return decode_step
 
@@ -65,9 +59,8 @@ def greedy_generate(model: lm.LM, batch: dict, *, steps: int,
     Returns tokens (B, steps) int32 on the model's device.
     """
     cfg = model.cfg
-    blocks = lm.cast_blocks(model)
-    prefill = make_prefill_step(model, max_len, blocks)
-    decode = make_decode_step(model, blocks)
+    prefill = make_prefill_step(model, max_len)
+    decode = make_decode_step(model)
     logits, cache = prefill(batch)
     start = prompt_len(cfg, batch)
     outs = []

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import synchronize
+from repro_torch.common.mesh import mesh_shard, shard_rows
 from repro_torch.core.executor import (
     CANDIDATE_PAD_FLOOR, EngineCaps, HybridExecutor, PGVECTOR,
     legalize_for_shard, next_bucket, plan_columns, pow2_at_most, recall_at_k,
@@ -54,8 +55,8 @@ from repro_torch.kernels.shapes import (
 )
 from repro_torch.vectordb import flat, graph, histogram, ivf, predicates
 from repro_torch.vectordb.distributed import (
-    build_sharded_ivf, mesh_shard, mesh_topk, shard_rows, sharded_batch_topk,
-    sharded_ivf_topk, sharded_topk_ref,
+    build_sharded_ivf, mesh_topk, sharded_batch_topk, sharded_ivf_topk,
+    sharded_topk_ref,
 )
 from repro_torch.vectordb.flat import nonzero_fixed, topk_stable
 from repro_torch.vectordb.table import Table, similarity_batch

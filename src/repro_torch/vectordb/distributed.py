@@ -29,7 +29,8 @@ their product and a rank's shard its row-major coordinate over them
 (``mesh_shard``). Each rank calls the built function with its own
 ``n / S`` rows (``shard_rows``), and the merge is one ``all_gather`` of the
 per-shard candidates over the data dimensions, in shard order
-(``gather_shards``). Ranks that differ only on other dimensions hold the
+(``gather_shards``); these three live in ``repro_torch.common.mesh`` and
+are named here too. Ranks that differ only on other dimensions hold the
 same shard and return the same result.
 """
 from __future__ import annotations
@@ -45,6 +46,8 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.common.mesh import (gather_shards, mesh_line, mesh_shard,
+                                    shard_rows)
 from repro_torch.kernels.shapes import NEG
 from repro_torch.vectordb import ivf as _ivf
 from repro_torch.vectordb import predicates
@@ -56,74 +59,6 @@ from repro_torch.vectordb.table import similarity, similarity_batch
 # the mesh: shards, rows and collectives
 # ---------------------------------------------------------------------------
 
-def _axes(data_axes) -> tuple:
-    return data_axes if isinstance(data_axes, tuple) else (data_axes,)
-
-
-def mesh_shard(mesh, data_axes=("data",)) -> tuple:
-    """(shard count, this rank's shard) of a ``DeviceMesh`` over its data
-    dimensions: the product of their sizes, and the rank's row-major
-    coordinate over them (the order of the reference's tiled
-    ``all_gather`` over several axes)."""
-    from torch.distributed.device_mesh import DeviceMesh
-
-    if not isinstance(mesh, DeviceMesh):
-        raise TypeError(f"a mesh is a torch.distributed DeviceMesh, not "
-                        f"{type(mesh).__name__}")
-    names = mesh.mesh_dim_names or ()
-    missing = [a for a in _axes(data_axes) if a not in names]
-    if missing:
-        raise ValueError(f"the mesh's dimensions {names} lack {missing}")
-    coord = mesh.get_coordinate()
-    if coord is None:
-        raise ValueError("this rank is not in the mesh")
-    count, shard = 1, 0
-    for a in _axes(data_axes):
-        d = names.index(a)
-        count *= mesh.size(d)
-        shard = shard * mesh.size(d) + coord[d]
-    return count, shard
-
-
-def shard_rows(n: int, mesh, data_axes=("data",)) -> tuple:
-    """Rows ``[row0, row1)`` of an ``n``-row table that this rank holds:
-    shard ``r`` of S holds ``[r·n/S, (r+1)·n/S)``. As in the reference,
-    ``n`` must divide over the shards."""
-    count, shard = mesh_shard(mesh, data_axes)
-    if n % count:
-        raise ValueError(f"table rows {n} not divisible over {count} mesh "
-                         f"shards")
-    per = n // count
-    return shard * per, (shard + 1) * per
-
-
-def _line(mesh, d: int) -> list:
-    """Global ranks along mesh dimension ``d`` through this rank, in
-    coordinate order."""
-    idx = list(mesh.get_coordinate())
-    idx[d] = slice(None)
-    return mesh.mesh[tuple(idx)].tolist()
-
-
-def gather_shards(x: torch.Tensor, mesh, data_axes=("data",), *,
-                  dim: int = 0) -> torch.Tensor:
-    """Every shard's ``x`` concatenated along ``dim`` in shard order: one
-    ``all_gather`` along each data dimension, the last first, each
-    gathered part placed by its rank's coordinate."""
-    import torch.distributed as dist
-
-    x = x.contiguous()
-    names = mesh.mesh_dim_names
-    for a in reversed(_axes(data_axes)):
-        d = names.index(a)
-        group = mesh.get_group(d)
-        parts = [torch.empty_like(x) for _ in range(mesh.size(d))]
-        dist.all_gather(parts, x, group=group)
-        x = torch.cat([parts[dist.get_group_rank(group, g)]
-                       for g in _line(mesh, d)], dim=dim)
-    return x
-
-
 def broadcast_from_first(obj, mesh):
     """``obj`` as the mesh's first rank (coordinate 0 on every dimension)
     holds it, on every rank: one broadcast along each dimension."""
@@ -131,7 +66,7 @@ def broadcast_from_first(obj, mesh):
 
     for d in range(mesh.ndim):
         box = [obj]
-        dist.broadcast_object_list(box, src=_line(mesh, d)[0],
+        dist.broadcast_object_list(box, src=mesh_line(mesh, d)[0],
                                    group=mesh.get_group(d))
         obj = box[0]
     return obj

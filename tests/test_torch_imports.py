@@ -74,7 +74,8 @@ def test_port_covers_the_slice_layout():
                 "configs/mamba2_370m.py", "models/rotary.py",
                 "models/ffn.py", "models/attention.py", "models/lm.py",
                 "models/lm_serving.py", "launch/serve.py",
-                "models/mamba2.py"):
+                "models/mamba2.py", "models/moe.py",
+                "models/moe_sharded.py"):
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
 
@@ -134,6 +135,7 @@ def _entry_points():
     lm_cfg = configs.get_config("qwen3-14b", smoke=True)
     ssm_cfg = configs.get_config("mamba2-370m", smoke=True)
     hybrid_cfg = configs.get_config("zamba2-2.7b", smoke=True)
+    moe_cfg = configs.get_config("deepseek-v3-671b", smoke=True)
 
     def generate(cfg=lm_cfg, **kw):
         model = lm.LM(cfg, **kw)
@@ -145,12 +147,14 @@ def _entry_points():
         return toks
 
     def carried(cfg=lm_cfg, **kw):
-        """A CPU model's parameters in JAX's layout (block leaves stacked
-        on axis 0, the hybrid's shared block as it is), carried to
-        ``**kw``'s device."""
+        """A CPU model's parameters in JAX's layout (each stack's block
+        leaves stacked on axis 0, the hybrid's shared block as it is),
+        carried to ``**kw``'s device."""
         tree = _numpy(lm.param_tree(lm.LM(cfg, device="cpu")))
-        tree["blocks"] = _stack([tree["blocks"][str(i)]
-                                 for i in range(cfg.n_layers)])
+        for name in ("blocks", "dense_blocks", "moe_blocks"):
+            if name in tree:
+                tree[name] = _stack([tree[name][str(i)]
+                                     for i in range(len(tree[name]))])
         return convert.lm_params(tree, cfg, **kw)
 
     def serve_main(arch, **kw):
@@ -198,6 +202,15 @@ def _entry_points():
         "convert.lm_params[hybrid]": lambda **kw: carried(hybrid_cfg, **kw),
         "lm.make_cache[hybrid]": lambda **kw: lm.make_cache(hybrid_cfg, 1, 8,
                                                             **kw),
+        "lm.LM[moe]": lambda **kw: lm.LM(moe_cfg, **kw),
+        "lm_serving.greedy_generate[moe]": lambda **kw: generate(moe_cfg,
+                                                                 **kw),
+        "launch.serve.main[moe]": lambda **kw: serve_main("deepseek-v3-671b",
+                                                          **kw),
+        "launch.serve.main[kimi]": lambda **kw: serve_main("kimi-k2-1t-a32b",
+                                                           **kw),
+        "convert.lm_params[moe]": lambda **kw: carried(moe_cfg, **kw),
+        "lm.make_cache[moe]": lambda **kw: lm.make_cache(moe_cfg, 1, 8, **kw),
     }
 
 

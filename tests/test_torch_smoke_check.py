@@ -1104,3 +1104,64 @@ def test_param_count_gap_names_each_leaf(smoke):
     assert gap and all(k.endswith(".bias") for k in gap)
     assert sum(p.numel() for p in dense.parameters()) == \
         dense.cfg.n_params() + sum(gap.values())
+
+
+def test_f32_param_generation_runs_on_the_cpu(smoke):
+    """Phase 13 (f)'s code path at the smoke config's size: ``qwen3``
+    generating in bf16 on f32 parameters, each block cast at its use."""
+    out = smoke.lm_generate_f32_params(torch.device("cpu"), smoke=True, b=2,
+                                       prompt=16, steps=4)
+    assert (out["dtype"], out["param_dtype"]) == ("bfloat16", "float32")
+    assert out["whole_copy_bytes"] * 2 < out["params_bytes"]
+    assert (out["batch"], out["steps"]) == (2, 4)
+
+
+def test_moe_phase_runs_on_the_cpu(smoke, monkeypatch):
+    """Phase 15's code paths at the smoke configs' size, the CUDA events,
+    graph replays and profiles stubbed: the sharded MoE's four ``gloo``
+    rank processes import this module by name."""
+    import sys
+
+    _stub_timers(smoke, monkeypatch)
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)
+    monkeypatch.syspath_prepend(str(ROOT))
+    out = smoke.moe_phase(torch.device("cpu"), smoke=True)
+    assert [p["arch"] for p in out["parity"]] == ["deepseek-v3-smoke",
+                                                  "kimi-k2-smoke"]
+    assert all(p["aux"]["moe_drop_frac"] > 0 for p in out["parity"])
+    sharded = out["sharded"]
+    assert sharded["ranks"] == 4 and sharded["drop_frac"] > 0
+    assert sharded["no_drop_max_abs_err"] < 1e-4
+    b = out["decode_vs_forward"]
+    assert b["n_layers"] == 2 and set(b["beyond_n_params"]) == {"mtp"}
+    assert b["beyond_n_params"]["mtp"] < 0  # n_params() counts a MoE FFN
+    assert b["params"] == b["n_params"] + b["beyond_n_params"]["mtp"]
+    for g in out["generate"]:
+        assert g["steps"] == 6 and g["dtype"] == g["param_dtype"] == \
+            "bfloat16"
+        assert g["decode_bound_ms"] > 0 and g["prefill_bound_ms"] > 0
+        assert 0.0 <= g["moe_drop_frac"] < 1.0
+    ds, kimi = out["generate"]
+    assert ds["decode_bytes"]["cache"] > 0 and kimi["n_layers"] == 2
+
+
+def test_moe_bounds_count_every_expert(smoke):
+    """A decode step's bytes hold every expert's weights (the GShard
+    einsum runs them all) and the head once; the prefill's bf16 products
+    grow with the capacity factor."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(configs.get_config("kimi-k2-1t-a32b",
+                                                 smoke=True),
+                              param_dtype="bfloat16", dtype="bfloat16")
+    model = lm.init(cfg, device="cpu")
+    bounds = smoke.moe_bounds(model, 2, 32, 4)
+    experts = 3 * cfg.n_experts * cfg.d_model * cfg.moe_d_ff * 2
+    head = cfg.d_model * cfg.vocab_padded * 2
+    assert bounds["decode_bytes"]["weights"] > experts + head
+    wide = dataclasses.replace(cfg, capacity_factor=8.0)
+    model.cfg = wide
+    more = smoke.moe_bounds(model, 2, 32, 4)
+    assert more["capacity"] > bounds["capacity"]
+    assert more["prefill_flops"]["bf16"] > bounds["prefill_flops"]["bf16"]

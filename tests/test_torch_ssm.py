@@ -386,7 +386,7 @@ def test_own_init_has_jax_names_shapes_and_dtypes(arch):
         np.asarray, jlm.init(jax.random.PRNGKey(0), jcfg))
     model = tlm.init(tcfg, seed=0, device="cpu")
     named = dict(model.named_parameters())
-    assert set(named) == convert.lm_names(params, tcfg.n_layers)
+    assert set(named) == convert.lm_names(params)
     for name, t in named.items():
         ref, got = convert.lm_leaf(params, name), t.detach().numpy()
         assert got.shape == ref.shape and got.dtype == np.float32, name
