@@ -308,14 +308,39 @@ Phases (any failure raises and exits non-zero):
      parameters (``param_dtype="bfloat16"``, the router f32) at their own
      capacity factor: ``greedy_generate`` with B=8, a 512-token prompt and
      64 steps, timed as 13 (c), beside ``moe_bounds``, with the prompt's
-     ``moe_drop_frac``.
+     ``moe_drop_frac``;
+ 16. LM training (``models/lm.loss_fn`` with remat, ``train/step``,
+     ``train/optimizer``, ``checkpoint/ckpt``, ``launch/train``; plain
+     torch, no custom kernel: the reference's training path reaches no
+     Pallas kernel), in a process of its own right after 15: (a) the
+     ``stablelm``, ``deepseek-v3`` (MLA, MTP, the MoE aux), ``mamba2`` and
+     ``zamba2`` smoke configs in f32, three ``make_train_step`` steps on
+     the card and on the CPU from the same parameters and batches under
+     AdamW f32, AdamW int8 with two microbatches and Adafactor with two:
+     every loss, metric and parameter within 1e-4 (but up to
+     ``TRAIN_FLIP_SHARE`` of a leaf at Adam's noise floor, each within the
+     steps' summed learning rates); (b) ``stablelm-1.6b`` at full width
+     and depth, f32 parameters, bf16 compute, its ``TRAIN_PLANS`` plan as
+     ``launch.train`` assembles it (four microbatches, remat, int8 first
+     moment, the cosine schedule over the run), B=8 × 2,048 tokens of
+     ``SyntheticLM(seed=0)``: the parameter count against ``n_params()``,
+     the first step's loss and gradient norm with remat against without
+     and one microbatch against four, each within 1e-2 relative, then
+     eight steps, every loss finite and the last below the first, timed
+     with CUDA events and one step profiled (device time, idle share),
+     beside ``train_bounds``, peak memory beside the parameters, f32
+     gradients and moments; (c) ``mamba2-370m`` at full width (f32
+     parameters, bf16 compute, B=4 × 512) through ``launch.train.main``:
+     every gradient leaf of the first step finite, four steps straight
+     against two, a checkpoint and two resumed (steps 3–4 within rtol
+     1e-4), the checkpoint's bytes and its save and restore seconds.
 
 The ``launches`` of the kernel report sum the main paths' counts (phase 4,
 7, 9, 10 and 11's serving passes, phase 11's ranks included, 11 (d)'s
 too, phase 8's
 searches for the gather kernels; phase 5 for the scans); phase 12 (b)'s
 are apart, as ``envelope_launches``; ``chip_smoke.json`` keeps each
-phase's apart. The phases run in the order 1, 13 (f), 15, 2, 12 (a, b),
+phase's apart. The phases run in the order 1, 13 (f), 15, 16, 2, 12 (a, b),
 3, 4, 12 (c), 5, 10, 11 (a–c), 6–8, 9 (a), 11 (d), 9 (b), 13 (a–e), 14.
 
 The line before the last is the JSON kernel report; the last line is
@@ -5180,7 +5205,370 @@ def moe_phase(device, *, smoke: bool = False) -> dict:
     return out
 
 
-CHILD_PHASES = {"13 (f)": "lm_generate_f32_params", "15": "moe_phase"}
+# ---------------------------------------------------------------------------
+# phase 16: LM training (the loss, remat, microbatches, the optimizers,
+# checkpoints and the launcher)
+# ---------------------------------------------------------------------------
+
+TRAIN_SMOKE_ARCHS = ("stablelm-1.6b", "deepseek-v3-671b", "mamba2-370m",
+                     "zamba2-2.7b")
+TRAIN_SMOKE_PLANS = {  # (a): tests/test_torch_train_step.py's settings
+    "adamw-f32": dict(optimizer="adamw", state_dtype="float32",
+                      microbatches=1),
+    "adamw-int8-mb2": dict(optimizer="adamw", state_dtype="int8",
+                           microbatches=2),
+    "adafactor-mb2": dict(optimizer="adafactor", microbatches=2),
+}
+TRAIN_SMOKE_STEPS, TRAIN_SMOKE_B, TRAIN_SMOKE_S = 3, 4, 32
+TRAIN_ATOL = TRAIN_RTOL = 1e-4
+# (a): Adam divides each element's moment by its own root second moment, so
+# an element whose gradient sits at the float noise floor (a sum that
+# cancels) moves by anything up to ±lr on either device, and an int8 code
+# at a half quantum rounds either way; at most this share of a leaf may so
+# differ, each element by at most the steps' summed learning rates
+TRAIN_FLIP_SHARE = 1e-3
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 8
+TRAIN_AGREE = 1e-2  # (b): the first step's loss and norm across settings
+SSM_TRAIN_ARCH = "mamba2-370m"
+SSM_TRAIN_B, SSM_TRAIN_S = 4, 512  # (c): a multiple of the SSD chunk 256
+SSM_TRAIN_RTOL = 1e-4  # tests/test_checkpoint.py's resume tolerance
+
+
+def _smoke_plan(name: str):
+    from repro_torch.train.step import TrainPlan
+
+    return TrainPlan(**TRAIN_SMOKE_PLANS[name], lr=1e-3, warmup=2,
+                     total_steps=10)
+
+
+def _train_batch(cfg, b: int, s: int, step: int, device) -> dict:
+    from repro_torch.data.pipeline import BatchSpec, SyntheticLM
+    from repro_torch.launch.train import _adapt_batch
+
+    raw = SyntheticLM(BatchSpec(b, s, cfg.vocab), seed=0).batch_at(step)
+    return _adapt_batch(cfg, raw, device)
+
+
+def _held_flips(got, want, lr_sum: float, label: str) -> tuple:
+    """``got`` within TRAIN_ATOL/RTOL of ``want`` (both on the host), but up
+    to TRAIN_FLIP_SHARE of the elements within ``lr_sum``. -> (max abs
+    err, the elements outside the tolerance)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    diff = (got - want).abs()
+    off = diff > TRAIN_ATOL + TRAIN_RTOL * want.abs()
+    n_off = int(off.sum())
+    if n_off > TRAIN_FLIP_SHARE * max(want.numel(), 1) or (
+            n_off and float(diff[off].max()) > lr_sum):
+        raise AssertionError(
+            f"phase {label}: {n_off} of {want.numel()} elements outside atol "
+            f"{TRAIN_ATOL}, rtol {TRAIN_RTOL}, max abs err "
+            f"{float(diff.max())} (learning rates {lr_sum})")
+    return float(diff.max()), n_off
+
+
+def train_parity(arch: str, plan_name: str, device) -> dict:
+    """(a) One smoke config in f32, three ``make_train_step`` steps on the
+    card and on the CPU from the same parameters and batches: every loss
+    and metric within TRAIN_ATOL/RTOL, every parameter too (but the
+    TRAIN_FLIP_SHARE of Adam's noise-floor elements)."""
+    from repro_torch import configs
+    from repro_torch.train import step as ts
+
+    cfg = configs.get_config(arch, smoke=True)
+    plan = _smoke_plan(plan_name)
+    cpu, _ = ts.init_state(cfg, plan, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to(device)
+    ocfg, oinit, _ = ts._opt(plan)
+    runs = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        fn = ts.make_train_step(cfg, plan)
+        opt = oinit(dict(model.named_parameters()), ocfg)
+        losses = []
+        for i in range(TRAIN_SMOKE_STEPS):
+            opt, m = fn(model, opt, _train_batch(
+                cfg, TRAIN_SMOKE_B, TRAIN_SMOKE_S, i, model.device))
+            losses.append({k: float(v) for k, v in m.items()})
+        runs[name] = losses
+    label = f"16 (a) {cfg.name} {plan_name}"
+    loss_err = 0.0
+    for c, d in zip(runs["cpu"], runs["card"]):
+        for k in c:
+            loss_err = max(loss_err, abs(d[k] - c[k]))
+            if abs(d[k] - c[k]) > TRAIN_ATOL + TRAIN_RTOL * abs(c[k]):
+                raise AssertionError(f"phase {label}: {k} card {d[k]} cpu "
+                                     f"{c[k]}")
+    sched = ocfg.lr
+    lr_sum = 2 * sum(float(sched(torch.tensor(i + 1)))
+                     for i in range(TRAIN_SMOKE_STEPS))
+    param_err, flips = 0.0, 0
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        err, n = _held_flips(q, p, lr_sum, f"{label} {name}")
+        param_err, flips = max(param_err, err), flips + n
+    log(f"phase {label} f32, {TRAIN_SMOKE_STEPS} steps card against CPU: "
+        f"loss and metrics max abs err {loss_err:.3e}, parameters "
+        f"{param_err:.3e} ({flips} elements at Adam's noise floor)")
+    return dict(arch=cfg.name, plan=plan_name, losses=runs["card"],
+                loss_max_abs_err=loss_err, param_max_abs_err=param_err,
+                noise_floor_elements=flips)
+
+
+def train_bounds(model, b: int, s: int, *, remat: bool) -> dict:
+    """The least time of one training step of ``model`` on ``b`` × ``s``
+    tokens (989 TFLOP/s bf16, 67 TFLOP/s f32, 3.35 TB/s), counted as the
+    code does the work: the blocks' products in bf16, 2·N·T forward, 4·N·T
+    backward and with remat 2·N·T more (8·N·T), N the block parameters;
+    the head's products in f32 (``unembed``), forward, the CE chunks'
+    recompute and backward (8·T·D·V); the attention's scores in f32 over
+    the full (S, S) square per head as the q-chunked code computes them,
+    and its probabilities times v in bf16, each 2·B·H·S²·hd a pass, over
+    the same passes as the blocks. Every term is linear in the batch, so
+    microbatches do not change it."""
+    cfg = model.cfg
+    blocks = sum(p.numel() for p in model.blocks.parameters())
+    t = b * s
+    passes = 4 if remat else 3  # forward (+ recompute) + 2 backward
+    attn = cfg.n_layers * 2 * b * cfg.n_heads * s * s * cfg.head_dim
+    bf16 = 2 * passes * blocks * t + passes * attn
+    head = 8 * t * cfg.d_model * cfg.vocab_padded
+    f32 = head + passes * attn
+    n = sum(p.numel() for p in model.parameters())
+    by = dict(bf16_ms=bf16 / BF16_FLOPS * 1e3, f32_ms=f32 / F32_FLOPS * 1e3)
+    return dict(bound_ms=max(by.values()), bound_by=max(by, key=by.get),
+                bound_parts_ms=by, flops=dict(bf16=bf16, f32=f32, head=head,
+                                              attention_pass=attn),
+                block_params=blocks, params=n)
+
+
+def train_full_width(device, *, smoke: bool = False, b: int = TRAIN_B,
+                     s: int = TRAIN_S, steps: int = TRAIN_STEPS) -> dict:
+    """(b) ``stablelm-1.6b`` at full width and depth, f32 parameters, bf16
+    compute, its ``TRAIN_PLANS`` plan as ``launch.train`` assembles it
+    (cosine schedule over the run): the first step's loss and gradient
+    norm with remat against without (four microbatches) and one microbatch
+    against four (remat), each within TRAIN_AGREE; then ``steps`` steps,
+    every loss finite and the last below the first, timed with CUDA events
+    and one profiled, beside ``train_bounds``; peak memory beside the
+    parameters, gradients and moments."""
+    from repro_torch import configs
+    from repro_torch.launch.plans import TRAIN_PLANS
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as ts
+
+    cfg = configs.get_config(TRAIN_ARCH, smoke=smoke)
+    base = TRAIN_PLANS[TRAIN_ARCH]
+    plan = ts.TrainPlan(microbatches=base.microbatches, remat=base.remat,
+                        optimizer=base.optimizer,
+                        state_dtype=base.state_dtype,
+                        warmup=max(1, steps // 10), total_steps=steps)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+    model, opt = ts.init_state(cfg, plan, seed=0, device=device)
+    gap = param_count_gap(model)
+    n_model = sum(p.numel() for p in model.parameters())
+    if n_model - sum(gap.values()) != cfg.n_params():
+        raise AssertionError(f"phase 16 (b): {n_model} parameters, "
+                             f"n_params() {cfg.n_params()}, gap {gap}")
+    batches = [_train_batch(cfg, b, s, i, device) for i in range(steps)]
+    first, peaks = {}, {}
+    for name, over in (("no remat, 4 microbatches", dict(remat=False)),
+                       ("remat, 4 microbatches", {}),
+                       ("remat, 1 microbatch", dict(microbatches=1))):
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        loss, _, grads = ts.accumulate_grads(
+            model, batches[0], dataclasses.replace(plan, **over))
+        first[name] = dict(loss=float(loss),
+                           grad_norm=float(topt.global_norm(grads)))
+        del grads
+        if device.type == "cuda":
+            peaks[name] = torch.cuda.max_memory_allocated() - resident
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    want = first["remat, 4 microbatches"]
+    for name, got in first.items():
+        for k in ("loss", "grad_norm"):
+            if abs(got[k] - want[k]) > TRAIN_AGREE * abs(want[k]):
+                raise AssertionError(f"phase 16 (b): the first step's {k} "
+                                     f"{got[k]} ({name}) against {want[k]}")
+    fn = ts.make_train_step(cfg, plan)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)] \
+        if device.type == "cuda" else []
+    losses = []
+    for i, batch in enumerate(batches):
+        if ev:
+            ev[i].record()
+        opt, m = fn(model, opt, batch)
+        if ev:
+            ev[i + 1].record()
+        losses.append(m["loss"])
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"phase 16 (b): losses {losses}")
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)] \
+        if ev else []
+    peak = (torch.cuda.max_memory_allocated() - resident
+            if device.type == "cuda" else 0)
+    state = dict(
+        params=sum(p.numel() * p.element_size() for p in model.parameters()),
+        grads_f32=4 * n_model,
+        moments=_nbytes(opt["m"]) + _nbytes(opt["v"]))
+    out = dict(config=cfg.name, dtype=cfg.dtype, plan=dataclasses.asdict(plan),
+               batch=b, seq=s, n_params=cfg.n_params(),
+               first_step=first, losses=losses, step_ms=step_ms,
+               peak_memory_bytes=peak, first_step_peak_bytes=peaks,
+               state_bytes=state,
+               **train_bounds(model, b, s, remat=plan.remat))
+    if device.type == "cuda":
+        log(f"phase 16 (b) {cfg.name}: one training step, profiled:")
+        out["profile"] = profile_batch(lambda: fn(model, opt, batches[-1]))
+        med = float(np.median(step_ms))
+        out.update(step_ms_median=med,
+                   step_device_ms=out["profile"]["device_ms"],
+                   step_idle_share=1.0 - out["profile"]["device_ms"] / med,
+                   tokens_per_s=b * s * 1e3 / med)
+        gb = {k: v / 1e9 for k, v in state.items()}
+        parts = out["bound_parts_ms"]
+        log(f"phase 16 (b) {cfg.name} f32 parameters, {cfg.dtype} compute, "
+            f"B={b} x {s}, {plan.microbatches} microbatches, remat "
+            f"{plan.remat}, {plan.state_dtype} first moment: {n_model} "
+            f"parameters; first step loss/grad norm {first}; losses "
+            f"{[round(x, 4) for x in losses]}; step (CUDA events) median "
+            f"{med:.1f} ms (min {min(step_ms):.1f}, max {max(step_ms):.1f}), "
+            f"device {out['step_device_ms']:.1f} ms, idle share "
+            f"{out['step_idle_share']:.3f}; bound {out['bound_ms']:.1f} ms by "
+            f"{out['bound_by']} (bf16 blocks and attention "
+            f"{parts['bf16_ms']:.1f} ms at 989 TFLOP/s, f32 head and scores "
+            f"{parts['f32_ms']:.1f} ms at 67 TFLOP/s); "
+            f"{out['tokens_per_s']:.0f} tokens/s; peak memory of the "
+            f"{steps} steps {peak / 1e9:.2f} GB (first steps: "
+            + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in peaks.items())
+            + f" GB) beside parameters {gb['params']:.2f} GB, "
+            f"f32 gradients {gb['grads_f32']:.2f} GB, moments "
+            f"{gb['moments']:.2f} GB")
+    return out
+
+
+def ssm_train_cli(device, *, smoke: bool = False, b: int = SSM_TRAIN_B,
+                  s: int = SSM_TRAIN_S) -> dict:
+    """(c) ``mamba2-370m`` at full width through ``launch.train.main``
+    (f32 parameters, bf16 compute): every gradient leaf of the first step
+    finite (the SSD scan's mask before its exp); four steps straight
+    against two, a checkpoint and two resumed, steps 3-4's losses within
+    SSM_TRAIN_RTOL; the checkpoint's bytes and its save and restore
+    seconds."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train
+    from repro_torch.launch.plans import TRAIN_PLANS
+    from repro_torch.train import step as ts
+
+    cfg = configs.get_config(SSM_TRAIN_ARCH, smoke=smoke)
+    dev = str(device)
+    base = ["--arch", SSM_TRAIN_ARCH, "--global-batch", str(b), "--seq-len",
+            str(s), "--log-every", "1", "--device", dev] + (
+        ["--smoke"] if smoke else [])
+    plan = TRAIN_PLANS[SSM_TRAIN_ARCH]
+    plan = ts.TrainPlan(remat=plan.remat, state_dtype=plan.state_dtype,
+                        warmup=1, total_steps=4)
+    model, opt = ts.init_state(cfg, plan, seed=0, device=device)
+    _, _, grads = ts.accumulate_grads(model, _train_batch(cfg, b, s, 0,
+                                                          device), plan)
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    if bad:
+        raise AssertionError(f"phase 16 (c): non-finite gradients in {bad}")
+    del grads
+    timing = {}
+    if device.type == "cuda":  # one step timed, one profiled, warm
+        fn = ts.make_train_step(cfg, plan)
+        batch = _train_batch(cfg, b, s, 0, device)
+        opt, _ = fn(model, opt, batch)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        opt, _ = fn(model, opt, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        log(f"phase 16 (c) {cfg.name}: one training step, profiled:")
+        prof = profile_batch(lambda: fn(model, opt, batch))
+        step_ms = ev[0].elapsed_time(ev[1])
+        timing = dict(step_ms=step_ms, step_device_ms=prof["device_ms"],
+                      step_idle_share=1.0 - prof["device_ms"] / step_ms,
+                      profile=prof)
+    with tempfile.TemporaryDirectory() as d:
+        straight = train.main(base + ["--steps", "4"])
+        legs = train.main(base + ["--steps", "2", "--schedule-total", "4",
+                                  "--ckpt", d, "--ckpt-every", "2"])
+        resumed = train.main(base + ["--steps", "4", "--ckpt", d,
+                                     "--ckpt-every", "2"])
+        ck_bytes = sum(f.stat().st_size
+                       for f in pathlib.Path(d, "step_00000002").iterdir())
+        tree = {"params": dict(model.named_parameters()), "opt": opt}
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        ckpt.save(f"{d}/timed", 1, tree)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        _, back, _ = ckpt.restore(f"{d}/timed", like=tree)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+    if not all(np.isfinite(straight)) or len(resumed) != 2:
+        raise AssertionError(f"phase 16 (c): straight {straight}, resumed "
+                             f"{resumed}")
+    if not np.allclose(legs, straight[:2], rtol=SSM_TRAIN_RTOL, atol=0) or \
+            not np.allclose(resumed, straight[2:], rtol=SSM_TRAIN_RTOL,
+                            atol=0):
+        raise AssertionError(f"phase 16 (c): straight {straight}, legs "
+                             f"{legs} + resumed {resumed}")
+    for k, v in dict(model.named_parameters()).items():
+        if not torch.equal(back["params"][k], v):
+            raise AssertionError(f"phase 16 (c): {k} restored unequal")
+    out = dict(config=cfg.name, dtype=cfg.dtype, batch=b, seq=s,
+               straight=straight, legs=legs, resumed=resumed,
+               resume_max_rel_err=float(np.max(np.abs(
+                   np.subtract(resumed, straight[2:]))
+                   / np.abs(straight[2:]))),
+               checkpoint_bytes=ck_bytes, save_s=save_s,
+               restore_s=restore_s, **timing)
+    log(f"phase 16 (c) {cfg.name} through launch.train.main, B={b} x {s}: "
+        f"first-step gradients finite; losses straight "
+        f"{[round(x, 5) for x in straight]}, resumed steps 3-4 "
+        f"{[round(x, 5) for x in resumed]} (max rel err "
+        f"{out['resume_max_rel_err']:.2e}, rtol {SSM_TRAIN_RTOL}); "
+        f"checkpoint {ck_bytes / 1e9:.3f} GB, save {save_s:.2f} s, restore "
+        f"{restore_s:.2f} s (warm page cache)"
+        + (f"; a step {timing['step_ms']:.1f} ms (CUDA events), device "
+           f"{timing['step_device_ms']:.1f} ms, idle share "
+           f"{timing['step_idle_share']:.3f}" if timing else ""))
+    return out
+
+
+def train_phase(device, *, smoke: bool = False) -> dict:
+    """Phase 16: (a) card against CPU on the four smoke configs under the
+    three optimizer settings, (b) ``stablelm-1.6b`` at full width, (c)
+    ``mamba2-370m`` at full width through the launcher. ``smoke`` runs
+    (b) and (c) on the smoke configs at small sizes (a CPU rehearsal)."""
+    t = time.perf_counter()
+    out = dict(parity=[train_parity(a, p, device) for a in TRAIN_SMOKE_ARCHS
+                       for p in TRAIN_SMOKE_PLANS])
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["full_width"] = train_full_width(
+        device, smoke=smoke, **(dict(b=4, s=32, steps=8) if smoke else {}))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["ssm_cli"] = ssm_train_cli(
+        device, smoke=smoke, **(dict(b=4, s=32) if smoke else {}))
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 16 done in {out['seconds']:.1f} s")
+    return out
+
+
+CHILD_PHASES = {"13 (f)": "lm_generate_f32_params", "15": "moe_phase",
+                "16": "train_phase"}
 
 
 def child_phase(phase: str, out_path: str) -> None:
@@ -5249,8 +5637,8 @@ def main() -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda")
-    # phases 13 (f) and 15 — the largest models, each in a process of its
-    # own while nothing else of this script is on the card
+    # phases 13 (f), 15 and 16 — the largest models, each in a process of
+    # its own while nothing else of this script is on the card
     big = {phase: run_child_phase(phase) for phase in CHILD_PHASES}
 
     # phase 2
@@ -5433,7 +5821,7 @@ def main() -> int:
         profile_graph=prof_graph, launches=launches,
         launches_by_phase=launches_by_phase, updates=upd["inserts"],
         sift=sift, tiered=tier, shards=shards, mesh=mesh, lm=lm_out,
-        ssm=ssm_out, moe=big["15"],
+        ssm=ssm_out, moe=big["15"], train=big["16"],
         static_checks=dict(lint=lint, envelope=envelope, syncs=syncs),
         default_plan_recall=robust_recall, recall_target=target,
         seconds=time.perf_counter() - T0), indent=1))

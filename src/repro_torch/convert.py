@@ -13,12 +13,14 @@ table's epoch (cold state and hot buffers) across mid-stream;
 ``sharded_ivf`` carries a ``ShardedIVF`` (per-shard indexes), or one
 shard's slice of it for a mesh rank, across; ``lm_params`` carries an
 LM's ``lm.init`` tree (any family, MTP included, f32 or bf16) into an
-``lm.LM``.
+``lm.LM``, and ``lm_tree`` takes the port's parameters (or an optimizer
+state keyed by them) back to that layout.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.common.device import resolve_device
 from repro_torch.common.nn import MLP
@@ -253,3 +255,49 @@ def lm_params(params: dict, cfg, *, device=None) -> lm.LM:
             # which holds every bf16 value exactly
             t.copy_(torch.tensor(a.astype(np.float32)))
     return model
+
+
+def _numpy(v):
+    """A tensor (bf16 through f32, which holds it exactly: numpy has no
+    bf16 of its own) or a dict of them, as numpy."""
+    if isinstance(v, dict):
+        return {k: _numpy(x) for k, x in v.items()}
+    t = v.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _stacked(vals: list):
+    if isinstance(vals[0], dict):
+        return {k: _stacked([v[k] for v in vals]) for k in vals[0]}
+    return np.stack(vals)
+
+
+def lm_tree(named) -> dict:
+    """The inverse of ``lm_params``: an ``lm.LM``'s parameters, or a dict
+    by the port's parameter names of tensors or of dicts of tensors (an
+    optimizer's moments: ``{"q", "scale"}``, ``{"vr", "vc"}``), as the
+    JAX ``lm.init`` tree of numpy leaves: ``a.b.c`` at ``a/b/c``, and a
+    stack's ``<stack>.{i}.<path>`` for every layer i stacked on axis 0 at
+    ``<stack>/<path>``. bf16 leaves come back as f32 arrays of the same
+    values."""
+    if isinstance(named, nn.Module):
+        named = dict(named.named_parameters())
+    tree: dict = {}
+    layers: dict = {}
+
+    def put(path, v):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+
+    for name, v in named.items():
+        parts = name.split(".")
+        if parts[0] in _STACKS:
+            layers.setdefault((parts[0], *parts[2:]), {})[int(parts[1])] = \
+                _numpy(v)
+        else:
+            put(parts, _numpy(v))
+    for path, by_layer in layers.items():
+        put(path, _stacked([by_layer[i] for i in range(len(by_layer))]))
+    return tree

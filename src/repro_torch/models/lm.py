@@ -1,4 +1,5 @@
-"""LM assembly: blocks, parameter init, the forward, prefill and decode.
+"""LM assembly: blocks, parameter init, the forward, the training loss,
+prefill and decode.
 
 Port of ``repro.models.lm`` for its four families:
 
@@ -20,10 +21,9 @@ model's device and cast to ``cfg.param_dtype`` as ``lm.init`` does: every
 leaf but the numerics-sensitive ones (``_KEEP_F32``: the router, the SSM's
 ``A_log``, ``D``, ``dt_bias``), which stay f32. With ``mtp_depth`` the
 model holds the multi-token-prediction parameters (``mtp``: ``norm_h``,
-``norm_e``, ``proj``, a dense ``block``, ``norm_f``); the training loss
-that uses them is not ported yet (ROADMAP Queue 1 item 4.4). The
-computation runs on plain dicts of tensors by those names, as the
-reference's functions do.
+``norm_e``, ``proj``, a dense ``block``, ``norm_f``), which ``loss_fn``
+trains through ``_mtp_loss``. The computation runs on plain dicts of
+tensors by those names, as the reference's functions do.
 
 Mixed precision: each block's parameters are used in ``cfg.dtype``, the
 ``_KEEP_F32`` leaves in f32. ``hidden``, ``prefill`` and ``decode_step``
@@ -47,8 +47,19 @@ over the MoE blocks.
 Modality stubs: vlm prepends projected patch embeddings, audio feeds
 precomputed frame embeddings straight to the stack.
 
-The training loss is not ported yet, so ``hidden``, ``prefill`` and
-``decode_step`` run without autograd.
+Training: ``forward`` is the forward with autograd; with ``remat`` each
+block (the hybrid: each group of ``hybrid_attn_every`` mamba layers and
+its shared block, as ``_hybrid_forward`` does) runs under
+``torch.utils.checkpoint``, its cast to the compute dtype inside, so the
+backward recomputes the block's activations and its cast copy instead of
+holding them, as the reference's ``jax.checkpoint`` around
+``_cast_block`` does. ``loss_fn`` is the reference's: next-token CE in
+sequence chunks (``chunked_ce``, each chunk under checkpoint so that one
+chunk's (B, c, V) f32 logits live at a time, never the (T, V) matrix),
+the z-loss (1e-4 · mean logZ²), the MoE aux (``router_aux_coef`` ·
+``moe_lb_loss`` + 1e-4 · ``moe_z_loss``) and, with ``mtp_depth``, MTP's CE
+at ``MTP_COEF``. ``hidden``, ``prefill`` and ``decode_step`` serve and run
+without autograd.
 """
 from __future__ import annotations
 
@@ -56,6 +67,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import nn as cnn
 from repro_torch.common.device import resolve_device
@@ -67,6 +79,7 @@ from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.rotary import sinusoidal
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid")
+MTP_COEF = 0.1
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 
 
@@ -318,13 +331,15 @@ _CACHE_OF = {"blocks": "attn", "dense_blocks": "dense", "moe_blocks": "moe"}
 
 
 def _run_stack(model: LM, blocks: dict | None, x, cache: dict | None,
-               attn_fn, mamba_fn) -> tuple:
+               attn_fn, mamba_fn, *, remat: bool = False) -> tuple:
     """The layers in order: ``attn_fn(p, x, layer_cache) -> (x, aux)`` for
     an attention block, ``mamba_fn(p, x, layer_cache) -> x`` for a mamba
     block, ``p`` each block's parameters in the compute dtype (cast at use
     unless ``blocks`` holds a copy). The hybrid's shared block follows
     every ``hybrid_attn_every``-th mamba layer with group g's attention
-    cache. -> (x, the aux summed over the MoE blocks)."""
+    cache. With ``remat`` each block (the hybrid: each group) runs under
+    ``checkpoint``, its cast inside. -> (x, the aux summed over the MoE
+    blocks)."""
     cfg = model.cfg
     dt = compute_dtype(cfg)
 
@@ -338,19 +353,35 @@ def _run_stack(model: LM, blocks: dict | None, x, cache: dict | None,
         return None if cache is None else {k: v[i]
                                            for k, v in cache[kind].items()}
 
-    aux: dict = {}
+    def attn_unit(name, i):
+        return lambda y: attn_fn(params(name, i), y, at(_CACHE_OF[name], i))
+
+    def mamba_unit(i):
+        return lambda y: (mamba_fn(params("blocks", i), y, at("mamba", i)),
+                          {})
+
+    def group_unit(g, k):
+        def run(y):
+            for i in range(g * k, (g + 1) * k):
+                y = mamba_fn(params("blocks", i), y, at("mamba", i))
+            y, _ = attn_fn(params("shared_attn", None), y, at("attn", g))
+            return y, {}
+        return run
+
     if cfg.family in ("dense", "moe"):
-        for name in _stacks(model):
-            for i in range(len(getattr(model, name))):
-                x, a = attn_fn(params(name, i), x, at(_CACHE_OF[name], i))
-                for k, v in a.items():
-                    aux[k] = aux[k] + v if k in aux else v
-        return x, aux
-    k = cfg.hybrid_attn_every
-    for i in range(cfg.n_layers):
-        x = mamba_fn(params("blocks", i), x, at("mamba", i))
-        if cfg.family == "hybrid" and (i + 1) % k == 0:
-            x, _ = attn_fn(params("shared_attn", None), x, at("attn", i // k))
+        units = [attn_unit(name, i) for name in _stacks(model)
+                 for i in range(len(getattr(model, name)))]
+    elif cfg.family == "ssm":
+        units = [mamba_unit(i) for i in range(cfg.n_layers)]
+    else:
+        k = cfg.hybrid_attn_every
+        units = [group_unit(g, k) for g in range(cfg.n_layers // k)]
+    aux: dict = {}
+    for unit in units:
+        x, a = (checkpoint(unit, x, use_reentrant=False) if remat
+                else unit(x))
+        for key, v in a.items():
+            aux[key] = aux[key] + v if key in aux else v
     return x, aux
 
 
@@ -411,20 +442,134 @@ def unembed(model: LM, h: torch.Tensor) -> torch.Tensor:
 # forward / prefill / decode
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
-def hidden(model: LM, batch: dict, *, blocks: dict | None = None,
-           with_aux: bool = False):
-    """Full forward to the final-norm hidden states (B, S, D), cfg.dtype;
-    with ``with_aux``, (h, aux): the MoE aux losses (``AUX_KEYS``) summed
-    over the MoE blocks, empty for the other families."""
+def _forward(model: LM, batch: dict, blocks: dict | None, remat: bool
+             ) -> tuple:
     cfg = model.cfg
     x, positions = embed_inputs(model, batch)
     x, aux = _run_stack(
         model, blocks, x, None,
         lambda p, y, c: _block_prefill(p, cfg, y, positions, c),
-        lambda p, y, c: _mamba_block_prefill(p, cfg, y, c))
-    h = model.final_norm(x)
+        lambda p, y, c: _mamba_block_prefill(p, cfg, y, c), remat=remat)
+    return model.final_norm(x), aux
+
+
+def forward(model: LM, batch: dict, *, remat: bool = False) -> tuple:
+    """The forward with autograd (the reference's ``hidden(params, cfg,
+    batch, remat=)``): -> (the final-norm hidden states (B, S, D) in
+    cfg.dtype, the MoE aux losses (``AUX_KEYS``) summed over the MoE
+    blocks, empty for the other families). ``remat`` checkpoints each
+    block (the hybrid: each group)."""
+    return _forward(model, batch, None, remat)
+
+
+@torch.no_grad()
+def hidden(model: LM, batch: dict, *, blocks: dict | None = None,
+           with_aux: bool = False):
+    """``forward`` without autograd, to the final-norm hidden states
+    (B, S, D), cfg.dtype; with ``with_aux``, (h, aux)."""
+    h, aux = _forward(model, batch, blocks, False)
     return (h, aux) if with_aux else h
+
+
+# ---------------------------------------------------------------------------
+# loss (chunked cross-entropy)
+# ---------------------------------------------------------------------------
+
+def _pick_chunk(s: int, target: int = 2048) -> int:
+    for c in (target, 1024, 512, 256, 128, 64, 32, 16, 8, 4, 2, 1):
+        if c <= s and s % c == 0:
+            return c
+    return s
+
+
+def _ce_chunk(model: LM, hh: torch.Tensor, ll: torch.Tensor) -> tuple:
+    """One chunk's (summed nll, valid count, summed logZ² over the valid
+    positions)."""
+    logits = unembed(model, hh)  # (B, c, V) f32
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, ll.clamp_min(0).long()[..., None])[..., 0]
+    valid = (ll >= 0).float()
+    nll = (logz - gold) * valid
+    return nll.sum(), valid.sum(), (logz.square() * valid).sum()
+
+
+def chunked_ce(model: LM, h: torch.Tensor, labels: torch.Tensor, *,
+               chunk: int = 0) -> tuple:
+    """Mean next-token CE and mean logZ² over the positions whose label is
+    not negative, without materializing (T, V): each chunk of ``chunk``
+    positions (``_pick_chunk``'s, the largest power of two up to 2048
+    dividing S, unless given) runs under ``checkpoint``, so its logits are
+    recomputed in the backward. -> (ce, z_sq)."""
+    b, s, _ = h.shape
+    chunk = chunk or _pick_chunk(s)
+    parts = [checkpoint(_ce_chunk, model, h[:, c: c + chunk],
+                        labels[:, c: c + chunk], use_reentrant=False)
+             for c in range(0, s, chunk)]
+    nll, cnt, zsq = (torch.stack(t) for t in zip(*parts))
+    total_cnt = torch.clamp_min(cnt.sum(), 1.0)
+    return nll.sum() / total_cnt, zsq.sum() / total_cnt
+
+
+def loss_fn(model: LM, batch: dict, *, remat: bool = False,
+            z_loss_coef: float = 1e-4) -> tuple:
+    """Scalar training loss + metrics (``ce``, ``z_sq``, the ``AUX_KEYS``
+    for the moe family, ``mtp_ce`` with MTP, ``loss``). ``batch`` carries
+    ``labels`` (B, S_lab), the last S_lab positions' targets (a vlm's
+    patch prefix has none); a negative label is ignored."""
+    cfg = model.cfg
+    h, aux = forward(model, batch, remat=remat)
+    labels = batch["labels"]
+    h_lab = h[:, h.shape[1] - labels.shape[1]:]
+    ce, zsq = chunked_ce(model, h_lab, labels)
+    loss = ce + z_loss_coef * zsq
+    metrics = {"ce": ce, "z_sq": zsq}
+    if aux:
+        loss = loss + cfg.router_aux_coef * aux["moe_lb_loss"] \
+            + 1e-4 * aux["moe_z_loss"]
+        metrics.update(aux)
+    if cfg.mtp_depth and "tokens" in batch:
+        mtp_ce = _mtp_loss(model, h, batch)
+        loss = loss + MTP_COEF * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def _promoted(x: torch.Tensor, w: torch.Tensor) -> tuple:
+    """x and w in their promoted dtype (JAX's promotion of a mixed
+    product, which torch's matmul refuses)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt), w.to(dt)
+
+
+def _mtp_loss(model: LM, h: torch.Tensor, batch: dict) -> torch.Tensor:
+    """DeepSeek-V3 multi-token prediction (depth 1): predict token t+2 from
+    [h_t ; embed(token_{t+1})] through one extra block, shared unembedding.
+    The projection is in the promoted dtype of its input and its f32
+    weight, and the block runs in that dtype on its compute-dtype cast,
+    as the reference's type promotion has it."""
+    cfg, m = model.cfg, model.mtp
+    tokens, labels = batch["tokens"], batch["labels"]
+    b, s = tokens.shape
+    h_in = m.norm_h(h[:, : s - 1])
+    e_in = m.norm_e(model.embed.table[tokens[:, 1:]].to(h.dtype))
+    x, w = _promoted(torch.cat([h_in, e_in], dim=-1), m.proj.w)
+    x = x @ w
+    p = param_tree(m.block, compute_dtype(cfg))
+    if x.dtype != compute_dtype(cfg):
+        p = _tree_to(p, x.dtype)
+    positions = torch.arange(s - 1, dtype=torch.int32,
+                             device=x.device).expand(b, s - 1)
+    x, _ = _block_prefill(p, cfg, x, positions, None)
+    x = m.norm_f(x)
+    # the target of position t is labels[t+1] (= token t+2), t in 0..s-2
+    ce, _ = chunked_ce(model, x, labels[:, 1:])
+    return ce
+
+
+def _tree_to(tree: dict, dtype: torch.dtype) -> dict:
+    return {k: _tree_to(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,

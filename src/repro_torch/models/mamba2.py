@@ -90,6 +90,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (B,S,H,N). The chunk is ``min(chunk, S)`` and must divide S (a
     ``ValueError`` otherwise; nothing is padded). Returns (y (B,S,H,P),
     final_state (B,H,N,P)), all f32.
+
+    The intra-chunk decay exp(seg_l - seg_m) is masked before the exp
+    (-inf above the diagonal, so exp gives 0 there). The reference
+    exponentiates first and masks after: above the diagonal the exponent
+    is a positive sum of |dt·A| that passes f32's range once it exceeds
+    ≈ 88, and the backward then multiplies a zero cotangent by inf, a NaN
+    in the gradient with respect to dt (ROADMAP Queue 3). The forward's
+    values are the same either way.
     """
     b, s, h, p_dim = x.shape
     n = B_.shape[-1]
@@ -114,13 +122,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         seg = torch.cumsum(dA[:, c], dim=1)  # (B,L,H)
         lam = torch.exp(seg[:, -1])  # (B,H) whole-chunk decay
         # intra-chunk: M[l,m] = C[l]·B[m] · exp(seg l - seg m) · dt[m],
-        # m <= l; the exponent is positive above the diagonal (possibly
-        # inf), so the mask selects before the product
+        # m <= l; the exponent is masked to -inf above the diagonal before
+        # the exp, where it is positive and may overflow to inf
         cb = torch.einsum("blhn,bmhn->bhlm", c_c, b_c)
         seg_t = seg.transpose(1, 2)  # (B,H,L)
-        decay = torch.exp(seg_t[:, :, :, None] - seg_t[:, :, None, :])
-        m_mat = cb * torch.where(causal, decay, 0.0) \
-            * dt_c.transpose(1, 2)[:, :, None, :]
+        decay = torch.exp(torch.where(
+            causal, seg_t[:, :, :, None] - seg_t[:, :, None, :],
+            -torch.inf))
+        m_mat = cb * decay * dt_c.transpose(1, 2)[:, :, None, :]
         y_intra = torch.einsum("bhlm,bmhp->blhp", m_mat, x_c)
         # inter-chunk: contribution of the incoming state
         y_inter = torch.einsum("blhn,bhnp,blh->blhp", c_c, state,

@@ -12,6 +12,7 @@
 """
 import ast
 import pathlib
+import tempfile
 
 import numpy as np
 import pytest
@@ -75,7 +76,10 @@ def test_port_covers_the_slice_layout():
                 "models/ffn.py", "models/attention.py", "models/lm.py",
                 "models/lm_serving.py", "launch/serve.py",
                 "models/mamba2.py", "models/moe.py",
-                "models/moe_sharded.py"):
+                "models/moe_sharded.py", "train/step.py",
+                "train/grad_compress.py", "checkpoint/ckpt.py",
+                "data/pipeline.py", "launch/train.py", "launch/plans.py",
+                "distributed/fault_tolerance.py"):
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
 
@@ -103,8 +107,10 @@ def _entry_points():
     built on that device and must run where those tensors lie."""
     from repro_torch import configs, convert
     from repro_torch.bench import augment, datasets
+    from repro_torch.checkpoint import ckpt
     from repro_torch.kernels import ops
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
+    from repro_torch.train import step
     from repro_torch.models import lm, lm_serving
     from repro_torch.vectordb import algebra, graph, predicates
     from repro_torch.vectordb.table import (
@@ -161,6 +167,21 @@ def _entry_points():
         return serve.main(["--arch", arch, "--smoke", "--batch", "1",
                            "--prompt-len", "4", "--steps", "2"], **kw)
 
+    def train_main(**kw):
+        argv = ["--arch", "mamba2-370m", "--smoke", "--steps", "1",
+                "--global-batch", "2", "--seq-len", "16"]
+        losses = train.main(argv + [f"--device={kw['device']}"] if kw
+                            else argv)
+        assert len(losses) == 1
+        return losses
+
+    def restore(**kw):
+        with tempfile.TemporaryDirectory() as d:
+            ckpt.save(d, 1, {"x": np.arange(3.0)})
+            _, tree, _ = ckpt.restore(d, **kw)
+        assert tree["x"].device.type == kw.get("device", "cuda")
+        return tree
+
     return {
         "Table.from_numpy": lambda **kw: Table.from_numpy(schema, vec, scal,
                                                           **kw),
@@ -211,6 +232,10 @@ def _entry_points():
                                                            **kw),
         "convert.lm_params[moe]": lambda **kw: carried(moe_cfg, **kw),
         "lm.make_cache[moe]": lambda **kw: lm.make_cache(moe_cfg, 1, 8, **kw),
+        "launch.train.main": train_main,
+        "step.init_state": lambda **kw: step.init_state(
+            ssm_cfg, step.TrainPlan(), **kw),
+        "ckpt.restore": restore,
     }
 
 

@@ -1165,3 +1165,44 @@ def test_moe_bounds_count_every_expert(smoke):
     more = smoke.moe_bounds(model, 2, 32, 4)
     assert more["capacity"] > bounds["capacity"]
     assert more["prefill_flops"]["bf16"] > bounds["prefill_flops"]["bf16"]
+
+
+def test_train_phase_runs_on_the_cpu(smoke):
+    """Phase 16 on the CPU: (a) card against CPU is then CPU against CPU
+    (the same numbers), (b) and (c) at the smoke configs' size, the
+    profile left out (it runs on the card only)."""
+    out = smoke.train_phase(torch.device("cpu"), smoke=True)
+    assert [(p["arch"], p["plan"]) for p in out["parity"]] == [
+        (a, p) for a in ("stablelm-smoke", "deepseek-v3-smoke",
+                         "mamba2-smoke", "zamba2-smoke")
+        for p in smoke.TRAIN_SMOKE_PLANS]
+    for p in out["parity"]:
+        assert p["param_max_abs_err"] == 0.0 == p["loss_max_abs_err"]
+    full = out["full_width"]
+    assert len(full["losses"]) == 8 and full["losses"][-1] < full["losses"][0]
+    assert set(full["first_step"]) == {"remat, 4 microbatches",
+                                       "no remat, 4 microbatches",
+                                       "remat, 1 microbatch"}
+    assert full["bound_ms"] > 0 and full["flops"]["head"] > 0
+    cli = out["ssm_cli"]
+    assert len(cli["straight"]) == 4 and cli["resumed"] == cli["straight"][2:]
+    assert cli["checkpoint_bytes"] > 0
+
+
+def test_train_parity_refuses_a_parameter_off(smoke, monkeypatch):
+    """(a) fails once the second run's updates (the card's) move every
+    parameter by 1e-3."""
+    from repro_torch.train import step
+
+    real, calls = step.adamw_update, []
+
+    def off(grads, state, params, cfg):
+        new, st = real(grads, state, params, cfg)
+        calls.append(1)
+        if len(calls) > smoke.TRAIN_SMOKE_STEPS:
+            new = {k: v + 1e-3 for k, v in new.items()}
+        return new, st
+
+    monkeypatch.setattr(step, "adamw_update", off)
+    with pytest.raises(AssertionError, match="16 \\(a\\)"):
+        smoke.train_parity("stablelm-1.6b", "adamw-f32", torch.device("cpu"))
