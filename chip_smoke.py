@@ -333,14 +333,38 @@ Phases (any failure raises and exits non-zero):
      parameters, bf16 compute, B=4 × 512) through ``launch.train.main``:
      every gradient leaf of the first step finite, four steps straight
      against two, a checkpoint and two resumed (steps 3–4 within rtol
-     1e-4), the checkpoint's bytes and its save and restore seconds.
+     1e-4), the checkpoint's bytes and its save and restore seconds;
+     (b) and (c) time their steps with CUDA events and profile none;
+ 17. the mesh slice (``models/sharding.py``, DTensor training through
+     ``train/step.py``, ``distributed/pipeline.py``, ``launch/dryrun.py``;
+     plain torch, no custom kernel), in a process of its own right after
+     16: (a) the ``stablelm`` (AdamW f32, AdamW int8 with two
+     microbatches) and ``deepseek-v3`` (``moe_impl="sharded"``, reached
+     through ``_moe_dispatch``) smoke configs, two steps as DTensors over
+     four ``gloo`` ranks on a (data 2, model 2) mesh (their tensors on the
+     host: torch 2.11's functional collectives over ``gloo`` on CUDA
+     tensors crash), against the same steps in one process on the card
+     (losses and
+     parameters within 1e-4, Adam's noise-floor elements as in 16 (a)),
+     the last step's collectives by kind and bytes and its ms beside the
+     one-process step's; (b) 16 (b)'s ``stablelm-1.6b`` step as DTensors
+     on a one-rank NCCL (1, 1) mesh: its first loss within 1e-3 relative
+     of 16 (b)'s plain first step, the steps' ms beside 16 (b)'s, a warm
+     step's peak memory; (c) ``pipeline_apply`` over four ``gloo`` stages
+     on the card, eight microbatches, one smoke block a stage, against
+     the blocks in turn (1e-5): the hand-off path, the ticks, each
+     stage's idle share beside ``bubble(4, 8)``; (d) the dry-run in a
+     process of its own (torch's fake process group, meta tensors):
+     ``stablelm-1.6b × train_4k`` and ``deepseek-v3-671b × decode_32k`` on
+     16×16, ``dryrun_boomhq`` C0–C2, and 16 (b)'s step on a (1, 1) mesh,
+     whose predicted peak must be within ±15% of (b)'s measured one.
 
 The ``launches`` of the kernel report sum the main paths' counts (phase 4,
 7, 9, 10 and 11's serving passes, phase 11's ranks included, 11 (d)'s
 too, phase 8's
 searches for the gather kernels; phase 5 for the scans); phase 12 (b)'s
 are apart, as ``envelope_launches``; ``chip_smoke.json`` keeps each
-phase's apart. The phases run in the order 1, 13 (f), 15, 16, 2, 12 (a, b),
+phase's apart. The phases run in the order 1, 13 (f), 15, 16, 17, 2, 12 (a, b),
 3, 4, 12 (c), 5, 10, 11 (a–c), 6–8, 9 (a), 11 (d), 9 (b), 13 (a–e), 14.
 
 The line before the last is the JSON kernel report; the last line is
@@ -5422,13 +5446,8 @@ def train_full_width(device, *, smoke: bool = False, b: int = TRAIN_B,
                state_bytes=state,
                **train_bounds(model, b, s, remat=plan.remat))
     if device.type == "cuda":
-        log(f"phase 16 (b) {cfg.name}: one training step, profiled:")
-        out["profile"] = profile_batch(lambda: fn(model, opt, batches[-1]))
         med = float(np.median(step_ms))
-        out.update(step_ms_median=med,
-                   step_device_ms=out["profile"]["device_ms"],
-                   step_idle_share=1.0 - out["profile"]["device_ms"] / med,
-                   tokens_per_s=b * s * 1e3 / med)
+        out.update(step_ms_median=med, tokens_per_s=b * s * 1e3 / med)
         gb = {k: v / 1e9 for k, v in state.items()}
         parts = out["bound_parts_ms"]
         log(f"phase 16 (b) {cfg.name} f32 parameters, {cfg.dtype} compute, "
@@ -5436,9 +5455,8 @@ def train_full_width(device, *, smoke: bool = False, b: int = TRAIN_B,
             f"{plan.remat}, {plan.state_dtype} first moment: {n_model} "
             f"parameters; first step loss/grad norm {first}; losses "
             f"{[round(x, 4) for x in losses]}; step (CUDA events) median "
-            f"{med:.1f} ms (min {min(step_ms):.1f}, max {max(step_ms):.1f}), "
-            f"device {out['step_device_ms']:.1f} ms, idle share "
-            f"{out['step_idle_share']:.3f}; bound {out['bound_ms']:.1f} ms by "
+            f"{med:.1f} ms (min {min(step_ms):.1f}, max {max(step_ms):.1f}); "
+            f"bound {out['bound_ms']:.1f} ms by "
             f"{out['bound_by']} (bf16 blocks and attention "
             f"{parts['bf16_ms']:.1f} ms at 989 TFLOP/s, f32 head and scores "
             f"{parts['f32_ms']:.1f} ms at 67 TFLOP/s); "
@@ -5481,7 +5499,7 @@ def ssm_train_cli(device, *, smoke: bool = False, b: int = SSM_TRAIN_B,
         raise AssertionError(f"phase 16 (c): non-finite gradients in {bad}")
     del grads
     timing = {}
-    if device.type == "cuda":  # one step timed, one profiled, warm
+    if device.type == "cuda":  # one step timed, warm
         fn = ts.make_train_step(cfg, plan)
         batch = _train_batch(cfg, b, s, 0, device)
         opt, _ = fn(model, opt, batch)
@@ -5490,12 +5508,7 @@ def ssm_train_cli(device, *, smoke: bool = False, b: int = SSM_TRAIN_B,
         opt, _ = fn(model, opt, batch)
         ev[1].record()
         torch.cuda.synchronize()
-        log(f"phase 16 (c) {cfg.name}: one training step, profiled:")
-        prof = profile_batch(lambda: fn(model, opt, batch))
-        step_ms = ev[0].elapsed_time(ev[1])
-        timing = dict(step_ms=step_ms, step_device_ms=prof["device_ms"],
-                      step_idle_share=1.0 - prof["device_ms"] / step_ms,
-                      profile=prof)
+        timing = dict(step_ms=ev[0].elapsed_time(ev[1]))
     with tempfile.TemporaryDirectory() as d:
         straight = train.main(base + ["--steps", "4"])
         legs = train.main(base + ["--steps", "2", "--schedule-total", "4",
@@ -5540,9 +5553,8 @@ def ssm_train_cli(device, *, smoke: bool = False, b: int = SSM_TRAIN_B,
         f"{out['resume_max_rel_err']:.2e}, rtol {SSM_TRAIN_RTOL}); "
         f"checkpoint {ck_bytes / 1e9:.3f} GB, save {save_s:.2f} s, restore "
         f"{restore_s:.2f} s (warm page cache)"
-        + (f"; a step {timing['step_ms']:.1f} ms (CUDA events), device "
-           f"{timing['step_device_ms']:.1f} ms, idle share "
-           f"{timing['step_idle_share']:.3f}" if timing else ""))
+        + (f"; a step {timing['step_ms']:.1f} ms (CUDA events)"
+           if timing else ""))
     return out
 
 
@@ -5567,8 +5579,569 @@ def train_phase(device, *, smoke: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the mesh-sharded LM step, the GPipe pipeline and the dry-run
+# ---------------------------------------------------------------------------
+
+MESH17 = (2, 2)  # (a): (data, model) over four gloo ranks sharing the card
+MESH17_CASES = {  # (a): tests/test_torch_mesh_train.py's cases
+    "stablelm-adamw-f32": ("stablelm-1.6b", 8, dict(
+        optimizer="adamw", state_dtype="float32", microbatches=1), {}),
+    "stablelm-adamw-int8-mb2": ("stablelm-1.6b", 8, dict(
+        optimizer="adamw", state_dtype="int8", microbatches=2), {}),
+    "deepseek-sharded": ("deepseek-v3-671b", 2, dict(
+        optimizer="adamw", state_dtype="float32", microbatches=1),
+        {"moe_impl": "sharded"}),
+}
+MESH17_STEPS, MESH17_S = 2, 32
+MESH17_PLAN = dict(lr=1e-3, warmup=2, total_steps=10, remat=False)
+PIPE_STAGES, PIPE_MB, PIPE_S = 4, 8, 16  # (c): one smoke block a stage
+PIPE_TOL = 1e-5
+FULL17_STEPS = 3  # (b): steps of the DTensor step at full width
+FIRST_LOSS_RTOL = 1e-3  # (b): its first loss against 16 (b)'s
+PEAK_GAP = 0.15  # (d): predicted peak within this share of the measured
+DRYRUN_CELLS = (("stablelm-1.6b", "train_4k"),
+                ("deepseek-v3-671b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 600
+
+
+def _mesh17(case: str):
+    from repro_torch import configs
+    from repro_torch.train import step as ts
+
+    arch, b, plan, over = MESH17_CASES[case]
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True), **over)
+    return cfg, ts.TrainPlan(**plan, **MESH17_PLAN), b
+
+
+def mesh17_rank(rank: int, store: str, payload: dict, out_path: str) -> None:
+    """One rank of phase 17 (a), in its own process (``payload["device"]``
+    holds its tensors): each case's model from seed 0, placed on the
+    (data, model) mesh by
+    ``train.step.shard_state``, ``MESH17_STEPS`` steps of
+    ``make_train_step(batch_axes=("data",))`` under ``with_act_axes``, the
+    last under ``launch.dryrun.DeviceCounter`` (the collectives' count and
+    bytes by kind; torch's ``CommDebugMode`` counts the same operations
+    but its module tracker raises on the norm modules the functional
+    model calls)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.dryrun import DeviceCounter
+    from repro_torch.models import lm, sharding
+    from repro_torch.train import step as ts
+
+    card = payload["device"]
+    if card == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    with process_group("gloo", store, rank=rank,
+                       world=MESH17[0] * MESH17[1]):
+        mesh = init_device_mesh(card, MESH17,
+                                mesh_dim_names=("data", "model"))
+        for case in payload["cases"]:
+            cfg, plan, b = _mesh17(case)
+            model, opt = ts.shard_state(lm.LM(cfg, seed=0, device=card),
+                                        plan, mesh)
+            fn = sharding.with_act_axes(
+                ts.make_train_step(cfg, plan, batch_axes=("data",)), "data",
+                mesh=mesh)
+            losses, ms = [], []
+            for i in range(MESH17_STEPS):
+                batch = _train_batch(cfg, b, MESH17_S, i, card)
+                placed = sharding.place_tree(
+                    batch, sharding.batch_specs(cfg, batch), mesh)
+                if card == "cuda":
+                    torch.cuda.synchronize()
+                t = time.perf_counter()
+                if i == MESH17_STEPS - 1:
+                    with DeviceCounter() as dc:
+                        opt, m = fn(model, opt, placed)
+                else:
+                    opt, m = fn(model, opt, placed)
+                if card == "cuda":
+                    torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+                losses.append({k: float(v.full_tensor())
+                               for k, v in m.items()})
+            params = {k: v.full_tensor().detach().cpu()
+                      for k, v in model.named_parameters()}
+            out[case] = dict(losses=losses, ms=ms, params=params,
+                             collective_bytes=dc.report()["collectives"])
+    if rank == 0:
+        torch.save(out, out_path)
+
+
+def mesh17_one_process(cases, device) -> dict:
+    """(a)'s cases in this process, no mesh: the same steps."""
+    from repro_torch.models import lm
+    from repro_torch.train import step as ts
+
+    out = {}
+    for case in cases:
+        cfg, plan, b = _mesh17(case)
+        # the ranks' draws: the host generator's, then on ``device``
+        model = lm.LM(cfg, seed=0, device="cpu").to(device)
+        ocfg, oinit, _ = ts._opt(plan)
+        opt = oinit(dict(model.named_parameters()), ocfg)
+        fn = ts.make_train_step(cfg, plan)
+        losses, ms = [], []
+        for i in range(MESH17_STEPS):
+            batch = _train_batch(cfg, b, MESH17_S, i, device)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            opt, m = fn(model, opt, batch)
+            losses.append({k: float(v) for k, v in m.items()})
+            ms.append((time.perf_counter() - t) * 1e3)
+        out[case] = dict(losses=losses, ms=ms, params={
+            k: v.detach().cpu() for k, v in model.named_parameters()})
+    return out
+
+
+def check_mesh17(mesh: dict, one: dict) -> dict:
+    """(a)'s check: every loss and metric of every step within
+    TRAIN_ATOL/RTOL of the one-process step's (the sharded MoE's
+    ``moe_drop_frac`` is data shard 0's, so not held), every parameter too
+    (but TRAIN_FLIP_SHARE of a leaf at Adam's noise floor within the
+    steps' summed learning rates). -> max abs errs by case."""
+    from repro_torch.train import step as ts
+
+    errs = {}
+    for case, got in mesh.items():
+        want = one[case]
+        label = f"17 (a) {case}"
+        loss_err = 0.0
+        for g, w in zip(got["losses"], want["losses"], strict=True):
+            for k, v in w.items():
+                if k == "moe_drop_frac" and "sharded" in case:
+                    continue
+                loss_err = max(loss_err, abs(g[k] - v))
+                if abs(g[k] - v) > TRAIN_ATOL + TRAIN_RTOL * abs(v):
+                    raise AssertionError(f"phase {label}: {k} mesh {g[k]} "
+                                         f"one process {v}")
+        _, plan, _ = _mesh17(case)
+        sched = ts._opt(plan)[0].lr
+        lr_sum = 2 * sum(float(sched(torch.tensor(i + 1)))
+                         for i in range(MESH17_STEPS))
+        param_err = 0.0
+        for k, w in want["params"].items():
+            err, _ = _held_flips(got["params"][k], w, lr_sum,
+                                 f"{label} {k}")
+            param_err = max(param_err, err)
+        errs[case] = dict(loss=loss_err, params=param_err)
+    return errs
+
+
+def mesh17_train(device, cases=tuple(MESH17_CASES)) -> dict:
+    """(a) The mesh training step over four ``gloo`` ranks (``MESH17``)
+    against the same steps in this process on ``device`` (the card, TF32
+    off): losses and parameters within 1e-4 (``check_mesh17``); the last
+    step's collectives by kind and bytes, and its ms beside the
+    one-process step's. The ranks' DTensors lie on the host: four ranks
+    share the one card only over ``gloo``, and torch 2.11's functional
+    collectives (DTensor's) over ``gloo`` on CUDA tensors end the process
+    with a segmentation fault (a four-rank probe on the card); the
+    one-rank NCCL mesh of (b) runs DTensors on the card."""
+    world = MESH17[0] * MESH17[1]
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=mesh17_rank, args=(
+            r, f"{d}/store", dict(device="cpu", cases=cases),
+            f"{d}/mesh.pt")) for r in range(world)]
+        t0 = time.perf_counter()
+        for pr in procs:
+            pr.start()
+        try:
+            one = mesh17_one_process(cases, device)
+            for pr in procs:
+                pr.join(timeout=5 * MESH_TIMEOUT_S)
+        finally:
+            for pr in procs:
+                if pr.is_alive():
+                    pr.terminate()
+                    pr.join()
+        wall = time.perf_counter() - t0
+        codes = [pr.exitcode for pr in procs]
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"phase 17 (a): rank exit codes {codes}")
+        mesh = torch.load(f"{d}/mesh.pt", weights_only=False)
+    errs = check_mesh17(mesh, one)
+    out = {}
+    for case in cases:
+        got, want = mesh[case], one[case]
+        coll = got["collective_bytes"]
+        out[case] = dict(losses=got["losses"], mesh_ms=got["ms"],
+                         one_process_ms=want["ms"], errors=errs[case],
+                         collective_bytes=coll)
+        log(f"phase 17 (a) {case} on a {MESH17[0]}x{MESH17[1]} mesh of "
+            f"{world} gloo ranks (host tensors), against one process on "
+            f"the {device.type}: "
+            f"losses max abs err {errs[case]['loss']:.3e}, parameters "
+            f"{errs[case]['params']:.3e}; step {MESH17_STEPS}: "
+            f"{got['ms'][-1]:.1f} ms on the mesh (under the counters) "
+            f"beside {want['ms'][-1]:.1f} ms in one process (first steps "
+            f"{got['ms'][0]:.1f} / {want['ms'][0]:.1f} ms); collectives "
+            + ", ".join(f"{k} x{coll['counts'][k]} {coll[k]} B"
+                        for k in coll["counts"] if coll["counts"][k]))
+    return dict(cases=out, wall_s=wall, ranks=world, mesh=list(MESH17))
+
+
+def mesh17_full_width(device, *, smoke: bool = False, b: int = TRAIN_B,
+                      s: int = TRAIN_S, steps: int = FULL17_STEPS) -> dict:
+    """(b) 16 (b)'s step (``stablelm-1.6b``, its plan, B x S tokens of
+    ``SyntheticLM(seed=0)``) as DTensors on a one-rank NCCL (1, 1) mesh
+    (``gloo`` off the card): the first step's loss (held to 16 (b)'s plain
+    first step by the caller), the steps' ms (CUDA events), and the peak
+    memory of a warm step above what was allocated before the model
+    (``max_memory_allocated``), for (d)'s prediction."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import configs
+    from repro_torch.launch.plans import TRAIN_PLANS
+    from repro_torch.models import sharding
+    from repro_torch.train import step as ts
+
+    cfg = configs.get_config(TRAIN_ARCH, smoke=smoke)
+    base = TRAIN_PLANS[TRAIN_ARCH]
+    plan = ts.TrainPlan(microbatches=base.microbatches, remat=base.remat,
+                        optimizer=base.optimizer,
+                        state_dtype=base.state_dtype,
+                        warmup=max(1, TRAIN_STEPS // 10),
+                        total_steps=TRAIN_STEPS)
+    cuda = device.type == "cuda"
+    with tempfile.TemporaryDirectory() as d, process_group(
+            "nccl" if cuda else "gloo", f"{d}/store"):
+        mesh = init_device_mesh(device.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        if cuda:
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+        model, opt = ts.init_state(cfg, plan, seed=0, device=device,
+                                   mesh=mesh)
+        fn = sharding.with_act_axes(
+            ts.make_train_step(cfg, plan, batch_axes=("data",)), "data",
+            mesh=mesh)
+        losses, ms, peak = [], [], 0
+        for i in range(steps):
+            batch = _train_batch(cfg, b, s, i, device)
+            placed = sharding.place_tree(
+                batch, sharding.batch_specs(cfg, batch), mesh)
+            if cuda:
+                torch.cuda.synchronize()
+                if i == 1:
+                    torch.cuda.reset_peak_memory_stats()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in (0, 1)]
+                ev[0].record()
+            opt, m = fn(model, opt, placed)
+            if cuda:
+                ev[1].record()
+                torch.cuda.synchronize()
+                ms.append(ev[0].elapsed_time(ev[1]))
+                if i == 1:
+                    peak = torch.cuda.max_memory_allocated() - resident
+            losses.append(float(m["loss"].full_tensor()))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"phase 17 (b): losses {losses}")
+    out = dict(config=cfg.name, batch=b, seq=s, plan=dataclasses.asdict(plan),
+               losses=losses, step_ms=ms, warm_step_peak_bytes=peak)
+    if ms:
+        out["step_ms_median"] = float(np.median(ms[1:]))
+    log(f"phase 17 (b) {cfg.name} as DTensors on a one-rank "
+        f"{'NCCL' if cuda else 'gloo'} (1, 1) mesh, B={b} x {s}: losses "
+        f"{[round(x, 4) for x in losses]}"
+        + (f"; steps {[round(x, 1) for x in ms]} ms (CUDA events), median "
+           f"after the first {out['step_ms_median']:.1f} ms; a warm step's "
+           f"peak {peak / 1e9:.3f} GB above the card's use before the "
+           f"model" if ms else ""))
+    return out
+
+
+def check_first_loss(mesh_loss: float, plain_loss: float) -> float:
+    """(b)'s check: the mesh step's first loss within FIRST_LOSS_RTOL of
+    16 (b)'s plain first step. -> the relative gap."""
+    gap = abs(mesh_loss - plain_loss) / abs(plain_loss)
+    if gap > FIRST_LOSS_RTOL:
+        raise AssertionError(f"phase 17 (b): first loss {mesh_loss} against "
+                             f"16 (b)'s {plain_loss} (rel {gap:.2e})")
+    return gap
+
+
+def _pipe_cfg():
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config(TRAIN_ARCH, smoke=True),
+                               n_layers=PIPE_STAGES)
+
+
+def _pipe_x(d_model: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(37).normal(
+        size=(PIPE_MB, 1, PIPE_S, d_model)).astype(np.float32))
+
+
+def pipe17_rank(rank: int, store: str, payload: dict, out_path: str) -> None:
+    """One stage of phase 17 (c): ``distributed.pipeline.pipeline_apply``
+    over a ``("stage",)`` mesh of four ``gloo`` ranks on the shared card,
+    the stacked smoke blocks sharded over it; each stage's busy seconds
+    (its blocks) beside the loop's."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.models import lm
+
+    card = payload["device"]
+    if card == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _pipe_cfg()
+    busy = [0.0]
+    with process_group("gloo", store, rank=rank, world=PIPE_STAGES):
+        mesh = init_device_mesh(card, (PIPE_STAGES,),
+                                mesh_dim_names=("stage",))
+        staged = {k: distribute_tensor(v.to(card), mesh, [Shard(0)],
+                                       src_data_rank=None)
+                  for k, v in payload["stacked"].items()}
+        positions = torch.arange(PIPE_S, dtype=torch.int32,
+                                 device=card).expand(1, PIPE_S)
+
+        def stage_fn(p, x):
+            t = time.perf_counter()
+            y = lm._block_prefill(_nest(p), cfg, x, positions, None)[0]
+            if card == "cuda":
+                torch.cuda.synchronize()
+            busy[0] += time.perf_counter() - t
+            return y
+
+        fn = pipeline_apply(mesh, "stage", stage_fn, PIPE_MB)
+        t = time.perf_counter()
+        with torch.no_grad():
+            out = fn(staged, _pipe_x(cfg.d_model).to(card)).to_local()
+        loop = time.perf_counter() - t
+    torch.save(dict(out=out.cpu(), handoff=fn.handoff, busy_s=busy[0],
+                    loop_s=loop), out_path)
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for name, v in flat.items():
+        node = out
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def check_pipe17(outs: list, want: torch.Tensor) -> float:
+    """(c)'s check: every stage's output within PIPE_TOL of the blocks
+    applied in turn. -> max abs err."""
+    return max(_held(o, want, PIPE_TOL, PIPE_TOL, f"17 (c) stage {r}")
+               for r, o in enumerate(outs))
+
+
+def pipe17_check(device) -> dict:
+    """(c) ``pipeline_apply`` over four ``gloo`` ranks on the card against
+    the four blocks applied in turn: the hand-off path, the ticks, and the
+    measured idle share of a stage beside ``bubble(4, 8)``."""
+    from repro_torch.distributed.pipeline import bubble
+    from repro_torch.models import lm
+
+    cfg = _pipe_cfg()
+    model = lm.LM(cfg, seed=0, device="cpu")
+    stacked = {k: torch.stack([dict(b.named_parameters())[k].detach()
+                               for b in model.blocks])
+               for k, _ in model.blocks[0].named_parameters()}
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=pipe17_rank, args=(
+            r, f"{d}/store", dict(device=device.type, stacked=stacked),
+            f"{d}/stage{r}.pt")) for r in range(PIPE_STAGES)]
+        for pr in procs:
+            pr.start()
+        try:
+            for pr in procs:
+                pr.join(timeout=3 * MESH_TIMEOUT_S)
+        finally:
+            for pr in procs:
+                if pr.is_alive():
+                    pr.terminate()
+                    pr.join()
+        codes = [pr.exitcode for pr in procs]
+        if any(c != 0 for c in codes):
+            raise AssertionError(f"phase 17 (c): stage exit codes {codes}")
+        got = [torch.load(f"{d}/stage{r}.pt", weights_only=False)
+               for r in range(PIPE_STAGES)]
+    model = model.to(device)
+    x = _pipe_x(cfg.d_model).to(device)
+    positions = torch.arange(PIPE_S, dtype=torch.int32,
+                             device=device).expand(1, PIPE_S)
+    with torch.no_grad():
+        seq = []
+        for mb in x:
+            y = mb
+            for block in model.blocks:
+                y = lm._block_prefill(lm.param_tree(block), cfg, y,
+                                      positions, None)[0]
+            seq.append(y)
+    err = check_pipe17([g["out"] for g in got], torch.stack(seq))
+    idle = [1.0 - g["busy_s"] / g["loop_s"] for g in got]
+    ticks = PIPE_MB + PIPE_STAGES - 1
+    out = dict(handoff=got[0]["handoff"], ticks=ticks, max_abs_err=err,
+               bubble=bubble(PIPE_STAGES, PIPE_MB), idle_share=idle,
+               loop_s=[g["loop_s"] for g in got])
+    log(f"phase 17 (c) pipeline_apply over {PIPE_STAGES} gloo stages on "
+        f"the card, {PIPE_MB} microbatches, {ticks} ticks, hand-off through "
+        f"the {out['handoff']}: against the blocks in turn max abs err "
+        f"{err:.3e} (tol {PIPE_TOL}); idle share of each stage's loop "
+        f"{[round(v, 3) for v in idle]} beside bubble({PIPE_STAGES}, "
+        f"{PIPE_MB}) = {out['bubble']:.3f} (the rest of the idle time is "
+        f"the host hand-off)")
+    return out
+
+
+def dryrun_child(out_path: str, device_type: str = "cuda",
+                 smoke: bool = False) -> None:
+    """(d), in a process of its own (the fake world is its default
+    process group): the ``DRYRUN_CELLS`` on 16×16, ``dryrun_boomhq``'s
+    C0–C2, and 16 (b)'s step on a (1, 1) mesh; each record and its
+    seconds, as JSON to ``out_path``. ``smoke``: the smoke configs at a
+    small size on a (2, 2) mesh (a CPU rehearsal)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun, dryrun_boomhq
+    from repro_torch.launch.plans import TRAIN_PLANS
+
+    small = dict(global_batch=16, seq_len=64) if smoke else None
+    cells = []
+    for arch, shape in DRYRUN_CELLS:
+        t = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, device_type=device_type,
+                              smoke=smoke, shape_overrides=small,
+                              mesh_shape=(2, 2) if smoke else None)
+        cells.append(dict(rec, seconds=time.perf_counter() - t))
+    boomhq = [dryrun_boomhq.run_variant(
+        name, rows_per_dev=4096 if smoke else 1_048_576,
+        device_type=device_type, **kw) for name, kw in dryrun_boomhq.VARIANTS]
+    b, s = (8, 32) if smoke else (TRAIN_B, TRAIN_S)
+    base = TRAIN_PLANS[TRAIN_ARCH]
+    t = time.perf_counter()
+    step = dryrun.run_cell(
+        TRAIN_ARCH, "train_4k", mesh_shape=(1, 1), device_type=device_type,
+        smoke=smoke, shape_overrides=dict(global_batch=b, seq_len=s),
+        plan_overrides=dict(microbatches=base.microbatches,
+                            warmup=max(1, TRAIN_STEPS // 10),
+                            total_steps=TRAIN_STEPS))
+    step["seconds"] = time.perf_counter() - t
+    pathlib.Path(out_path).write_text(json.dumps(dict(
+        cells=cells, boomhq=boomhq, train_step_1x1=step)))
+
+
+@contextlib.contextmanager
+def dryrun_child_process(*, device_type: str = "cuda", smoke: bool = False):
+    """``dryrun_child`` in a fresh Python process, started on entry (it
+    needs the host only, so (a)–(c) run beside it); ``result()`` of the
+    yielded handle waits for it. -> its records."""
+    with tempfile.TemporaryDirectory() as d:
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "import chip_smoke; chip_smoke.dryrun_child(sys.argv[2], "
+                "sys.argv[3], sys.argv[4] == '1')")
+        t = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT),
+                                 f"{d}/dryrun.json", device_type,
+                                 "1" if smoke else "0"], cwd=ROOT)
+
+        def result() -> dict:
+            code = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (
+                time.perf_counter() - t)))
+            if code != 0:
+                raise AssertionError(f"phase 17 (d): the dry-run exited "
+                                     f"{code}")
+            res = json.loads(pathlib.Path(f"{d}/dryrun.json").read_text())
+            res["wall_s"] = time.perf_counter() - t
+            return res
+
+        try:
+            yield result
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def check_peak(predicted: float, measured: float) -> float:
+    """(d)'s memory check: the dry-run's predicted peak within PEAK_GAP of
+    the card's measured one. -> the signed relative gap."""
+    gap = (predicted - measured) / measured
+    if abs(gap) > PEAK_GAP:
+        raise AssertionError(f"phase 17 (d): predicted peak {predicted} B "
+                             f"against the card's {measured} B "
+                             f"({100 * gap:+.1f}%)")
+    return gap
+
+
+def mesh17_checks(p16: dict, p17: dict) -> dict:
+    """Phase 17 (b) against 16 (b): the first loss (``check_first_loss``)
+    and the step's ms; (d)'s predicted peak of that step against (b)'s
+    measured one (``check_peak``), beside 16 (b)'s."""
+    fw, plain = p17["full_width"], p16["full_width"]
+    first = plain["first_step"]["remat, 4 microbatches"]["loss"]
+    loss_gap = check_first_loss(fw["losses"][0], first)
+    pred = p17["dryrun"]["train_step_1x1"]["peak_bytes_per_dev"]
+    peak_gap = check_peak(pred, fw["warm_step_peak_bytes"])
+    log(f"phase 17 (b) against 16 (b): first loss {fw['losses'][0]:.6f} "
+        f"beside {first:.6f} (rel gap {loss_gap:.2e}, tol "
+        f"{FIRST_LOSS_RTOL}); step median {fw.get('step_ms_median', 0):.1f} "
+        f"ms on the (1, 1) mesh beside {plain.get('step_ms_median', 0):.1f}"
+        f" ms plain; (d) predicted peak {pred / 1e9:.3f} GB beside the "
+        f"card's {fw['warm_step_peak_bytes'] / 1e9:.3f} GB on the mesh "
+        f"({100 * peak_gap:+.1f}%, tol ±{100 * PEAK_GAP:.0f}%) and 16 (b)'s "
+        f"{plain.get('peak_memory_bytes', 0) / 1e9:.3f} GB plain")
+    return dict(first_loss=fw["losses"][0], plain_first_loss=first,
+                first_loss_rel_gap=loss_gap, predicted_peak_bytes=pred,
+                measured_peak_bytes=fw["warm_step_peak_bytes"],
+                peak_gap=peak_gap,
+                mesh_step_ms_median=fw.get("step_ms_median"),
+                plain_step_ms_median=plain.get("step_ms_median"))
+
+
+def mesh17_phase(device, *, smoke: bool = False) -> dict:
+    """Phase 17: (a) the mesh step over four ``gloo`` ranks, (b) the
+    DTensor step at full width on one NCCL rank, (c) the pipeline, (d)
+    the dry-run in its own process (checked against (b)'s peak by the
+    caller, beside 16 (b)'s figures), started first and run beside (a)–(c)
+    (it needs the host only). ``smoke`` runs (b) and (d) on the smoke
+    configs (a CPU rehearsal)."""
+    t = time.perf_counter()
+    with dryrun_child_process(device_type=device.type,
+                              smoke=smoke) as dryrun_result:
+        out = dict(mesh_step=mesh17_train(device))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out["full_width"] = mesh17_full_width(
+            device, smoke=smoke, **(dict(b=8, s=32) if smoke else {}))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out["pipeline"] = pipe17_check(device)
+        out["dryrun"] = dryrun_result()
+    for rec in out["dryrun"]["cells"] + [out["dryrun"]["train_step_1x1"]]:
+        log(f"phase 17 (d) dry-run prediction [{rec['arch']} × "
+            f"{rec['shape']} × {rec['mesh']}]: flops/dev "
+            f"{rec['flops_per_dev']:.3e}, bytes/dev {rec['bytes_per_dev']:.3e}"
+            f", collectives/dev {rec['collectives']['total']:.3e} B "
+            f"{rec['collectives']['counts']}, peak {rec['peak_hbm_gib']:.2f} "
+            f"GiB, compute {rec['compute_s'] * 1e3:.2f} ms, memory "
+            f"{rec['memory_s'] * 1e3:.2f} ms, collectives "
+            f"{rec['collective_s'] * 1e3:.2f} ms -> {rec['dominant']} "
+            f"(H100 SXM peaks at 700 W); {rec['seconds']:.1f} s")
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 17 done in {out['seconds']:.1f} s")
+    return out
+
+
 CHILD_PHASES = {"13 (f)": "lm_generate_f32_params", "15": "moe_phase",
-                "16": "train_phase"}
+                "16": "train_phase", "17": "mesh17_phase"}
 
 
 def child_phase(phase: str, out_path: str) -> None:
@@ -5640,6 +6213,7 @@ def main() -> int:
     # phases 13 (f), 15 and 16 — the largest models, each in a process of
     # its own while nothing else of this script is on the card
     big = {phase: run_child_phase(phase) for phase in CHILD_PHASES}
+    big["17"]["checks"] = mesh17_checks(big["16"], big["17"])
 
     # phase 2
     build_s = build_kernels()
@@ -5821,7 +6395,7 @@ def main() -> int:
         profile_graph=prof_graph, launches=launches,
         launches_by_phase=launches_by_phase, updates=upd["inserts"],
         sift=sift, tiered=tier, shards=shards, mesh=mesh, lm=lm_out,
-        ssm=ssm_out, moe=big["15"], train=big["16"],
+        ssm=ssm_out, moe=big["15"], train=big["16"], mesh_slice=big["17"],
         static_checks=dict(lint=lint, envelope=envelope, syncs=syncs),
         default_plan_recall=robust_recall, recall_target=target,
         seconds=time.perf_counter() - T0), indent=1))

@@ -22,8 +22,12 @@ a bf16 leaf is stored as its int16 view with ``"bfloat16"`` recorded as
 its logical dtype. A leaf is a tensor (read back from any device) or a
 numpy array; a tree is nested dicts of them.
 
-Restoring onto a mesh with other shardings (the reference's
-``shardings=``) belongs to ROADMAP Queue 1 item 4.5 and is not here.
+A tree of DTensors (a train state on a mesh) saves whole: each leaf is
+gathered (``full_tensor``, a collective every rank joins), the mesh's
+first rank writes, and the others wait at a barrier until the step is
+committed. ``restore(..., shardings=)`` places each whole array by a tree
+of ``(mesh, placements)`` (``distributed/elastic.replan``'s), so one
+checkpoint restores onto any mesh shape.
 """
 from __future__ import annotations
 
@@ -61,8 +65,16 @@ def _unflatten(like, leaves):
     return next(leaves)
 
 
+def _dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
 def _to_numpy(leaf) -> tuple:
     """-> (the array to store, its logical dtype)."""
+    if _dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -89,13 +101,29 @@ def _fsync_write(path: str, data: bytes) -> None:
 
 def save(root: str, step: int, tree, *, meta: Optional[dict] = None) -> str:
     """Checkpoint ``tree`` at ``step``; ``meta`` must be JSON. -> the
-    committed directory."""
+    committed directory. A tree with DTensor leaves is saved by every rank
+    of their process group alike: gathered everywhere, written by the
+    first rank, the others waiting at a barrier for the commit."""
+    final = os.path.join(root, f"step_{step:08d}")
+    paths = tree_paths(tree)
+    if any(_dtensor(leaf) for _, leaf in paths):
+        import torch.distributed as dist
+
+        whole = [(p, _to_numpy(leaf)) for p, leaf in paths]
+        if dist.get_rank() == 0:
+            _write(root, step, whole, meta)
+        dist.barrier()
+        return final
+    return _write(root, step, [(p, _to_numpy(leaf)) for p, leaf in paths],
+                  meta)
+
+
+def _write(root: str, step: int, whole: list, meta) -> str:
     final = os.path.join(root, f"step_{step:08d}")
     tmp = os.path.join(root, f".tmp-step_{step:08d}")
     os.makedirs(tmp, exist_ok=True)
     arrays, leaves = {}, []
-    for i, (path, leaf) in enumerate(tree_paths(tree)):
-        arr, logical = _to_numpy(leaf)
+    for i, (path, (arr, logical)) in enumerate(whole):
         key = _leaf_key(i, path)
         arrays[key] = arr
         leaves.append({"path": path, "key": key, "shape": list(arr.shape),
@@ -128,14 +156,17 @@ def latest_step(root: str) -> Optional[int]:
 
 
 def restore(root: str, step: Optional[int] = None, *, like=None,
-            device=None) -> tuple:
+            device=None, shardings=None) -> tuple:
     """-> (step, tree, meta); the newest committed step unless given.
 
     Without ``like``, the tree is a flat dict by path, each leaf a tensor
     on ``device`` (the CUDA device unless the caller names another). With
     ``like``, the tree has its structure and each leaf follows its ``like``
-    leaf: a tensor on ``device`` if given, else on that tensor's device; a
-    numpy array for a numpy leaf. The stored dtype is kept."""
+    leaf: a tensor on ``device`` if given, else on that tensor's device
+    (a DTensor leaf: its mesh's device type); a numpy array for a numpy
+    leaf. The stored dtype is kept. ``shardings`` (``like``'s structure,
+    each leaf ``(mesh, placements)``) makes each restored whole array a
+    DTensor so placed, every rank reading its own copy (no collective)."""
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -155,6 +186,12 @@ def restore(root: str, step: Optional[int] = None, *, like=None,
         dev = resolve_device(device)
         return step, {p: _to_tensor(a, dt, dev)
                       for p, (a, dt) in by_path.items()}, meta
+    if shardings is not None:
+        like_paths = dict(tree_paths(like))
+        placed = dict(tree_paths(shardings))
+        if set(placed) != set(like_paths):
+            raise KeyError(f"shardings and like differ: "
+                           f"{sorted(set(placed) ^ set(like_paths))}")
     leaves = []
     for path, ref in tree_paths(like):
         if path not in by_path:
@@ -164,7 +201,17 @@ def restore(root: str, step: Optional[int] = None, *, like=None,
         if tuple(arr.shape) != shape:
             raise ValueError(f"shape mismatch for {path}: ckpt {arr.shape} "
                              f"vs {shape}")
-        if isinstance(ref, torch.Tensor):
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            mesh, pl = placed[path]
+            leaves.append(distribute_tensor(
+                _to_tensor(arr, dt, device or mesh.device_type), mesh, pl,
+                src_data_rank=None))
+        elif _dtensor(ref):
+            leaves.append(_to_tensor(arr, dt,
+                                     device or ref.device_mesh.device_type))
+        elif isinstance(ref, torch.Tensor):
             leaves.append(_to_tensor(arr, dt, device or ref.device))
         else:
             leaves.append(np.array(arr))

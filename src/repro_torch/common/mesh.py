@@ -1,8 +1,10 @@
 """Shards of a ``torch.distributed`` ``DeviceMesh``: which shard a rank
 holds over the mesh's data dimensions, which rows of a table that is, and
-the gather of every shard's part in shard order. Shared by the sharded
-vector search (``repro_torch.vectordb.distributed``) and the
-expert-parallel MoE (``repro_torch.models.moe_sharded``).
+the gather of every shard's part in shard order, and a differentiable sum
+over a group. Shared by the sharded vector search
+(``repro_torch.vectordb.distributed``), the expert-parallel MoE
+(``repro_torch.models.moe_sharded``) and the mesh LM
+(``repro_torch.models.sharding``).
 """
 from __future__ import annotations
 
@@ -75,3 +77,33 @@ def gather_shards(x: torch.Tensor, mesh, data_axes=("data",), *,
         x = torch.cat([parts[dist.get_group_rank(group, g)]
                        for g in mesh_line(mesh, d)], dim=dim)
     return x
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        y = y.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def psum(y: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``y`` over a process group, differentiable: its backward
+    sums the gradient over the group too (``psum``'s transpose). Over one
+    rank, ``y`` itself."""
+    import torch.distributed as dist
+
+    if dist.get_world_size(group) == 1:
+        return y
+    return _PSum.apply(y, group)

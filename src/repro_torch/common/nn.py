@@ -17,14 +17,41 @@ import torch
 from torch import nn
 
 
+class MetaDraws:
+    """Stands for a ``torch.Generator`` when a model is built on the meta
+    device: its tensors have shapes and dtypes and no values, so nothing is
+    drawn (``torch.Generator`` has no meta device, and ``trunc_normal_``
+    reads its draws back to the host, which fake tensors refuse)."""
+
+    device = torch.device("meta")
+
+
+def generator_on(device: torch.device, seed: int):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``, or
+    ``MetaDraws`` on the meta device."""
+    if device.type == "meta":
+        return MetaDraws()
+    return torch.Generator(device).manual_seed(seed)
+
+
 def trunc_normal(shape, std: float, generator: torch.Generator
                  ) -> torch.Tensor:
     """std · N(0, 1) truncated to [-2, 2] (the JAX initializer's law),
-    drawn from ``generator`` on its device."""
+    drawn from ``generator`` on its device (nothing is drawn on the meta
+    device)."""
     t = torch.empty(shape, device=generator.device)
+    if t.is_meta:
+        return t
     nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
                           generator=generator)
     return t.mul_(std)
+
+
+def uniform(shape, generator: torch.Generator) -> torch.Tensor:
+    """U[0, 1) from ``generator`` on its device (nothing drawn on meta)."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, device="meta")
+    return torch.rand(shape, generator=generator, device=generator.device)
 
 
 def lecun_normal(shape, generator: torch.Generator,

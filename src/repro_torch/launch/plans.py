@@ -1,13 +1,14 @@
 """Per-architecture execution plans (microbatching, optimizer, FSDP, SP).
 
-Port of ``repro.launch.plans``' training side: ``TRAIN_PLANS``,
-``SERVE_PARAM_DTYPE``, the per-arch config overrides and their getters
-(the dry-run side belongs to ROADMAP Queue 1 item 4.5). The plans were
-sized for the reference's accelerator:
+Port of ``repro.launch.plans``: ``TRAIN_PLANS``, ``SERVE_PARAM_DTYPE``,
+the per-arch config overrides and their getters, read by
+``launch/train.py`` and by the dry-run (``launch/dryrun.py``). The plans
+were sized for the reference's accelerator:
   * dense 1.6B–14B — AdamW with an int8 first moment, microbatched;
   * the MoE giants — Adafactor (factored second moment), bf16 parameters
-    and gradient accumulation, FSDP and sequence-sharded carries (fields
-    that nothing reads without a mesh), 2 microbatches;
+    and gradient accumulation, FSDP over ``data`` and sequence-sharded
+    carries (read on a mesh: ``train.step.init_state(mesh=)`` and the
+    step's ``act_spec``), 2 microbatches;
   * SSM/hybrid — small models; modest microbatching.
 """
 from __future__ import annotations
@@ -35,9 +36,9 @@ TRAIN_PLANS: dict[str, TrainPlan] = {
 SERVE_PARAM_DTYPE = "bfloat16"
 
 # per-step config overrides: the MoE giants train with the scatter-based
-# expert parallelism (which needs a mesh: without one the port's MoE is the
-# grouped dispatch); their prefill uses flash attention and sequence
-# sub-groups for the GShard dispatch tensors
+# expert parallelism (on a mesh, under an activation context; without one
+# the port's MoE is the grouped dispatch); their prefill uses flash
+# attention and sequence sub-groups for the GShard dispatch tensors
 TRAIN_CFG_OVERRIDES: dict[str, dict] = {
     "deepseek-v3-671b": {"moe_impl": "sharded"},
     "kimi-k2-1t-a32b": {"moe_impl": "sharded"},

@@ -30,8 +30,15 @@ from torch import nn
 from repro_torch.common import nn as cnn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.rotary import apply_rope
+from repro_torch.models.sharding import constrain_batch, whole
 
 NEG_INF = -1e30
+
+
+def _cb(x, dim: int = 0):
+    """``constrain_batch``: the batch dim onto the data axes under an
+    activation context, where the reference pins it."""
+    return constrain_batch(x, dim)
 
 
 def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
@@ -75,9 +82,9 @@ def _gqa_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,KV,hd), qk-norm then rope."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, kv, hd)
-    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    q = _split_heads(x @ p["wq"], h, hd)
+    k = _split_heads(x @ p["wk"], kv, hd)
+    v = _split_heads(x @ p["wv"], kv, hd)
     if cfg.qk_norm:
         q = cnn.rmsnorm(q, p["q_norm"]["scale"], eps=cfg.norm_eps)
         k = cnn.rmsnorm(k, p["k_norm"]["scale"], eps=cfg.norm_eps)
@@ -86,7 +93,21 @@ def _gqa_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
                        theta=cfg.rope_theta)
         k = apply_rope(k, positions, rotary_pct=cfg.rotary_pct,
                        theta=cfg.rope_theta)
-    return q, k, v
+    return _cb(q), _cb(k), _cb(v)
+
+
+def _split_heads(t, n: int, hd: int):
+    """(B, S, n·hd) -> (B, S, n, hd). On a mesh whose axis over the last
+    dim does not divide ``n``, the product is gathered whole first (a head
+    cannot be split between ranks)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if isinstance(t, DTensor) and any(
+            isinstance(p, Shard) and p.dim == t.ndim - 1
+            and n % t.device_mesh.size(i)
+            for i, p in enumerate(t.placements)):
+        t = whole(t)
+    return t.reshape(*t.shape[:-1], n, hd)
 
 
 def _n_chunks(n: int, chunk: int) -> int:
@@ -112,14 +133,14 @@ def chunked_causal_attention(q, k, v, *, q_chunk: int, scale: float,
     cq = sq // _n_chunks(sq, q_chunk)
     outs = []
     for q0 in range(0, sq, cq):
-        qc = qg[:, q0: q0 + cq]  # (B, cq, KV, G, hd)
+        qc = _cb(qg[:, q0: q0 + cq])  # (B, cq, KV, G, hd)
         scores = _scores(qc, k, "bqkgh,bskh->bkgqs") * scale
         scores = _softcap(scores, softcap)
         q_pos = q_offset + q0 + torch.arange(cq, device=q.device)
         causal = k_pos[None, :] <= q_pos[:, None]  # (cq, sk)
         scores = torch.where(causal, scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        outs.append(torch.einsum("bkgqs,bskh->bqkgh", probs, v))
+        outs.append(_cb(torch.einsum("bkgqs,bskh->bqkgh", probs, v)))
     return torch.cat(outs, dim=1).reshape(b, sq, h, hdv)
 
 
@@ -137,13 +158,14 @@ def flash_causal_attention(q, k, v, *, q_chunk: int, kv_chunk: int,
     qg = q.reshape(b, sq, kvh, g, hd)
     outs = []
     for q0 in range(0, sq, cq):
-        qc = qg[:, q0: q0 + cq]  # (B, cq, KV, G, hd)
+        qc = _cb(qg[:, q0: q0 + cq])  # (B, cq, KV, G, hd)
         q_pos = q_offset + q0 + torch.arange(cq, device=q.device)
         m = torch.full((b, kvh, g, cq), NEG_INF, device=q.device)
         l = torch.zeros((b, kvh, g, cq), device=q.device)
         acc = torch.zeros((b, kvh, g, cq, hdv), device=q.device)
         for k0 in range(0, sk, ck):
-            kb, vb = k[:, k0: k0 + ck], v[:, k0: k0 + ck]  # (B, ck, KV, hd)
+            kb = _cb(k[:, k0: k0 + ck])  # (B, ck, KV, hd)
+            vb = _cb(v[:, k0: k0 + ck])
             s = _scores(qc, kb, "bqkgh,bskh->bkgqs") * scale
             s = _softcap(s, softcap)
             k_pos = k0 + torch.arange(ck, device=q.device)
@@ -156,19 +178,63 @@ def flash_causal_attention(q, k, v, *, q_chunk: int, kv_chunk: int,
                 "bkgqs,bskh->bkgqh", pr.to(vb.dtype), vb)
             m = m_new
         outs.append(acc / torch.clamp_min(l, 1e-20)[..., None])
-    out = torch.cat(outs, dim=3)  # (B, KV, G, Sq, hdv)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hdv).to(v.dtype)
+    out = _cb(torch.cat(outs, dim=3))  # (B, KV, G, Sq, hdv)
+    return _cb(out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hdv).to(v.dtype))
 
 
 def full_attention(cfg: ModelConfig, q, k, v, *, scale: float,
                    softcap: float = 0.0, q_offset: int = 0):
-    if cfg.flash_attention:
-        return flash_causal_attention(
-            q, k, v, q_chunk=cfg.attn_chunk_q, kv_chunk=cfg.attn_chunk_kv,
-            scale=scale, softcap=softcap, q_offset=q_offset)
-    return chunked_causal_attention(q, k, v, q_chunk=cfg.attn_chunk_q,
-                                    scale=scale, softcap=softcap,
-                                    q_offset=q_offset)
+    def run(q_, k_, v_):
+        if cfg.flash_attention:
+            return flash_causal_attention(
+                q_, k_, v_, q_chunk=cfg.attn_chunk_q,
+                kv_chunk=cfg.attn_chunk_kv, scale=scale, softcap=softcap,
+                q_offset=q_offset)
+        return chunked_causal_attention(q_, k_, v_, q_chunk=cfg.attn_chunk_q,
+                                        scale=scale, softcap=softcap,
+                                        q_offset=q_offset)
+
+    return _by_rank(run, q, k, v)
+
+
+def _by_rank(fn, q, k, v):
+    """``fn(q, k, v)`` (attention over whole heads). On DTensors, each rank
+    runs it on its own batch rows and heads through ``sharding.shard_map``
+    (the rows over the data axes as q holds them, the heads over
+    ``model`` where they divide it, k/v's kv heads too where theirs do,
+    else whole, each rank picking those its query heads read). DTensor
+    would otherwise flatten the batch dim with the sharded head dim inside
+    the einsums, which torch's view rule refuses before 2.13."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(q, DTensor):
+        return fn(q, k, v)
+    from repro_torch.models import sharding
+
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    rows = tuple(n for n, p in zip(names, q.placements)
+                 if isinstance(p, Shard) and p.dim == 0)
+    bax = (rows if len(rows) > 1 else rows[0]) if rows else None
+    h, kvh = q.shape[2], k.shape[2]
+    nm = mesh.size(names.index(sharding.MODEL)) \
+        if sharding.MODEL in names else 0
+    heads = bool(nm) and h % nm == 0
+    kv_heads = heads and kvh % nm == 0
+    q_spec = (bax, None, sharding.MODEL if heads else None, None)
+    kv_spec = (bax, None, sharding.MODEL if kv_heads else None, None)
+
+    def local(ql, kl, vl):
+        if heads and not kv_heads:
+            m = mesh.get_coordinate()[names.index(sharding.MODEL)]
+            hl = ql.shape[2]
+            idx = (m * hl + torch.arange(hl, device=ql.device)) // (h // kvh)
+            kl, vl = kl[:, :, idx], vl[:, :, idx]
+        return (fn(ql, kl, vl),)
+
+    (out,) = sharding.shard_map(local, mesh, (q_spec, kv_spec, kv_spec),
+                                (q_spec,))(q, k, v)
+    return out
 
 
 def gqa_make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -203,17 +269,84 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, pos: int,
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _gqa_qkv(p, cfg, x, positions)
-    ck, cv = cache["k"], cache["v"]
-    ck[:, pos] = k[:, 0]
-    cv[:, pos] = v[:, 0]
-    qg = q.reshape(b, kvh, h // kvh, hd)  # squeeze S=1
-    scores = _scores(qg, ck, "bkgh,bskh->bkgs") / math.sqrt(hd)
-    scores = _softcap(scores, cfg.attn_logit_softcap)
-    valid = torch.arange(ck.shape[1], device=x.device) <= pos
-    scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(cv.dtype)
-    out = torch.einsum("bkgs,bskh->bkgh", probs, cv).reshape(b, 1, h * hd)
-    return out @ p["wo"], cache
+
+    def scores(ql, ckl, _):
+        qg = ql.reshape(ql.shape[0], kvh, h // kvh, hd)  # squeeze S=1
+        return _softcap(_scores(qg, ckl, "bkgh,bskh->bkgs") / math.sqrt(hd),
+                        cfg.attn_logit_softcap)
+
+    def context(probs, _, cvl):
+        return torch.einsum("bkgs,bskh->bkgh", probs, cvl)
+
+    out = _attend_cache(q, (k, v), (cache["k"], cache["v"]), pos, scores,
+                        context, 4)
+    return out.reshape(b, 1, h * hd) @ p["wo"], cache
+
+
+def _attend_cache(q, news: tuple, caches: tuple, pos: int, scores_fn,
+                  context_fn, out_ndim: int):
+    """One decode step's attention against caches written in place: each
+    cache (B, S_max, ...) takes its new entry (B, 1, ...) at slot ``pos``,
+    ``scores_fn(q, *caches)`` gives the f32 scores (..., S_max), masked
+    past ``pos``, softmaxed, cast to the caches' dtype, and
+    ``context_fn(probs, *caches)`` the context (of rank ``out_ndim``; its
+    scores' last dim gone, their others kept).
+
+    On DTensors the caches lie with their sequence over ``model`` (context
+    parallelism, ``sharding.cache_specs``): through ``sharding.shard_map``
+    each rank writes the slot if it holds it and attends to its own
+    positions, and the softmax is taken across ranks (the max over
+    ``model``, then the sums of the exponentials and of the unnormalized
+    contexts), q, the new entries and the context whole there."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(caches[0], DTensor):
+        for c, n in zip(caches, news):
+            c[:, pos] = n[:, 0]
+        s = scores_fn(q, *caches)
+        valid = torch.arange(s.shape[-1], device=s.device) <= pos
+        probs = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+        return context_fn(probs.to(caches[0].dtype), *caches)
+    import torch.distributed as dist
+
+    from repro_torch.common.mesh import psum
+    from repro_torch.models import sharding
+
+    mesh = caches[0].device_mesh
+    names = mesh.mesh_dim_names
+    rows = tuple(n for n, p in zip(names, caches[0].placements)
+                 if isinstance(p, Shard) and p.dim == 0)
+    bax = (rows if len(rows) > 1 else rows[0]) if rows else None
+    m_dim = names.index(sharding.MODEL)
+    group = mesh.get_group(m_dim)
+
+    def whole(t):
+        return (bax, *([None] * (t.ndim - 1)))
+
+    def local(ql, *parts):
+        nl, cl = parts[:len(news)], parts[len(news):]
+        s_l = cl[0].shape[1]
+        start = mesh.get_coordinate()[m_dim] * s_l
+        if start <= pos < start + s_l:
+            for c, n in zip(cl, nl):
+                c[:, pos - start] = n[:, 0]
+        s = scores_fn(ql, *cl)
+        valid = start + torch.arange(s_l, device=s.device) <= pos
+        s = torch.where(valid, s, NEG_INF)
+        mx = s.amax(dim=-1, keepdim=True)
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(s - mx)
+        total = psum(e.sum(dim=-1, keepdim=True), group)
+        ctx = psum(context_fn(e.to(cl[0].dtype), *cl).float(), group)
+        return ((ctx / total).to(cl[0].dtype),)
+
+    specs = (whole(q), *(whole(n) for n in news),
+             *((bax, sharding.MODEL, *([None] * (c.ndim - 2)))
+               for c in caches))
+    (out,) = sharding.shard_map(local, mesh, specs,
+                                ((bax, *([None] * (out_ndim - 1))),))(
+        q, *news, *caches)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -248,17 +381,18 @@ def _mla_q(p: dict, cfg: ModelConfig, x, positions) -> tuple:
     """-> q_nope (B,S,H,nope), q_rope (B,S,H,rope) with rope applied."""
     b, s, _ = x.shape
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    cq = cnn.rmsnorm(x @ p["wq_a"], p["q_norm"]["scale"], eps=cfg.norm_eps)
+    cq = cnn.rmsnorm(whole(x @ p["wq_a"]), p["q_norm"]["scale"],
+                     eps=cfg.norm_eps)
     q = (cq @ p["wq_b"]).reshape(b, s, cfg.n_heads, nope + rope_d)
-    return q[..., :nope], apply_rope(q[..., nope:], positions,
-                                     theta=cfg.rope_theta)
+    return _cb(q[..., :nope]), _cb(apply_rope(q[..., nope:], positions,
+                                              theta=cfg.rope_theta))
 
 
 def _mla_kv_compressed(p: dict, cfg: ModelConfig, x, positions) -> tuple:
     """-> c_kv (B,S,kv_lora) normalized, k_rope (B,S,rope) with rope
     applied (one for every head)."""
     kvr = cfg.kv_lora_rank
-    kv = x @ p["wkv_a"]
+    kv = whole(x @ p["wkv_a"])
     c_kv = cnn.rmsnorm(kv[..., :kvr], p["kv_norm"]["scale"], eps=cfg.norm_eps)
     return c_kv, apply_rope(kv[..., kvr:], positions, theta=cfg.rope_theta)
 
@@ -323,18 +457,23 @@ def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, pos: int,
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q_nope, q_rope = _mla_q(p, cfg, x, positions)  # (B,1,H,.)
     c_kv, k_rope = _mla_kv_compressed(p, cfg, x, positions)
-    ck, cr = cache["c_kv"], cache["k_rope"]
-    ck[:, pos] = c_kv[:, 0]
-    cr[:, pos] = k_rope[:, 0]
     wkv_b = p["wkv_b"].reshape(kvr, h, nope + vd)
     w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
     q_c = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)  # (B,H,kv_lora)
-    scores = (_scores(q_c, ck, "bhr,bsr->bhs")
-              + _scores(q_rope[:, 0], cr, "bhr,bsr->bhs")) * _mla_scale(cfg)
-    valid = torch.arange(ck.shape[1], device=x.device) <= pos
-    scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(ck.dtype)
-    ctx_c = torch.einsum("bhs,bsr->bhr", probs, ck)
+
+    def scores(qq, ckl, crl):
+        return (_scores(qq[..., :kvr], ckl, "bhr,bsr->bhs")
+                + _scores(qq[..., kvr:], crl, "bhr,bsr->bhs")) \
+            * _mla_scale(cfg)
+
+    def context(probs, ckl, _):
+        return torch.einsum("bhs,bsr->bhr", probs, ckl)
+
+    # the absorbed query and the rope query, side by side (B, H, r + rope)
+    qq = torch.cat([q_c, q_rope[:, 0]], dim=-1)
+    ctx_c = _attend_cache(qq, (c_kv, k_rope),
+                          (cache["c_kv"], cache["k_rope"]), pos, scores,
+                          context, 3)
     out = torch.einsum("bhr,rhv->bhv", ctx_c, w_uv).reshape(b, 1, h * vd)
     return out @ p["wo"], cache
 

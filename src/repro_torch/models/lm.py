@@ -37,12 +37,21 @@ and the head stay in ``cfg.param_dtype``. The prefill casts the mamba
 blocks too, where the reference's ssm and hybrid prefills do not, and so
 fail in bf16 (ROADMAP Queue 3).
 
-The moe family's FFN is ``moe.moe_apply`` in every block: the reference
-picks its expert-parallel ``moe_apply_sharded`` only under an activation
-mesh context (``models/sharding.act_ctx``, ROADMAP Queue 1 item 4.5),
-which the port does not have yet, and without one it runs ``moe_apply``
-too. ``hidden(..., with_aux=True)`` also returns the MoE aux losses summed
-over the MoE blocks.
+The moe family's FFN is ``moe.moe_apply`` (the grouped GShard dispatch),
+or, where ``cfg.moe_impl == "sharded"`` and an activation context
+(``sharding.act_axes``) holds a mesh, the expert-parallel
+``moe_sharded.moe_apply_sharded`` on the DTensors of that mesh, as the
+reference picks them (``_moe_dispatch``). ``hidden(..., with_aux=True)``
+also returns the MoE aux losses summed over the MoE blocks.
+
+On a mesh the parameters and the batch are DTensors placed by
+``models/sharding.py``'s specs and every function here runs on them
+unchanged, DTensor's propagation placing each result; the plain tensors
+the code makes (positions, masks) must then be read as replicated
+(``torch.distributed.tensor.experimental.implicit_replication``, which the
+mesh steps enter). ``forward``/``loss_fn`` take ``act_spec``, the spec the
+residual stream is redistributed to before and after each block (the
+reference's ``_scan_blocks(act_spec=)``: sequence-sharded carries).
 
 Modality stubs: vlm prepends projected patch embeddings, audio feeds
 precomputed frame embeddings straight to the stack.
@@ -73,7 +82,7 @@ from repro_torch.common import nn as cnn
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, moe_sharded, sharding
 from repro_torch.models.ffn import FFN, ffn_apply
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.rotary import sinusoidal
@@ -204,7 +213,7 @@ class LM(nn.Module):
         check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
-        g = torch.Generator(dev).manual_seed(seed)
+        g = cnn.generator_on(dev, seed)
         pdt = param_dtype(cfg)
 
         def new(module: nn.Module) -> nn.Module:
@@ -277,8 +286,21 @@ def cast_blocks(model: LM) -> dict:
 # ---------------------------------------------------------------------------
 
 def _moe_dispatch(p: dict, cfg: ModelConfig, h) -> tuple:
-    """The MoE FFN: ``moe_apply`` (see the module docstring for the
-    reference's sharded choice)."""
+    """The MoE FFN: the expert-parallel ``moe_apply_sharded`` with the
+    context's axes where ``cfg.moe_impl == "sharded"`` and the activation
+    context holds a mesh (``h`` must then be a DTensor on it), else
+    ``moe_apply``."""
+    ctx = sharding.act_ctx()
+    if cfg.moe_impl == "sharded" and ctx is not None \
+            and ctx.get("mesh") is not None:
+        from torch.distributed.tensor import DTensor
+
+        if not isinstance(h, DTensor):
+            raise TypeError("the sharded MoE under a mesh context needs "
+                            "DTensor activations on that mesh")
+        return moe_sharded.moe_apply_sharded(
+            p, cfg, h, ctx["mesh"], batch_axes=ctx["batch"],
+            model_axis=ctx["model"])
     return moe_apply(p, cfg, h)
 
 
@@ -291,21 +313,25 @@ def _ffn(p: dict, cfg: ModelConfig, h) -> tuple:
 
 def _block_prefill(p: dict, cfg: ModelConfig, x, positions, cache) -> tuple:
     """-> (x, aux); with a ``cache`` (``None`` for the forward without
-    one), the attention's cache is written in place."""
+    one), the attention's cache is written in place. Over a mesh the
+    row-parallel products (``wo``, ``w_down``) leave partial sums on
+    ``model``; ``sharding.settle`` reduces them before each residual add
+    (the Megatron all-reduce), so the residual stream and the next norm
+    stay whole there and no column-parallel weight is gathered."""
     y, _ = attn.attn_prefill(p["attn"], cfg, norm_apply(cfg, p["norm1"], x),
                              positions, cache)
-    x = x + y
+    x = x + sharding.settle(y)
     y, aux = _ffn(p, cfg, norm_apply(cfg, p["norm2"], x))
-    return x + y, aux
+    return x + sharding.settle(y), aux
 
 
 def _block_decode(p: dict, cfg: ModelConfig, x, pos: int, cache: dict
                   ) -> tuple:
     y, _ = attn.attn_decode(p["attn"], cfg, norm_apply(cfg, p["norm1"], x),
                             pos, cache)
-    x = x + y
+    x = x + sharding.settle(y)
     y, aux = _ffn(p, cfg, norm_apply(cfg, p["norm2"], x))
-    return x + y, aux
+    return x + sharding.settle(y), aux
 
 
 def _mamba_block_prefill(p: dict, cfg: ModelConfig, x, cache: dict | None):
@@ -314,32 +340,34 @@ def _mamba_block_prefill(p: dict, cfg: ModelConfig, x, cache: dict | None):
     cache's dtypes."""
     h = norm_apply(cfg, p["norm1"], x)
     if cache is None:
-        return x + mamba2.mamba_apply(p["mamba"], cfg, h)
+        return x + sharding.settle(mamba2.mamba_apply(p["mamba"], cfg, h))
     y, state = mamba2.mamba_apply(p["mamba"], cfg, h, return_state=True)
     for k, v in state.items():
         cache[k].copy_(v)
-    return x + y
+    return x + sharding.settle(y)
 
 
 def _mamba_block_decode(p: dict, cfg: ModelConfig, x, cache: dict):
     h = norm_apply(cfg, p["norm1"], x)
     y, _ = mamba2.mamba_decode(p["mamba"], cfg, h, cache)
-    return x + y
+    return x + sharding.settle(y)
 
 
 _CACHE_OF = {"blocks": "attn", "dense_blocks": "dense", "moe_blocks": "moe"}
 
 
 def _run_stack(model: LM, blocks: dict | None, x, cache: dict | None,
-               attn_fn, mamba_fn, *, remat: bool = False) -> tuple:
+               attn_fn, mamba_fn, *, remat: bool = False,
+               act_spec: tuple | None = None) -> tuple:
     """The layers in order: ``attn_fn(p, x, layer_cache) -> (x, aux)`` for
     an attention block, ``mamba_fn(p, x, layer_cache) -> x`` for a mamba
     block, ``p`` each block's parameters in the compute dtype (cast at use
     unless ``blocks`` holds a copy). The hybrid's shared block follows
     every ``hybrid_attn_every``-th mamba layer with group g's attention
     cache. With ``remat`` each block (the hybrid: each group) runs under
-    ``checkpoint``, its cast inside. -> (x, the aux summed over the MoE
-    blocks)."""
+    ``checkpoint``, its cast inside. ``act_spec`` redistributes a DTensor
+    x to that spec before and after each unit. -> (x, the aux summed over
+    the MoE blocks)."""
     cfg = model.cfg
     dt = compute_dtype(cfg)
 
@@ -376,13 +404,32 @@ def _run_stack(model: LM, blocks: dict | None, x, cache: dict | None,
     else:
         k = cfg.hybrid_attn_every
         units = [group_unit(g, k) for g in range(cfg.n_layers // k)]
+    if act_spec is not None:
+        units = [_constrained(u, act_spec) for u in units]
     aux: dict = {}
     for unit in units:
         x, a = (checkpoint(unit, x, use_reentrant=False) if remat
                 else unit(x))
         for key, v in a.items():
             aux[key] = aux[key] + v if key in aux else v
+    if act_spec is not None:  # the head reads the whole sequence
+        x = sharding.constrain(x, (act_spec[0],
+                                   *([None] * (len(act_spec) - 1))))
     return x, aux
+
+
+def _constrained(unit, spec: tuple):
+    """``unit`` with its input and output carry at ``spec``; where that
+    shards the sequence (the reference's SP carry, saved at that size by
+    remat), the unit runs on the carry gathered back to its batch spec
+    (Megatron-SP: the gather on entry, the scatter at the exit)."""
+    inner = (spec[0], *([None] * (len(spec) - 1)))
+
+    def run(y):
+        y = sharding.constrain(y, spec)
+        y, a = unit(sharding.constrain(y, inner))
+        return sharding.constrain(y, spec), a
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -393,6 +440,12 @@ def _embed_scale(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x · sqrt(d_model), the factor rounded to x's dtype first."""
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                             device=x.device)
+
+
+def _lookup(model: LM, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of the embedding table (``sharding.lookup``: over a
+    mesh, the vocab-parallel lookup)."""
+    return sharding.lookup(model.embed.table, ids)
 
 
 def embed_inputs(model: LM, batch: dict) -> tuple:
@@ -412,7 +465,7 @@ def embed_inputs(model: LM, batch: dict) -> tuple:
     if cfg.inputs_are_embeds:
         parts.append(batch["embeds"].to(dt))
     elif "tokens" in batch:
-        parts.append(model.embed.table[batch["tokens"]].to(dt))
+        parts.append(_lookup(model, batch["tokens"]).to(dt))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if cfg.embed_scale:
         x = _embed_scale(cfg, x)
@@ -442,24 +495,26 @@ def unembed(model: LM, h: torch.Tensor) -> torch.Tensor:
 # forward / prefill / decode
 # ---------------------------------------------------------------------------
 
-def _forward(model: LM, batch: dict, blocks: dict | None, remat: bool
-             ) -> tuple:
+def _forward(model: LM, batch: dict, blocks: dict | None, remat: bool,
+             act_spec: tuple | None = None) -> tuple:
     cfg = model.cfg
     x, positions = embed_inputs(model, batch)
     x, aux = _run_stack(
         model, blocks, x, None,
         lambda p, y, c: _block_prefill(p, cfg, y, positions, c),
-        lambda p, y, c: _mamba_block_prefill(p, cfg, y, c), remat=remat)
+        lambda p, y, c: _mamba_block_prefill(p, cfg, y, c), remat=remat,
+        act_spec=act_spec)
     return model.final_norm(x), aux
 
 
-def forward(model: LM, batch: dict, *, remat: bool = False) -> tuple:
+def forward(model: LM, batch: dict, *, remat: bool = False,
+            act_spec: tuple | None = None) -> tuple:
     """The forward with autograd (the reference's ``hidden(params, cfg,
     batch, remat=)``): -> (the final-norm hidden states (B, S, D) in
     cfg.dtype, the MoE aux losses (``AUX_KEYS``) summed over the MoE
     blocks, empty for the other families). ``remat`` checkpoints each
-    block (the hybrid: each group)."""
-    return _forward(model, batch, None, remat)
+    block (the hybrid: each group); ``act_spec`` see ``_run_stack``."""
+    return _forward(model, batch, None, remat, act_spec)
 
 
 @torch.no_grad()
@@ -487,9 +542,12 @@ def _ce_chunk(model: LM, hh: torch.Tensor, ll: torch.Tensor) -> tuple:
     positions)."""
     logits = unembed(model, hh)  # (B, c, V) f32
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, ll.clamp_min(0).long()[..., None])[..., 0]
+    gold = torch.gather(logits, -1, ll.clamp_min(0).long()[..., None])
     valid = (ll >= 0).float()
-    nll = (logz - gold) * valid
+    # the difference before the gathered axis goes: over a mesh, a gather
+    # from vocab-sharded logits is a masked partial sum that has to settle
+    # at the gather's own rank
+    nll = (logz[..., None] - gold)[..., 0] * valid
     return nll.sum(), valid.sum(), (logz.square() * valid).sum()
 
 
@@ -511,24 +569,28 @@ def chunked_ce(model: LM, h: torch.Tensor, labels: torch.Tensor, *,
 
 
 def loss_fn(model: LM, batch: dict, *, remat: bool = False,
-            z_loss_coef: float = 1e-4) -> tuple:
+            z_loss_coef: float = 1e-4, act_spec: tuple | None = None
+            ) -> tuple:
     """Scalar training loss + metrics (``ce``, ``z_sq``, the ``AUX_KEYS``
     for the moe family, ``mtp_ce`` with MTP, ``loss``). ``batch`` carries
     ``labels`` (B, S_lab), the last S_lab positions' targets (a vlm's
     patch prefix has none); a negative label is ignored."""
     cfg = model.cfg
-    h, aux = forward(model, batch, remat=remat)
+    h, aux = forward(model, batch, remat=remat, act_spec=act_spec)
     labels = batch["labels"]
     h_lab = h[:, h.shape[1] - labels.shape[1]:]
-    ce, zsq = chunked_ce(model, h_lab, labels)
+    # over a mesh each term is settled before the sum (torch before 2.13
+    # cannot add a partial mean to a partial sum)
+    ce, zsq = (sharding.settle(t) for t in chunked_ce(model, h_lab, labels))
     loss = ce + z_loss_coef * zsq
     metrics = {"ce": ce, "z_sq": zsq}
     if aux:
+        aux = {k: sharding.settle(v) for k, v in aux.items()}
         loss = loss + cfg.router_aux_coef * aux["moe_lb_loss"] \
             + 1e-4 * aux["moe_z_loss"]
         metrics.update(aux)
     if cfg.mtp_depth and "tokens" in batch:
-        mtp_ce = _mtp_loss(model, h, batch)
+        mtp_ce = sharding.settle(_mtp_loss(model, h, batch))
         loss = loss + MTP_COEF * mtp_ce
         metrics["mtp_ce"] = mtp_ce
     metrics["loss"] = loss
@@ -552,7 +614,7 @@ def _mtp_loss(model: LM, h: torch.Tensor, batch: dict) -> torch.Tensor:
     tokens, labels = batch["tokens"], batch["labels"]
     b, s = tokens.shape
     h_in = m.norm_h(h[:, : s - 1])
-    e_in = m.norm_e(model.embed.table[tokens[:, 1:]].to(h.dtype))
+    e_in = m.norm_e(_lookup(model, tokens[:, 1:]).to(h.dtype))
     x, w = _promoted(torch.cat([h_in, e_in], dim=-1), m.proj.w)
     x = x @ w
     p = param_tree(m.block, compute_dtype(cfg))
@@ -606,12 +668,16 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
 
 
 @torch.no_grad()
-def prefill(model: LM, batch: dict, max_len: int) -> tuple:
-    """Run the prompt, fill a new cache. Returns (last-position logits
-    (B, V) f32, cache)."""
+def prefill(model: LM, batch: dict, max_len: int, *,
+            cache: dict | None = None) -> tuple:
+    """Run the prompt, fill a new cache (or ``cache``, zeros of
+    ``make_cache``'s structure, in place: on a mesh, one placed by
+    ``sharding.cache_specs``). Returns (last-position logits (B, V) f32,
+    cache)."""
     cfg = model.cfg
     x, positions = embed_inputs(model, batch)
-    cache = make_cache(cfg, x.shape[0], max_len, device=x.device)
+    if cache is None:
+        cache = make_cache(cfg, x.shape[0], max_len, device=x.device)
     x, _ = _run_stack(
         model, None, x, cache,
         lambda p, y, c: _block_prefill(p, cfg, y, positions, c),
@@ -632,7 +698,7 @@ def decode_step(model: LM, inputs: dict, pos: int, cache: dict) -> tuple:
     if cfg.inputs_are_embeds:
         x = inputs["embed"][:, None].to(dt)
     else:
-        x = model.embed.table[inputs["token"]][:, None].to(dt)
+        x = _lookup(model, inputs["token"])[:, None].to(dt)
     if cfg.embed_scale:
         x = _embed_scale(cfg, x)
     if cfg.pos_embed == "sinusoidal":

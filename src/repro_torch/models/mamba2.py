@@ -44,7 +44,7 @@ class Mamba(nn.Module):
         d, di, h = cfg.d_model, cfg.d_inner, cfg.ssm_heads
         gn2 = 2 * cfg.ssm_n_groups * cfg.ssm_state
         g, dev = generator, generator.device
-        dt = torch.exp(torch.rand(h, generator=g, device=dev)
+        dt = torch.exp(cnn.uniform(h, g)
                        * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
         conv_std = 1.0 / math.sqrt(cfg.ssm_conv)
         self.in_z = nn.Parameter(cnn.lecun_normal((d, di), g))

@@ -15,11 +15,10 @@ parameter dtype); the dispatch, the experts and the combine run in x's
 dtype. Ties in the router's top-k go to the smaller expert id, as
 ``lax.top_k`` breaks them.
 
-The reference pins the batch dim of each intermediate to the data axes
-with ``constrain_batch``, which does nothing without a mesh context; the
-port has no mesh context on this path, so it is left out. The expert-
-parallel scatter form over ``torch.distributed`` is
-``models/moe_sharded.py``.
+Under an activation context (``sharding.act_axes``) the batch dim of
+each intermediate is pinned to the data axes with ``constrain_batch``, as
+in the reference; without one that does nothing. The expert-parallel
+scatter form over ``torch.distributed`` is ``models/moe_sharded.py``.
 """
 from __future__ import annotations
 
@@ -31,6 +30,7 @@ from torch import nn
 from repro_torch.common import nn as cnn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.ffn import FFN, ffn_apply
+from repro_torch.models.sharding import constrain_batch, settle
 
 
 class MoE(nn.Module):
@@ -120,12 +120,13 @@ def aux_losses(probs, top_i, keep) -> dict:
     token."""
     e = probs.shape[-1]
     probs = probs.reshape(-1, e)
-    me = probs.mean(dim=0)
-    ce = nn.functional.one_hot(top_i[..., 0].reshape(-1), e).float().mean(0)
+    me = settle(probs.mean(dim=0))
+    ce = settle(nn.functional.one_hot(top_i[..., 0].reshape(-1),
+                                      e).float().mean(0))
     z = torch.logsumexp(torch.log(torch.clamp_min(probs, 1e-20)), dim=-1)
     return {"moe_lb_loss": e * torch.sum(me * ce),
-            "moe_z_loss": z.square().mean(),
-            "moe_drop_frac": 1.0 - keep.float().mean()}
+            "moe_z_loss": settle(z.square().mean()),
+            "moe_drop_frac": settle(1.0 - keep.float().mean())}
 
 
 def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple:
@@ -137,14 +138,16 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple:
     g = cfg.moe_group_tokens
     xg = x.reshape(b0 * (s0 // g), g, d) if g and g < s0 and s0 % g == 0 \
         else x
+    xg = constrain_batch(xg)
     s = xg.shape[1]
     logits = xg.float() @ p["router"].float()
     top_w, top_i, probs = router_topk(logits, k)
     cap = group_capacity(s, cfg)
     dispatch, combine, keep = routing_tensors(top_w, top_i, xg.dtype, e, cap)
-    expert_in = torch.einsum("bsec,bsd->becd", dispatch, xg)
-    expert_out = experts_ffn(p, cfg, expert_in)
-    y = torch.einsum("bsec,becd->bsd", combine, expert_out).reshape(b0, s0, d)
+    expert_in = constrain_batch(torch.einsum("bsec,bsd->becd", dispatch, xg))
+    expert_out = constrain_batch(experts_ffn(p, cfg, expert_in))
+    y = constrain_batch(torch.einsum("bsec,becd->bsd", combine, expert_out)
+                        ).reshape(b0, s0, d)
     if cfg.n_shared_experts:
         y = y + ffn_apply(p["shared"], x, cfg.ffn_act)
     return y, aux_losses(probs, top_i, keep)

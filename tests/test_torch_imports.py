@@ -1,7 +1,8 @@
 """Boundaries of the PyTorch port.
 
 * No file of ``src/repro_torch/``, not ``chip_smoke.py`` and not the
-  kernel-variant scripts (``scripts/*_variants.py``) imports ``jax`` or the
+  kernel-variant scripts (``scripts/*_variants.py``) nor the dry-run sweep
+  (``scripts/dryrun_all.py``) imports ``jax`` or the
   JAX package ``repro`` (an AST scan, so lazy imports inside functions
   count too).
 * Entry points run on the CUDA device by default: with no CUDA device and
@@ -25,7 +26,8 @@ cap()
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*_variants.py"))
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*_variants.py")) \
+    + [ROOT / "scripts" / "dryrun_all.py"]
 
 
 def _imported_modules(path: pathlib.Path) -> list:
@@ -82,6 +84,21 @@ def test_port_covers_the_slice_layout():
                 "distributed/fault_tolerance.py"):
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
+
+
+def test_port_covers_the_mesh_slice():
+    """The mesh slice's modules sit at their JAX counterparts' paths;
+    ``launch/hlo_analysis.py`` (it reads XLA's HLO text) has none: the
+    port's dry-run counts the operations it dispatches."""
+    for rel in ("models/sharding.py", "launch/mesh.py",
+                "launch/input_specs.py", "launch/dryrun.py",
+                "launch/dryrun_boomhq.py", "distributed/elastic.py",
+                "distributed/pipeline.py"):
+        assert (ROOT / "src" / "repro" / rel).exists(), rel
+        assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
+    assert (ROOT / "src" / "repro" / "launch" / "hlo_analysis.py").exists()
+    assert not (ROOT / "src" / "repro_torch" / "launch" /
+                "hlo_analysis.py").exists()
 
 
 @pytest.fixture

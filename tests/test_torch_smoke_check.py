@@ -1206,3 +1206,44 @@ def test_train_parity_refuses_a_parameter_off(smoke, monkeypatch):
     monkeypatch.setattr(step, "adamw_update", off)
     with pytest.raises(AssertionError, match="16 \\(a\\)"):
         smoke.train_parity("stablelm-1.6b", "adamw-f32", torch.device("cpu"))
+
+
+def test_mesh17_walks_on_the_cpu_and_refuses_planted_offsets(smoke,
+                                                            monkeypatch):
+    """Phase 17 on the CPU: (a) the stablelm case over four ``gloo`` ranks
+    against one process, (b) at the smoke size on a one-rank (1, 1) mesh,
+    (c) the pipeline against the blocks in turn (the rank processes import
+    this module by name); then each check refuses a planted offset: a
+    loss off by 1e-3 in (a), a first loss off by 2e-3 relative in (b), a
+    stage's output off by 1e-3 in (c), a predicted peak 20% off the
+    measured one in (d)."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)
+    monkeypatch.syspath_prepend(str(ROOT))
+    cpu = torch.device("cpu")
+    a = smoke.mesh17_train(cpu, cases=("stablelm-adamw-f32",))
+    case = a["cases"]["stablelm-adamw-f32"]
+    assert case["errors"]["loss"] < 1e-4 and case["errors"]["params"] < 1e-4
+    assert case["collective_bytes"]["counts"]["all-reduce"] > 0
+    b = smoke.mesh17_full_width(cpu, smoke=True, b=8, s=32, steps=2)
+    assert len(b["losses"]) == 2 and all(np.isfinite(b["losses"]))
+    assert smoke.check_first_loss(b["losses"][0], b["losses"][0]) == 0.0
+    c = smoke.pipe17_check(cpu)
+    assert c["handoff"] == "device" and c["ticks"] == 11
+    assert c["max_abs_err"] <= smoke.PIPE_TOL and c["bubble"] == 3 / 11
+    mesh = {"stablelm-adamw-f32": dict(
+        losses=[{"loss": 1.0}], params={"w": torch.ones(3)})}
+    one = {"stablelm-adamw-f32": dict(
+        losses=[{"loss": 1.001}], params={"w": torch.ones(3)})}
+    with pytest.raises(AssertionError, match="17 \\(a\\)"):
+        smoke.check_mesh17(mesh, one)
+    with pytest.raises(AssertionError, match="17 \\(b\\)"):
+        smoke.check_first_loss(b["losses"][0] * (1 + 2e-3), b["losses"][0])
+    want = torch.zeros(2, 3)
+    assert smoke.check_pipe17([want.clone()], want) == 0.0
+    with pytest.raises(AssertionError, match="17 \\(c\\)"):
+        smoke.check_pipe17([want + 1e-3], want)
+    assert smoke.check_peak(1.1e9, 1e9) == pytest.approx(0.1)
+    with pytest.raises(AssertionError, match="17 \\(d\\)"):
+        smoke.check_peak(1.2e9, 1e9)
