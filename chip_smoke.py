@@ -5592,6 +5592,10 @@ MESH17_CASES = {  # (a): tests/test_torch_mesh_train.py's cases
     "deepseek-sharded": ("deepseek-v3-671b", 2, dict(
         optimizer="adamw", state_dtype="float32", microbatches=1),
         {"moe_impl": "sharded"}),
+    "mamba2-adamw-f32": ("mamba2-370m", 4, dict(
+        optimizer="adamw", state_dtype="float32", microbatches=1), {}),
+    "zamba2-adamw-f32": ("zamba2-2.7b", 4, dict(
+        optimizer="adamw", state_dtype="float32", microbatches=1), {}),
 }
 MESH17_STEPS, MESH17_S = 2, 32
 MESH17_PLAN = dict(lr=1e-3, warmup=2, total_steps=10, remat=False)
@@ -5602,6 +5606,8 @@ FIRST_LOSS_RTOL = 1e-3  # (b): its first loss against 16 (b)'s
 PEAK_GAP = 0.15  # (d): predicted peak within this share of the measured
 DRYRUN_CELLS = (("stablelm-1.6b", "train_4k"),
                 ("deepseek-v3-671b", "decode_32k"))
+# (d) also runs ``launch.dryrun.WITNESS_CELLS``: the smallest cells that
+# gave each error the card's torch raised in the production cells
 DRYRUN_TIMEOUT_S = 600
 
 
@@ -6005,9 +6011,11 @@ def pipe17_check(device) -> dict:
 def dryrun_child(out_path: str, device_type: str = "cuda",
                  smoke: bool = False) -> None:
     """(d), in a process of its own (the fake world is its default
-    process group): the ``DRYRUN_CELLS`` on 16×16, ``dryrun_boomhq``'s
-    C0–C2, and 16 (b)'s step on a (1, 1) mesh; each record and its
-    seconds, as JSON to ``out_path``. ``smoke``: the smoke configs at a
+    process group): the ``DRYRUN_CELLS`` on 16×16, the witness cells
+    (``dryrun.WITNESS_CELLS``, smoke configs on small meshes), each of
+    which must give a whole record, ``dryrun_boomhq``'s C0–C2, and 16
+    (b)'s step on a (1, 1) mesh; each record and its seconds, as JSON to
+    ``out_path``. ``smoke``: the ``DRYRUN_CELLS``' smoke configs at a
     small size on a (2, 2) mesh (a CPU rehearsal)."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.launch import dryrun, dryrun_boomhq
@@ -6021,6 +6029,12 @@ def dryrun_child(out_path: str, device_type: str = "cuda",
                               smoke=smoke, shape_overrides=small,
                               mesh_shape=(2, 2) if smoke else None)
         cells.append(dict(rec, seconds=time.perf_counter() - t))
+    for cell in dryrun.WITNESS_CELLS:
+        t = time.perf_counter()
+        rec = dryrun.run_witness(cell, device_type=device_type,
+                                 verbose=False)
+        cells.append(dict(check_witness(rec, cell),
+                          seconds=time.perf_counter() - t))
     boomhq = [dryrun_boomhq.run_variant(
         name, rows_per_dev=4096 if smoke else 1_048_576,
         device_type=device_type, **kw) for name, kw in dryrun_boomhq.VARIANTS]
@@ -6036,6 +6050,19 @@ def dryrun_child(out_path: str, device_type: str = "cuda",
     step["seconds"] = time.perf_counter() - t
     pathlib.Path(out_path).write_text(json.dumps(dict(
         cells=cells, boomhq=boomhq, train_step_1x1=step)))
+
+
+def check_witness(rec: dict, cell: dict) -> dict:
+    """(d)'s check of a witness cell: a whole record (the step ran: FLOPs,
+    bytes and a peak above its arguments). -> the record."""
+    if "skipped" in rec or not (rec.get("flops_per_dev", 0) > 0
+                                and rec.get("bytes_per_dev", 0) > 0
+                                and rec.get("peak_bytes_per_dev", 0)
+                                >= rec.get("arg_bytes_per_dev", 1) > 0):
+        raise AssertionError(f"phase 17 (d): witness {rec.get('tag')} "
+                             f"(before the repair: {cell['refused']}) gave "
+                             f"no whole record: {rec}")
+    return rec
 
 
 @contextlib.contextmanager

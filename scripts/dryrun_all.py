@@ -84,7 +84,7 @@ def main(argv=None) -> int:
                 print(json.dumps({k: r.get(k) for k in (
                     "arch", "shape", "mesh", "flops_per_dev",
                     "bytes_per_dev", "peak_hbm_gib", "dominant", "skipped",
-                    "error")}), flush=True)
+                    "error", "where")}), flush=True)
     failed = [r for r in recs if "error" in r]
     print(f"{len(recs)} records, {len(failed)} errors")
     return 0

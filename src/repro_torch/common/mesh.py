@@ -107,3 +107,52 @@ def psum(y: torch.Tensor, group) -> torch.Tensor:
     if dist.get_world_size(group) == 1:
         return y
     return _PSum.apply(y, group)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        x = x.contiguous()
+        out = x.new_empty((x.shape[0] * dist.get_world_size(group),
+                           *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return scatter_rows(g, ctx.group), None
+
+
+class _ScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        x = x.contiguous()
+        out = x.new_empty((x.shape[0] // dist.get_world_size(group),
+                           *x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_rows(g, ctx.group), None
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's ranks' ``x`` concatenated along dim 0 in group-rank
+    order (``all_gather``), differentiable: the backward sums the
+    gradient over the group and scatters its rows back (``scatter_rows``,
+    the reference's ``all_gather`` transpose)."""
+    return _GatherRows.apply(x, group)
+
+
+def scatter_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the group's ranks' ``x``, this rank's share of its rows
+    in group-rank order (``reduce_scatter``), differentiable: the backward
+    gathers the gradient (``gather_rows``)."""
+    return _ScatterRows.apply(x, group)

@@ -452,6 +452,67 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     return rec
 
 
+# The smallest cells that gave each error torch 2.11's DTensor raised in
+# the production cells (``scripts/dryrun_all.py`` on the card's machine),
+# smoke configs on the fake world that keep the production cell's
+# divisibility: heads a ``model`` rank, rows a data rank and microbatch,
+# ``moe_group_tokens`` groups a row (fewer microbatches where the plan's
+# count only repeats the same step). ``refused``: what 2.11 refused there
+# before the port ran these paths per rank.
+WITNESS_CELLS = tuple(
+    dict(arch=a, shape=s, mesh=m, batch=b, microbatches=mb, cfg=c, refused=r)
+    for a, s, m, b, mb, c, r in (
+        ("mamba2-370m", "train_4k", (2, 2), 32, None, None,
+         "IndexError in the conv's pad (2 heads, 8 rows)"),
+        ("mamba2-370m", "prefill_32k", (2, 2), 32, None, None,
+         "IndexError in the conv's pad"),
+        ("mamba2-370m", "decode_32k", (2, 2), 32, None, None,
+         "flatten of the sharded heads in the state's einsum"),
+        ("zamba2-2.7b", "train_4k", (2, 4), 4, 2, None,
+         "IndexError in the conv's pad (1 row)"),
+        ("zamba2-2.7b", "train_4k", (4, 2), 4, 2, None,
+         "a microbatch of 2 rows over 4 data ranks (2x16x16: 16 over 32)"),
+        ("zamba2-2.7b", "prefill_32k", (2, 4), 32, None, None,
+         "IndexError in the conv's pad"),
+        ("zamba2-2.7b", "decode_32k", (2, 4), 32, None, None,
+         "flatten of the sharded heads in the state's einsum"),
+        ("deepseek-v3-671b", "prefill_32k", (2, 4), 32, None,
+         dict(moe_group_tokens=4),
+         "flatten of the sharded experts in the combine (16 groups a row)"),
+        ("kimi-k2-1t-a32b", "prefill_32k", (2, 4), 32, None,
+         dict(moe_group_tokens=4),
+         "flatten of the sharded experts in the combine"),
+        ("kimi-k2-1t-a32b", "train_4k", (2, 2), 32, None, None,
+         "a view of a permuted local shard in the backward (1 kv head)"),
+        ("qwen3-14b", "train_4k", (2, 4), 32, None,
+         dict(n_heads=10, n_kv_heads=2),
+         "split of the sharded merged heads in the backward (uneven heads)"),
+        ("qwen3-14b", "train_4k", (4, 2), 4, 2, None,
+         "a microbatch of 2 rows over 4 data ranks (2x16x16: 16 over 32)"),
+        ("gemma-7b", "train_4k", (2, 4), 8, 2, None,
+         "a view of a permuted local shard in the backward (1 head, 2 "
+         "rows)"),
+    ))
+
+
+def witness_id(cell: dict) -> str:
+    over = "".join(f"-{k}{v}" for k, v in (cell["cfg"] or {}).items())
+    return f"{cell['arch']}-{cell['shape']}-{mesh_name(cell['mesh'])}{over}"
+
+
+def run_witness(cell: dict, **kw) -> dict:
+    """``run_cell`` of one of ``WITNESS_CELLS`` at sequence length 64
+    (``kw``: ``device_type``, ``verbose``)."""
+    mb = cell["microbatches"]
+    return run_cell(cell["arch"], cell["shape"], mesh_shape=cell["mesh"],
+                    smoke=True, cfg_overrides=cell["cfg"],
+                    shape_overrides=dict(global_batch=cell["batch"],
+                                         seq_len=64),
+                    plan_overrides=None if mb is None
+                    else dict(microbatches=mb),
+                    tag=witness_id(cell), **kw)
+
+
 def _parse_over(items) -> dict:
     out = {}
     for it in items:
@@ -464,6 +525,16 @@ def _parse_over(items) -> dict:
             except ValueError:
                 out[k] = {"true": True, "false": False}.get(v.lower(), v)
     return out
+
+
+def _where(e: BaseException) -> list:
+    """The frames of ``e``'s traceback in this package, outermost first
+    (``path:line function``)."""
+    import traceback
+
+    return [f"{f.filename.rsplit('src/', 1)[-1]}:{f.lineno} {f.name}"
+            for f in traceback.extract_tb(e.__traceback__)
+            if "repro_torch" in f.filename]
 
 
 def main(argv=None) -> int:
@@ -507,7 +578,8 @@ def main(argv=None) -> int:
             except Exception as e:  # noqa: BLE001 — recorded, then exit 1
                 rec = {"arch": arch, "shape": shape,
                        "mesh": mesh_name(PRODUCTION[mp][0]),
-                       "error": f"{type(e).__name__}: {e}"}
+                       "error": f"{type(e).__name__}: {e}",
+                       "where": _where(e)}
                 failures.append(rec)
                 print(f"[{arch} × {shape}] FAILED: {rec['error']}",
                       flush=True)

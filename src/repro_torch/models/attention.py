@@ -110,6 +110,26 @@ def _split_heads(t, n: int, hd: int):
     return t.reshape(*t.shape[:-1], n, hd)
 
 
+def _merge_heads(t):
+    """(B, S, n, hd) -> (B, S, n·hd), the inverse of ``_split_heads``. On a
+    mesh whose ``model`` axis does not divide ``n`` the heads were whole,
+    and the merged product's cotangent is held whole too: the row-parallel
+    ``wo`` after it gives the cotangent back sharded over the merged dim,
+    and the reshape's backward cannot split a shard that falls inside a
+    head."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.sharding import MODEL
+
+    flat = t.reshape(*t.shape[:-2], -1)
+    if isinstance(t, DTensor):
+        mesh = t.device_mesh
+        names = mesh.mesh_dim_names
+        if MODEL in names and t.shape[-2] % mesh.size(names.index(MODEL)):
+            flat = whole(flat)
+    return flat
+
+
 def _n_chunks(n: int, chunk: int) -> int:
     nc = max(1, n // chunk)
     if n % nc:
@@ -205,7 +225,7 @@ def _by_rank(fn, q, k, v):
     else whole, each rank picking those its query heads read). DTensor
     would otherwise flatten the batch dim with the sharded head dim inside
     the einsums, which torch's view rule refuses before 2.13."""
-    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import DTensor
 
     if not isinstance(q, DTensor):
         return fn(q, k, v)
@@ -213,9 +233,7 @@ def _by_rank(fn, q, k, v):
 
     mesh = q.device_mesh
     names = mesh.mesh_dim_names
-    rows = tuple(n for n, p in zip(names, q.placements)
-                 if isinstance(p, Shard) and p.dim == 0)
-    bax = (rows if len(rows) > 1 else rows[0]) if rows else None
+    bax = sharding.rows_of(q)
     h, kvh = q.shape[2], k.shape[2]
     nm = mesh.size(names.index(sharding.MODEL)) \
         if sharding.MODEL in names else 0
@@ -258,7 +276,7 @@ def gqa_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if cache is not None:
         cache["k"][:, :s] = k
         cache["v"][:, :s] = v
-    return out.reshape(b, s, -1) @ p["wo"], cache
+    return _merge_heads(out) @ p["wo"], cache
 
 
 def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, pos: int,
@@ -298,7 +316,7 @@ def _attend_cache(q, news: tuple, caches: tuple, pos: int, scores_fn,
     positions, and the softmax is taken across ranks (the max over
     ``model``, then the sums of the exponentials and of the unnormalized
     contexts), q, the new entries and the context whole there."""
-    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import DTensor
 
     if not isinstance(caches[0], DTensor):
         for c, n in zip(caches, news):
@@ -314,9 +332,7 @@ def _attend_cache(q, news: tuple, caches: tuple, pos: int, scores_fn,
 
     mesh = caches[0].device_mesh
     names = mesh.mesh_dim_names
-    rows = tuple(n for n, p in zip(names, caches[0].placements)
-                 if isinstance(p, Shard) and p.dim == 0)
-    bax = (rows if len(rows) > 1 else rows[0]) if rows else None
+    bax = sharding.rows_of(caches[0])
     m_dim = names.index(sharding.MODEL)
     group = mesh.get_group(m_dim)
 
@@ -412,7 +428,7 @@ def _mla_expanded(p: dict, cfg: ModelConfig, x, positions, c_kv, k_rope):
                    k_rope[:, :, None].expand(b, s, h, k_rope.shape[-1])],
                   dim=-1)
     out = full_attention(cfg, q, k, kvb[..., nope:], scale=_mla_scale(cfg))
-    return out.reshape(b, s, h * vd) @ p["wo"]
+    return _merge_heads(out) @ p["wo"]
 
 
 def mla_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,

@@ -75,10 +75,14 @@ def _causal_conv(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     return F.silu(out + b)
 
 
-def _heads_from_groups(t: torch.Tensor, h: int, g: int) -> torch.Tensor:
-    """(B,S,G,N) -> (B,S,H,N) by repeating each group across its heads."""
-    b, s, _, n = t.shape
-    return t[:, :, :, None].expand(b, s, g, h // g, n).reshape(b, s, h, n)
+def _heads_from_groups(t: torch.Tensor, h: int, g: int,
+                       heads: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., G, N) -> (..., H, N) by repeating each group across its h // g
+    heads; with ``heads`` (head ids) only those heads, (..., len, N)."""
+    if heads is not None:
+        return t.index_select(-2, heads // (h // g))
+    *lead, _, n = t.shape
+    return t[..., None, :].expand(*lead, g, h // g, n).reshape(*lead, h, n)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -142,31 +146,127 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return torch.stack(ys, dim=1).reshape(b, s, h, p_dim), state
 
 
+def _by_rank(fn, h: int, chans: tuple, chan_params: tuple, acts: tuple,
+             params: tuple, state=None):
+    """``fn(*chans, *chan_params, *acts, *params[, state], heads, group)``
+    -> (y, state) over the ``h`` SSM heads, ``heads`` and ``group`` None
+    for every head in this process. ``chans`` are the activations (batch
+    first) over the x stream's channels (h·P, heads major), last;
+    ``chan_params`` the parameters over those channels, last; ``acts`` the
+    other activations (dt, the B/C stream; batch first); ``params`` the
+    other parameters.
+
+    On DTensors each rank runs ``fn`` on its own batch rows and heads
+    through ``sharding.shard_map``: the rows over the data axes as
+    ``chans[0]`` holds them, the heads over ``model`` where they divide it
+    (``chans``' and ``y``'s channels and the state's heads there, and
+    ``group`` the ``model`` group, over which a sum across channels is
+    taken), else whole on every rank; ``acts`` and ``params`` stay whole
+    over ``model``, each rank picking its heads by id. DTensor would
+    otherwise flatten the batch dim with the sharded head dim inside the
+    scan's and the state's einsums, which torch's view rule refuses before
+    2.13, and torch 2.11 cannot redistribute a padded conv input."""
+    from torch.distributed.tensor import DTensor
+
+    st = () if state is None else (state,)
+    if not isinstance(chans[0], DTensor):
+        return fn(*chans, *chan_params, *acts, *params, *st, None, None)
+    from repro_torch.models import sharding
+
+    # the activations' gradients leave whole over ``model`` (``whole``),
+    # their partial sums reduced: left partial, torch 2.13's DTensor
+    # scatters them over the rows of the input products' backward, and
+    # then refuses to view those rows back (``zamba2``'s step on (2, 4))
+    acts = tuple(sharding.whole(a) for a in acts)
+
+    mesh = chans[0].device_mesh
+    names = mesh.mesh_dim_names
+    bax = sharding.rows_of(chans[0])
+    m_dim = names.index(sharding.MODEL) if sharding.MODEL in names else None
+    nm = mesh.size(m_dim) if m_dim is not None else 1
+    split = nm > 1 and h % nm == 0
+    hax = sharding.MODEL if split else None
+    x_spec = (bax, *([None] * (chans[0].ndim - 2)), hax)
+    st_spec = (bax, hax, None, None)
+    specs = (*([x_spec] * len(chans)),
+             *((*([None] * (c.ndim - 1)), hax) for c in chan_params),
+             *((bax, *([None] * (a.ndim - 1))) for a in acts),
+             *((None,) * p.ndim for p in params),
+             *((st_spec,) if st else ()))
+
+    def local(*args):
+        hl = h // nm if split else h
+        h0 = mesh.get_coordinate()[m_dim] * hl if split else 0
+        return fn(*args, h0 + torch.arange(hl, device=args[0].device),
+                  mesh.get_group(m_dim) if split else None)
+
+    return sharding.shard_map(local, mesh, specs, (x_spec, st_spec))(
+        *chans, *chan_params, *acts, *params, *st)
+
+
+def _pick(heads, *per_head):
+    """Each of ``per_head`` (..., H) at ``heads`` (all where None)."""
+    if heads is None:
+        return per_head
+    return tuple(t.index_select(-1, heads) for t in per_head)
+
+
+def _gated_norm(y, z, scale, *, eps: float, dtype, group=None):
+    """mamba2's RMSNormGated: ``y`` cast to ``dtype``, gated by silu(z),
+    then RMS-normalized over its channels. With ``group`` the channels are
+    this rank's share of the whole, and the mean square is summed over
+    the group's ranks."""
+    y = y.to(dtype) * F.silu(z)
+    if group is None:
+        return cnn.rmsnorm(y, scale, eps=eps)
+    import torch.distributed as dist
+
+    from repro_torch.common.mesh import psum
+
+    yf = y.float()
+    var = psum(yf.square().sum(dim=-1, keepdim=True), group) \
+        / (yf.shape[-1] * dist.get_world_size(group))
+    return (yf * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
+
+
 def mamba_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                 return_state: bool = False):
     """Full-sequence Mamba2. x (B,S,D) -> y (B,S,D) [, {"conv_x", "conv_bc",
     "state"}]: the last width - 1 rows of each conv's input (x's dtype) and
-    the final SSM state (f32)."""
-    b, s, _ = x.shape
+    the final SSM state (f32). From the convs to the gated norm it runs
+    per rank on DTensors (``_by_rank``)."""
+    s = x.shape[1]
     h, p_dim, g, n = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_n_groups,
                       cfg.ssm_state)
-    di, w = cfg.d_inner, cfg.ssm_conv
+    w = cfg.ssm_conv
     z = x @ p["in_z"]
     x_raw = x @ p["in_x"]
     bc_raw = x @ p["in_bc"]
     dt_raw = x @ p["in_dt"]
-    xs = _causal_conv(p["conv_x_w"], p["conv_x_b"], x_raw, w).reshape(
-        b, s, h, p_dim)
-    bc = _causal_conv(p["conv_bc_w"], p["conv_bc_b"], bc_raw, w)
-    B_ = _heads_from_groups(bc[..., : g * n].reshape(b, s, g, n), h, g)
-    C_ = _heads_from_groups(bc[..., g * n:].reshape(b, s, g, n), h, g)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    y, final_state = ssd_scan(xs, dt, A, B_, C_, chunk=cfg.ssm_chunk)
-    y = y + p["D"][None, None, :, None] * xs.float()
-    y = y.reshape(b, s, di).to(x.dtype)
-    # gated RMS norm (mamba2's RMSNormGated): gate, then normalize
-    y = cnn.rmsnorm(y * F.silu(z), p["norm"]["scale"], eps=cfg.norm_eps)
+
+    def scan(x_raw, z, conv_x_w, conv_x_b, norm_scale, dt_raw, bc_raw,
+             conv_bc_w, conv_bc_b, dt_bias, A_log, D, heads, group):
+        bl, _, c = x_raw.shape
+        x4 = _causal_conv(conv_x_w, conv_x_b, x_raw, w).reshape(
+            bl, s, c // p_dim, p_dim)
+        bc = _causal_conv(conv_bc_w, conv_bc_b, bc_raw, w)
+        B_ = _heads_from_groups(bc[..., : g * n].reshape(bl, s, g, n), h, g,
+                                heads)
+        C_ = _heads_from_groups(bc[..., g * n:].reshape(bl, s, g, n), h, g,
+                                heads)
+        dt_raw, dt_bias, A_log, D = _pick(heads, dt_raw, dt_bias, A_log, D)
+        dt = F.softplus(dt_raw.float() + dt_bias)
+        A = -torch.exp(A_log)
+        y, final_state = ssd_scan(x4, dt, A, B_, C_, chunk=cfg.ssm_chunk)
+        y = y + D[None, None, :, None] * x4.float()
+        return _gated_norm(y.reshape(bl, s, c), z, norm_scale,
+                           eps=cfg.norm_eps, dtype=x.dtype,
+                           group=group), final_state
+
+    y, final_state = _by_rank(
+        scan, h, (x_raw, z), (p["conv_x_w"], p["conv_x_b"],
+                              p["norm"]["scale"]), (dt_raw, bc_raw),
+        (p["conv_bc_w"], p["conv_bc_b"], p["dt_bias"], p["A_log"], p["D"]))
     out = y @ p["out_proj"]
     if not return_state:
         return out
@@ -200,11 +300,10 @@ def _window_conv(win: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def mamba_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
                  cache: dict) -> tuple:
     """One-token step. x (B,1,D) -> (y (B,1,D), cache); the cache is
-    written in place."""
-    b = x.shape[0]
+    written in place. From the state update to the gated norm it runs per
+    rank on DTensors (``_by_rank``)."""
     h, p_dim, g, n = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_n_groups,
                       cfg.ssm_state)
-    di = cfg.d_inner
     x0 = x[:, 0]
     z, x_new, bc_new, dt_raw = (x0 @ p["in_z"], x0 @ p["in_x"],
                                 x0 @ p["in_bc"], x0 @ p["in_dt"])
@@ -213,20 +312,28 @@ def mamba_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     win_bc = torch.cat([cbc, bc_new[:, None].to(cbc.dtype)], dim=1)
     xs = F.silu(_window_conv(win_x, p["conv_x_w"]) + p["conv_x_b"])
     bc = F.silu(_window_conv(win_bc, p["conv_bc_w"]) + p["conv_bc_b"])
-    xs = xs.reshape(b, h, p_dim).float()
-    rep = h // g
-    B_h = bc[..., : g * n].reshape(b, g, 1, n).expand(b, g, rep, n).reshape(
-        b, h, n).float()
-    C_h = bc[..., g * n:].reshape(b, g, 1, n).expand(b, g, rep, n).reshape(
-        b, h, n).float()
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B,H)
-    A = -torch.exp(p["A_log"])
-    decay = torch.exp(dt * A[None, :])  # (B,H)
-    state = cache["state"] * decay[:, :, None, None] \
-        + torch.einsum("bh,bhn,bhp->bhnp", dt, B_h, xs)
-    y = torch.einsum("bhn,bhnp->bhp", C_h, state) + p["D"][None, :, None] * xs
-    y = y.reshape(b, di).to(x.dtype)
-    y = cnn.rmsnorm(y * F.silu(z), p["norm"]["scale"], eps=cfg.norm_eps)
+
+    def step(xs, z, norm_scale, dt_raw, bc, dt_bias, A_log, D, state, heads,
+             group):
+        bl, c = xs.shape
+        x3 = xs.reshape(bl, c // p_dim, p_dim).float()
+        B_h = _heads_from_groups(bc[..., : g * n].reshape(bl, g, n), h, g,
+                                 heads).float()
+        C_h = _heads_from_groups(bc[..., g * n:].reshape(bl, g, n), h, g,
+                                 heads).float()
+        dt_raw, dt_bias, A_log, D = _pick(heads, dt_raw, dt_bias, A_log, D)
+        dt = F.softplus(dt_raw.float() + dt_bias)  # (B,H)
+        A = -torch.exp(A_log)
+        decay = torch.exp(dt * A[None, :])  # (B,H)
+        state = state * decay[:, :, None, None] \
+            + torch.einsum("bh,bhn,bhp->bhnp", dt, B_h, x3)
+        y = torch.einsum("bhn,bhnp->bhp", C_h, state) \
+            + D[None, :, None] * x3
+        return _gated_norm(y.reshape(bl, c), z, norm_scale, eps=cfg.norm_eps,
+                           dtype=x.dtype, group=group), state
+
+    y, state = _by_rank(step, h, (xs, z), (p["norm"]["scale"],), (dt_raw, bc),
+                        (p["dt_bias"], p["A_log"], p["D"]), cache["state"])
     out = (y @ p["out_proj"])[:, None]
     cx.copy_(win_x[:, 1:])
     cbc.copy_(win_bc[:, 1:])

@@ -15,10 +15,10 @@ parameter dtype); the dispatch, the experts and the combine run in x's
 dtype. Ties in the router's top-k go to the smaller expert id, as
 ``lax.top_k`` breaks them.
 
-Under an activation context (``sharding.act_axes``) the batch dim of
-each intermediate is pinned to the data axes with ``constrain_batch``, as
-in the reference; without one that does nothing. The expert-parallel
-scatter form over ``torch.distributed`` is ``models/moe_sharded.py``.
+On DTensors each rank routes its own batch rows and runs its own experts
+(``_by_rank``), the reference's GSPMD layout: tokens over the data axes,
+experts over ``model``. The expert-parallel scatter form over
+``torch.distributed`` is ``models/moe_sharded.py``.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from torch import nn
 from repro_torch.common import nn as cnn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.ffn import FFN, ffn_apply
-from repro_torch.models.sharding import constrain_batch, settle
+from repro_torch.models.sharding import settle
 
 
 class MoE(nn.Module):
@@ -129,25 +129,128 @@ def aux_losses(probs, top_i, keep) -> dict:
             "moe_drop_frac": settle(1.0 - keep.float().mean())}
 
 
+def _gshard(p: dict, cfg: ModelConfig, xg: torch.Tensor, first: int = 0,
+            f_group=None) -> tuple:
+    """Routing, dispatch, experts and combine over the groups ``xg`` (G, S,
+    D), the experts ``first ..`` as many as ``p``'s weights hold (all by
+    default). With ``f_group`` the weights hold this rank's share of the
+    FFN dim: the dispatched rows of every rank of that process group run
+    through them, and each rank gets back its own rows' sum over the
+    group (``_stationary``). -> (y (G, S, D), probs, top_i, keep)."""
+    e, k = cfg.n_experts, cfg.n_experts_per_tok
+    logits = xg.float() @ p["router"].float()
+    top_w, top_i, probs = router_topk(logits, k)
+    cap = group_capacity(xg.shape[1], cfg)
+    dispatch, combine, keep = routing_tensors(top_w, top_i, xg.dtype, e, cap)
+    el = p["w_up"].shape[0]
+    if el != e:
+        dispatch = dispatch[:, :, first: first + el]
+        combine = combine[:, :, first: first + el]
+    expert_in = torch.einsum("bsec,bsd->becd", dispatch, xg)
+    if f_group is None:
+        expert_out = experts_ffn(p, cfg, expert_in)
+    else:
+        expert_out = _stationary(p, cfg, expert_in, f_group)
+    y = torch.einsum("bsec,becd->bsd", combine, expert_out)
+    return y, probs, top_i, keep
+
+
+def _stationary(p: dict, cfg: ModelConfig, expert_in: torch.Tensor,
+                group) -> torch.Tensor:
+    """``experts_ffn`` on weights that hold this rank's share of the FFN
+    dim (the serving layout): the dispatched rows (G, E, C, D) of the
+    group's ranks gathered, each rank's share of every row's FFN, and the
+    partial outputs summed back onto the rows' own rank."""
+    from repro_torch.common.mesh import gather_rows, scatter_rows
+
+    return scatter_rows(experts_ffn(p, cfg, gather_rows(expert_in, group)),
+                        group)
+
+
+def _by_rank(p: dict, cfg: ModelConfig, x, gt: int):
+    """``_gshard`` over groups of ``gt`` tokens of ``x`` on DTensors, through
+    ``sharding.shard_map``: each rank routes its own batch rows (over the
+    data axes as ``x`` holds them; a row's groups are the rank's) and runs
+    its own experts (over ``model`` where they divide it, else every
+    expert on every rank), and the ranks' partial outputs are summed over
+    ``model``. -> (y (B, S, D), probs, top_i, keep), the last three by
+    group. DTensor would otherwise flatten a sharded expert dim with
+    another inside the dispatch, expert and combine einsums, which torch's
+    view rule refuses before 2.13.
+
+    Where the expert weights' FFN dim lies over one data axis (the
+    serving layout, ``moe_shard_ffn_dim``), the weights or the tokens
+    move, whichever is fewer bytes, as the reference's partitioner
+    chooses: the tokens (``_stationary``) when the dispatched rows of that
+    axis weigh less than the expert weights (a decode step), else the
+    weights, gathered whole there (a long prefill; in the training layout
+    always)."""
+    from repro_torch.common.mesh import psum
+    from repro_torch.models import sharding
+
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    m_dim = names.index(sharding.MODEL) if sharding.MODEL in names else None
+    nm = mesh.size(m_dim) if m_dim is not None else 1
+    split = nm > 1 and cfg.n_experts % nm == 0
+    ex = sharding.MODEL if split else None
+    ws = ("w_up", "w_gate", "w_down")
+    row_spec = (sharding.rows_of(x), None, None)
+    f_ax = sharding.spec_of(p["w_up"])[2]
+    if isinstance(f_ax, str) and _tokens_move(cfg, x, gt, mesh, nm, f_ax,
+                                             p["w_up"].element_size()):
+        w_specs = ((ex, None, f_ax), (ex, None, f_ax), (ex, f_ax, None))
+        f_group = mesh.get_group(names.index(f_ax))
+    else:
+        w_specs = ((ex, None, None),) * 3
+        f_group = None
+
+    def local(xl, router, *w):
+        first = mesh.get_coordinate()[m_dim] * w[0].shape[0] if split else 0
+        y, probs, top_i, keep = _gshard(
+            {"router": router, **dict(zip(ws, w))}, cfg,
+            xl.reshape(-1, gt, xl.shape[-1]), first, f_group)
+        y = y.reshape(xl.shape)
+        if split:
+            y = psum(y, mesh.get_group(m_dim))
+        return y, probs, top_i, keep
+
+    return sharding.shard_map(
+        local, mesh, (row_spec, (None, None), *w_specs),
+        (row_spec,) * 4)(x, p["router"], *(p[w] for w in ws))
+
+
+def _tokens_move(cfg: ModelConfig, x, gt: int, mesh, nm: int, f_ax: str,
+                 w_bytes: int) -> bool:
+    """Whether a rank's dispatched rows (groups of ``gt`` tokens), gathered
+    over the data axis ``f_ax`` and their outputs scattered back, are
+    fewer bytes than the three expert weights gathered whole over it."""
+    from repro_torch.models import sharding
+
+    b, s, d = x.shape
+    n_rows = 1
+    rows = sharding.rows_of(x)
+    for a in (rows if isinstance(rows, tuple) else (rows,) if rows else ()):
+        n_rows *= mesh.size(mesh.mesh_dim_names.index(a))
+    el = cfg.n_experts // nm if cfg.n_experts % nm == 0 else cfg.n_experts
+    n_f = mesh.size(mesh.mesh_dim_names.index(f_ax))
+    tokens = 2 * (b // n_rows) * (s // gt) * n_f * el \
+        * group_capacity(gt, cfg) * d
+    return tokens * x.element_size() < 3 * el * d * cfg.moe_d_ff * w_bytes
 def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple:
     """x (B, S, D) -> (y (B, S, D), aux dict). Grouped GShard dispatch; with
     ``moe_group_tokens`` g (dividing S, below it) each row splits into
-    groups of g tokens."""
+    groups of g tokens. On DTensors it runs per rank (``_by_rank``)."""
+    from torch.distributed.tensor import DTensor
+
     b0, s0, d = x.shape
-    e, k = cfg.n_experts, cfg.n_experts_per_tok
     g = cfg.moe_group_tokens
-    xg = x.reshape(b0 * (s0 // g), g, d) if g and g < s0 and s0 % g == 0 \
-        else x
-    xg = constrain_batch(xg)
-    s = xg.shape[1]
-    logits = xg.float() @ p["router"].float()
-    top_w, top_i, probs = router_topk(logits, k)
-    cap = group_capacity(s, cfg)
-    dispatch, combine, keep = routing_tensors(top_w, top_i, xg.dtype, e, cap)
-    expert_in = constrain_batch(torch.einsum("bsec,bsd->becd", dispatch, xg))
-    expert_out = constrain_batch(experts_ffn(p, cfg, expert_in))
-    y = constrain_batch(torch.einsum("bsec,becd->bsd", combine, expert_out)
-                        ).reshape(b0, s0, d)
+    gt = g if g and g < s0 and s0 % g == 0 else s0  # tokens a group
+    if isinstance(x, DTensor):
+        y, probs, top_i, keep = _by_rank(p, cfg, x, gt)
+    else:
+        y, probs, top_i, keep = _gshard(p, cfg, x.reshape(-1, gt, d))
+        y = y.reshape(b0, s0, d)
     if cfg.n_shared_experts:
         y = y + ffn_apply(p["shared"], x, cfg.ffn_act)
     return y, aux_losses(probs, top_i, keep)

@@ -245,11 +245,13 @@ def activation_spec(data_axes=("data",), *, seq_shard: bool = False
 # DTensor placements
 # ---------------------------------------------------------------------------
 
-def placements(spec: tuple, mesh) -> list:
+def placements(spec: tuple, mesh, shape=None) -> list:
     """One placement per mesh dimension: ``Shard(d)`` where tensor dim d's
     entry names that mesh axis (alone or in a tuple), else
     ``Replicate()``. A dim over several axes is split major axis first,
-    as the mesh's dims are ordered."""
+    as the mesh's dims are ordered. With the tensor's ``shape``, a dim is
+    split only over those of its axes that divide it evenly
+    (``even_axes``)."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = mesh.mesh_dim_names
@@ -258,12 +260,39 @@ def placements(spec: tuple, mesh) -> list:
     for d, entry in enumerate(spec):
         if entry is None:
             continue
-        for ax in entry if isinstance(entry, tuple) else (entry,):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        for ax in axes:
             if ax not in known:
                 raise ValueError(f"spec {spec} names {ax!r}, not a "
                                  f"dimension of the mesh {names}")
+        if shape is not None:
+            axes = even_axes(axes, mesh, shape[d])
+        for ax in axes:
             out[names.index(ax)] = Shard(d)
     return out
+
+
+def even_axes(axes: tuple, mesh, n: int) -> tuple:
+    """Of the mesh ``axes`` one tensor dim of size ``n`` lies over, those
+    (in order) whose sizes' product is the largest that divides ``n``,
+    the minor axes first among equals; the others keep the dim whole. The
+    reference's GSPMD pads an uneven dim (16 microbatch rows over 2×16
+    data devices hold 16 rows and 16 of padding); DTensor would cut it
+    into unequal shards, and ``local_map`` (``shard_map``) infers a global
+    size from the local one, wrong for an unequal shard. Replicating over
+    the axes left out gives each device the same rows as the padded
+    layout does."""
+    sizes = [mesh.size(mesh.mesh_dim_names.index(a)) for a in axes]
+    best, best_n = (), 1
+    for mask in range(1 << len(axes)):
+        pick = [i for i in range(len(axes)) if mask >> i & 1]
+        prod = 1
+        for i in pick:
+            prod *= sizes[i]
+        if n % prod == 0 and (prod > best_n or prod == best_n
+                              and sum(pick) > sum(best)):
+            best, best_n = tuple(pick), prod
+    return tuple(axes[i] for i in best)
 
 
 def place(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
@@ -346,8 +375,9 @@ def constrain_batch(x, batch_dim: int = 0):
     if ctx is None or not isinstance(x, DTensor):
         return x
     mesh = x.device_mesh
-    axes = ctx["batch"] if isinstance(ctx["batch"], tuple) else (ctx["batch"],)
     bd = batch_dim % x.ndim
+    axes = even_axes(ctx["batch"] if isinstance(ctx["batch"], tuple)
+                     else (ctx["batch"],), mesh, x.shape[bd])
     want = []
     for name, p in zip(mesh.mesh_dim_names, x.placements):
         if name in axes:
@@ -375,6 +405,16 @@ class _ScaleGrad(torch.autograd.Function):
         return g * ctx.s, None
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def shard_map(fn, mesh, in_specs, out_specs):
     """``fn`` over each rank's local tensors, as the reference's
     ``shard_map(fn, mesh, in_specs, out_specs)`` with ``check_vma=False``:
@@ -400,7 +440,11 @@ def shard_map(fn, mesh, in_specs, out_specs):
         scales.append(1.0 / n)
 
     def body(*args):
-        outs = fn(*args)
+        # the inputs' gradients leave contiguous: torch 2.11's DTensor
+        # runs a view of a global tensor as a ``view`` of its local shard,
+        # which a permuted gradient (an einsum's) cannot always take
+        outs = fn(*(_ContiguousGrad.apply(a) if a.requires_grad else a
+                    for a in args))
         return tuple(_ScaleGrad.apply(o, s) if o.requires_grad and s != 1.0
                      else o for o, s in zip(outs, scales))
 
@@ -416,7 +460,7 @@ def constrain(x, spec: tuple):
 
     if not isinstance(x, DTensor):
         return x
-    pl = placements(spec, x.device_mesh)
+    pl = placements(spec, x.device_mesh, x.shape)
     return _pinned(x if list(x.placements) == pl
                    else x.redistribute(x.device_mesh, pl))
 
@@ -478,6 +522,17 @@ class _Settle(torch.autograd.Function):
         if any(p.is_partial() for p in g.placements):
             g = g.redistribute(g.device_mesh, ctx.pl)
         return g, None
+
+
+def rows_of(x):
+    """The mesh axes that shard a DTensor's dim 0, its batch rows, as a
+    spec entry: one axis name, a tuple of several, or None."""
+    from torch.distributed.tensor import Shard
+
+    rows = tuple(n for n, p in zip(x.device_mesh.mesh_dim_names,
+                                   x.placements)
+                 if isinstance(p, Shard) and p.dim == 0)
+    return (rows if len(rows) > 1 else rows[0]) if rows else None
 
 
 def spec_of(x) -> tuple:
@@ -550,6 +605,5 @@ def whole(x):
     x = settle(x)
     pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
           for p in x.placements]
-    if pl == list(x.placements):
-        return x
-    return _pinned(x.redistribute(x.device_mesh, pl))
+    return _pinned(x if pl == list(x.placements)
+                   else x.redistribute(x.device_mesh, pl))

@@ -1,8 +1,8 @@
 """Boundaries of the PyTorch port.
 
 * No file of ``src/repro_torch/``, not ``chip_smoke.py`` and not the
-  kernel-variant scripts (``scripts/*_variants.py``) nor the dry-run sweep
-  (``scripts/dryrun_all.py``) imports ``jax`` or the
+  kernel-variant scripts (``scripts/*_variants.py``) nor the dry-run
+  scripts (``scripts/dryrun_*.py``) imports ``jax`` or the
   JAX package ``repro`` (an AST scan, so lazy imports inside functions
   count too).
 * Entry points run on the CUDA device by default: with no CUDA device and
@@ -27,7 +27,7 @@ cap()
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*_variants.py")) \
-    + [ROOT / "scripts" / "dryrun_all.py"]
+    + sorted((ROOT / "scripts").glob("dryrun_*.py"))
 
 
 def _imported_modules(path: pathlib.Path) -> list:

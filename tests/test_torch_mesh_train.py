@@ -16,8 +16,10 @@ Cases: ``stablelm`` smoke with AdamW f32 moments (one microbatch) and
 with the int8 first moment (two microbatches), B=8; ``deepseek-v3`` smoke
 (MLA, MTP) with ``moe_impl="sharded"``, B=2, so each data shard holds one
 row and the sharded MoE's per-shard capacity groups are the one-process
-MoE's per-row groups. Remat is off in every case (it recomputes the same
-forward; ``test_torch_train_step.py`` holds it).
+MoE's per-row groups; ``mamba2`` and ``zamba2`` smoke with AdamW f32
+moments, B=4 (the SSD scan, its convs and gated norm run per rank over
+their heads, ``models/mamba2._by_rank``). Remat is off in every case (it
+recomputes the same forward; ``test_torch_train_step.py`` holds it).
 
 * two steps' losses and metrics, and the parameters after them, equal the
   one-process port step and the reference's, within atol/rtol 1e-4 (the
@@ -34,7 +36,7 @@ forward; ``test_torch_train_step.py`` holds it).
   ``ckpt.restore(shardings=)``, and its second step there equals the
   second step without the restore.
 
-Run alone (~110 s): ``PYTHONPATH=src python -m pytest -q
+Run alone (~140 s): ``PYTHONPATH=src python -m pytest -q
 tests/test_torch_mesh_train.py``.
 """
 import dataclasses
@@ -63,6 +65,10 @@ CASES = {
     "deepseek-sharded": ("deepseek-v3-671b", 2, dict(
         optimizer="adamw", state_dtype="float32", microbatches=1),
         {"moe_impl": "sharded"}),
+    "mamba2-adamw-f32": ("mamba2-370m", 4, dict(
+        optimizer="adamw", state_dtype="float32", microbatches=1), {}),
+    "zamba2-adamw-f32": ("zamba2-2.7b", 4, dict(
+        optimizer="adamw", state_dtype="float32", microbatches=1), {}),
 }
 RESTORED = "stablelm-adamw-int8-mb2"
 PLAN = dict(lr=1e-3, warmup=2, total_steps=10, remat=False)

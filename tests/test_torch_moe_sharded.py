@@ -19,7 +19,12 @@ a few tokens, so the two shards drop different shares:
 * ``moe_drop_frac`` is data shard 0's, which differs from shard 1's at
   1.25 (the reference's quirk, ROADMAP Queue 3);
 * at 8 the sharded y equals one-process ``moe_apply`` of both packages;
-* ``shard_params`` slices a whole layer into shares that reassemble it.
+* ``shard_params`` slices a whole layer into shares that reassemble it;
+* ``moe.moe_apply`` on DTensors (the GShard MoE per rank, the serving
+  layout: experts over ``model``, their FFN dim over ``data``) equals the
+  reference's one-process ``moe_apply`` at capacity factor 8, y and aux:
+  on one token a row, where the dispatched tokens move over ``data``, and
+  on rows of four groups of four tokens, where the expert weights do.
 
 Run alone: ``PYTHONPATH=src python -m pytest -q tests/test_torch_moe_sharded.py``.
 """
@@ -45,6 +50,8 @@ CASES = {"cf8": 8.0, "cf1.25": 1.25}
 TIMEOUT_S = 240
 TOL = dict(atol=1e-4, rtol=1e-4)
 AUX = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
+# the GShard MoE on DTensors: (input's tokens a row, moe_group_tokens)
+GSHARD = {"one-token": (1, 0), "grouped": (S, 4)}
 
 
 def _cfg(configs, cf: float):
@@ -105,6 +112,14 @@ def _jax_reference(d: str) -> None:
             y, aux = jax.jit(lambda p, x, cfg=cfg: moe_apply_sharded(
                 p, cfg, x, batch_axes="data", mesh=mesh))(p, x)
         y1, aux1 = moe.moe_apply(p, cfg, x)
+        if case == "cf8":
+            for name, (s, g) in GSHARD.items():
+                yg, auxg = moe.moe_apply(
+                    p, dataclasses.replace(cfg, moe_group_tokens=g),
+                    x[:, :s])
+                arrs[f"gshard/{name}/y"] = np.asarray(yg)
+                for k in AUX:
+                    arrs[f"gshard/{name}/{k}"] = np.asarray(auxg[k])
         arrs[f"{case}/y"] = np.asarray(y)
         arrs[f"{case}/y_one"] = np.asarray(y1)
         for k in AUX:
@@ -118,7 +133,9 @@ def _rank(r: int, d: str) -> None:
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch import configs
+    from repro_torch.models import moe as tmoe
     from repro_torch.models import moe_sharded as ms
+    from repro_torch.models import sharding
     from repro_torch.common.mesh import mesh_shard, shard_rows
 
     torch.set_num_threads(1)
@@ -141,6 +158,20 @@ def _rank(r: int, d: str) -> None:
             arrs[f"{case}/y"] = y.numpy()
             for k in AUX:
                 arrs[f"{case}/{k}"] = aux[k].numpy()
+        # the GShard MoE per rank on DTensors, in the serving layout
+        cfg = _cfg(configs, CASES["cf8"])
+        placed = _nest({k: sharding.place(v, sharding.spec_for_path(
+            "moe/" + k, v.ndim, "data", moe_shard_ffn_dim=True), mesh)
+            for k, v in _flat_t(p).items()})
+        x = torch.tensor(_x(cfg.d_model, skewed=False))
+        for name, (s, g) in GSHARD.items():
+            y, aux = tmoe.moe_apply(
+                placed, dataclasses.replace(cfg, moe_group_tokens=g),
+                sharding.place(x[:, :s].contiguous(), ("data", None, None),
+                               mesh))
+            arrs[f"gshard/{name}/y"] = y.full_tensor().numpy()
+            for k in AUX:
+                arrs[f"gshard/{name}/{k}"] = aux[k].full_tensor().numpy()
         arrs["place"] = np.array([mesh_shard(mesh)[1],
                                   mesh_shard(mesh, ("model",))[1]])
         np.savez(f"{d}/rank{r}.npz", **arrs)
@@ -177,6 +208,16 @@ def runs(tmp_path_factory):
     return dict(jax=dict(np.load(f"{d}/jax.npz")),
                 ranks=[dict(np.load(f"{d}/rank{r}.npz"))
                        for r in range(N_RANKS)])
+
+
+def _flat_t(p: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in p.items():
+        if isinstance(v, dict):
+            out.update(_flat_t(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
 
 
 def _rows(rank: dict) -> slice:
@@ -279,6 +320,17 @@ def test_shard_params_reassemble_the_layer(runs):
     with pytest.raises(ValueError, match="experts"):
         ms.shard_params(p, cfg, data_shard=0, n_data=N_DATA, model_rank=0,
                         n_model=3)
+
+
+
+@pytest.mark.parametrize("name", sorted(GSHARD))
+def test_gshard_by_rank_equals_one_process(runs, name):
+    ref = runs["jax"]
+    for r, got in enumerate(runs["ranks"]):
+        for k in ("y", *AUX):
+            np.testing.assert_allclose(got[f"gshard/{name}/{k}"],
+                                       ref[f"gshard/{name}/{k}"], **TOL,
+                                       err_msg=f"rank {r} {k}")
 
 
 if __name__ == "__main__":

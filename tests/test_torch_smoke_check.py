@@ -1247,3 +1247,20 @@ def test_mesh17_walks_on_the_cpu_and_refuses_planted_offsets(smoke,
     assert smoke.check_peak(1.1e9, 1e9) == pytest.approx(0.1)
     with pytest.raises(AssertionError, match="17 \\(d\\)"):
         smoke.check_peak(1.2e9, 1e9)
+
+
+def test_witness_check_refuses_a_record_without_a_step(smoke):
+    """Phase 17 (d)'s ``check_witness`` passes a whole record and refuses
+    a skipped cell, a record with no FLOPs and one whose peak is below its
+    arguments."""
+    from repro_torch.launch import dryrun
+
+    cell = dryrun.WITNESS_CELLS[0]
+    rec = dict(tag=dryrun.witness_id(cell), flops_per_dev=1.0,
+               bytes_per_dev=2.0, peak_bytes_per_dev=8,
+               arg_bytes_per_dev=4)
+    assert smoke.check_witness(rec, cell) is rec
+    for bad in (dict(rec, skipped="why"), dict(rec, flops_per_dev=0.0),
+                dict(rec, peak_bytes_per_dev=2)):
+        with pytest.raises(AssertionError, match="17 \\(d\\)"):
+            smoke.check_witness(bad, cell)
